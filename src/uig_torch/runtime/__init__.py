@@ -1,0 +1,3 @@
+from uig_torch.runtime.device import resolve_device
+
+__all__ = ["resolve_device"]
