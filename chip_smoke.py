@@ -1,34 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's training step and serving path on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises and exits non-zero:
+Phases, each printing JSON lines; any failure raises and exits non-zero:
 
 1. env: the card's name and power limit (nvidia-smi), torch/CUDA versions,
    and the time to build the CUDA kernels from ``src/uig_torch/csrc``.
-2. kernels: each CUDA kernel at the shapes the generator gives it, held
-   against its plain PyTorch version on the card (fp32, TF32 off) within a
-   stated tolerance, and timed with CUDA events beside the plain version,
-   one PyTorch library call computing the same function (a yardstick the
-   port never calls), and the least time the card could take (bound).
-3. slice: a ``Translator`` for ``cyclegan256_dp`` at full width, weights in
+2. kernels: each CUDA kernel at the shapes the training step and the
+   generator give it, held against its plain PyTorch version on the card
+   (fp32, TF32 off) within a stated tolerance, and timed with CUDA events
+   beside the plain version, one PyTorch library call computing the same
+   function (a yardstick the port never calls), and the least time the card
+   could take (bound). Also the library convs of the fused conv3+IN
+   backward, timed with their bound.
+3. train: a ``CycleGANTrainer`` for ``cyclegan256_dp`` at full width with
+   ``model.compute_dtype=float32`` and ``loss.lambda_lpips=0``, from a
+   seeded state, on seeded uint8 (8, 286, 286, 3) batches, under
+   ``torch.use_deterministic_algorithms(True)``. One step's kernel
+   launches; 3 steps twice from one state must give byte-identical state;
+   one step at batch 1 on the card and on the CPU (plain versions) must
+   agree, beside two control runs that say where a gap comes from
+   (``compare_card_cpu`` states the tolerances); ~20 steps on a fixed
+   batch keep finite losses and a falling cycle loss; step time (median of
+   CUDA-event timings), img/s, peak memory, and the top device kernels and
+   idle share of one profiled step.
+4. slice: a ``Translator`` for ``cyclegan256_dp`` at full width, weights in
    the flax layout made from a seed with numpy and carried through
    ``uig_torch.convert``. A seeded uint8 batch (8, 286, 286, 3) goes through
    twice and must come out byte-identical; two images through the same model
    on the CPU (plain versions) must agree within 1 uint8 step; each apply
    must launch instance norm 5 times, conv3+IN 18 times, conv7 once.
-4. serve: the HTTP server on the card answers 12 concurrent PNG requests,
+5. serve: the HTTP server on the card answers 12 concurrent PNG requests,
    each equal to a direct ``Translator`` call, and reports its /stats.
 
-Then one ``kernels`` line (every kernel with its launches in one apply of
-the main path, its error, times and bound), the nvidia-smi line, and, last,
+Then one ``kernels`` line (every kernel with its launches in one training
+step and in one translate apply, its error, and its times and bound summed
+over one training step), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import io
 import json
@@ -42,28 +58,64 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# cuBLAS needs a fixed workspace to run deterministically (the train phase
+# runs under torch.use_deterministic_algorithms); set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PRESET = "cyclegan256_dp"
+TRAIN_OVERRIDES = ["model.compute_dtype=float32", "loss.lambda_lpips=0"]
 BATCH = 8
 SEED = 0
 # H100 SXM data-sheet peaks (at 700 W): fp32 outside the tensor cores, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# max |kernel - plain| on the card: fp32 sums in another order. Normalized
-# outputs are O(1); the conv sums run over up to 9*256 and 49*64 terms.
-TOL = {"instance_norm": 1e-4, "conv3_in_act": 2e-4, "conv7": 1e-4}
+# Tolerances against the plain version on the card, on the error each case
+# reports: max |kernel - plain| for outputs of O(1) (fp32 sums in another
+# order over up to 9*256 and 49*64 terms); for sums over a whole batch and
+# plane (the norm backward's dgamma/dbeta, the 7x7 wgrad) the error relative
+# to the largest value; the augment kernel is exact up to 1 ulp.
+TOL = {"augment_batch": 2.4e-7, "instance_norm": 1e-4,
+       "instance_norm_bwd": 1e-4, "conv3_in_act": 2e-4, "conv7": 1e-4,
+       "conv7_dgrad": 1e-4, "conv7_wgrad": 1e-4}
+# The card-vs-CPU step at batch 1 (compare_card_cpu): the largest gradient
+# gap allowed, relative to the network's largest gradient, and as a multiple
+# of the gap that a one-ulp nudge of the parameters makes on the card. On an
+# H100 (700 W) the four pairs read 4.8e-3 to 6.7e-3 for G and 1.4e-3 to
+# 1.6e-3 for D, the nudge alone 6.2e-3 and 1.6e-3: no fp32 pair of
+# implementations agrees closer at this size, so the limits sit at 1.5x the
+# largest reading and 2x the nudge's.
+GRAD_GAP = 1e-2
+GRAD_GAP_OVER_FLOOR = 2.0
 REPLACES = {
+    "augment_batch": "src/uig/kernels/augment_pallas.py:117",
     "instance_norm": "src/uig/kernels/norm_pallas.py:127",
+    "instance_norm_bwd": "src/uig/kernels/norm_pallas.py:145",
     "conv3_in_act": "src/uig/kernels/convin_pallas.py:141",
     "conv7": "src/uig/kernels/conv_pallas.py:209",
+    "conv7_dgrad": "src/uig/kernels/conv_pallas.py:209",
+    "conv7_wgrad": "src/uig/kernels/conv_pallas.py:273",
 }
 SOURCES = {
+    "augment_batch": "src/uig_torch/csrc/augment.cu",
     "instance_norm": "src/uig_torch/csrc/instance_norm.cu",
+    "instance_norm_bwd": "src/uig_torch/csrc/instance_norm_bwd.cu",
     "conv3_in_act": "src/uig_torch/csrc/conv3_in.cu",
     "conv7": "src/uig_torch/csrc/conv7.cu",
+    "conv7_dgrad": "src/uig_torch/csrc/conv7_bwd.cu",
+    "conv7_wgrad": "src/uig_torch/csrc/conv7_bwd.cu",
 }
-PER_APPLY = {"instance_norm": 5, "conv3_in_act": 18, "conv7": 1}
+PER_APPLY = {"augment_batch": 0, "instance_norm": 5, "instance_norm_bwd": 0,
+             "conv3_in_act": 18, "conv7": 1, "conv7_dgrad": 0,
+             "conv7_wgrad": 0}
+# launches in one training step of cyclegan256_dp (fused applies): 4
+# generator applies (2 at 2B, 2 at B) with 5 norms, 18 conv3+IN and 1 head
+# each; 4 discriminator applies (2 at B in the G loss, 2 at 2B in the D
+# loss) with 3 norms each; every norm and conv3+IN is differentiated, and
+# each conv3+IN backward runs the norm backward once.
+PER_STEP = {"augment_batch": 2, "instance_norm": 32,
+            "instance_norm_bwd": 32 + 72, "conv3_in_act": 72, "conv7": 4,
+            "conv7_dgrad": 4, "conv7_wgrad": 4}
 
 
 def emit(obj: dict) -> None:
@@ -111,14 +163,64 @@ def max_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _abs_check(out, ref):
+    err = max_err(out, ref)
+    return err, err, {}
+
+
+def _rel_check(out, ref):
+    err = max_err(out, ref)
+    return err, err / max(ref.abs().max().item(), 1e-30), {}
+
+
+def _norm_bwd_check(x, g, b, relu):
+    """dx where the recomputed pre-activation is >= 1e-4 from 0 (at the ReLU
+    kink either side is right), dgamma and dbeta relative to their max."""
+    import torch
+
+    from uig_torch.kernels import instance_norm_reference
+
+    keep = None
+    if relu:
+        xn = instance_norm_reference(x, torch.ones_like(g),
+                                     torch.zeros_like(b))
+        keep = (xn * g + b).abs() >= 1e-4
+
+    def check(out, ref):
+        dx, dg, db = out
+        rdx, rdg, rdb = ref
+        if keep is not None:
+            dx, rdx = dx[keep], rdx[keep]
+        ex = max_err(dx, rdx)
+        eg, eb = max_err(dg, rdg), max_err(db, rdb)
+        rel = max(ex, eg / max(rdg.abs().max().item(), 1e-30),
+                  eb / max(rdb.abs().max().item(), 1e-30))
+        skipped = 0 if keep is None else int((~keep).sum().item())
+        return max(ex, eg, eb), rel, {"dx_elements_at_relu_kink": skipped}
+    return check
+
+
+def _case(name, label, step, apply, fn, plain, lib, nbytes, flops,
+          check=_abs_check):
+    return {"name": name, "case": label, "step": step, "apply": apply,
+            "fn": fn, "plain": plain, "lib": lib, "bytes": nbytes,
+            "flops": flops, "check": check}
+
+
 def kernel_cases(dev):
-    """Yield (kernel name, case label, calls per apply, kernel fn, plain fn,
-    library fn, bytes, flops) at the shapes the generator gives each kernel."""
+    """Yield one case per kernel and shape of the training step and the
+    translate apply: calls per training step and per translate apply, the
+    kernel, its plain version, a library call, bytes and flops."""
     import torch
     import torch.nn.functional as F
 
-    from uig_torch.kernels import (conv3_in_act, conv3_in_act_reference,
-                                   conv7, conv7_reference, instance_norm,
+    from uig_torch.kernels import (augment_batch, augment_batch_reference,
+                                   conv3_in_act, conv3_in_act_reference,
+                                   conv7, conv7_dgrad, conv7_dgrad_reference,
+                                   conv7_reference, conv7_wgrad,
+                                   conv7_wgrad_reference, instance_norm,
+                                   instance_norm_bwd,
+                                   instance_norm_bwd_reference,
                                    instance_norm_reference)
 
     g = torch.Generator(device="cpu").manual_seed(SEED)
@@ -126,52 +228,153 @@ def kernel_cases(dev):
     def randn(*shape, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=g) * scale + shift).to(dev)
 
-    # instance norm: the stem/down/up norms, each followed by a fused ReLU
-    for (h, c), calls in (((256, 64), 2), ((128, 128), 2), ((64, 256), 1)):
-        x = randn(BATCH, h, h, c, scale=2.0, shift=0.5)
-        ga, be = randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1)
-        n = x.numel()
-        yield ("instance_norm", f"({BATCH},{h},{h},{c}) relu", calls,
-               lambda x=x, ga=ga, be=be: instance_norm(x, ga, be, relu=True),
-               lambda x=x, ga=ga, be=be: instance_norm_reference(
-                   x, ga, be, relu=True),
-               lambda x=x, ga=ga, be=be: F.instance_norm(
-                   x.permute(0, 3, 1, 2), weight=ga, bias=be, eps=1e-5),
-               8.0 * n, 6.0 * n)
-    # conv3 + IN: the 18 trunk pairs, half with ReLU
+    # K1: both uint8 batches of a step
+    rng = np.random.default_rng(SEED)
+    load, crop = 286, 256
+    u8 = torch.from_numpy(rng.integers(0, 256, (BATCH, load, load, 3),
+                                       dtype=np.uint8)).to(dev)
+    oy = torch.from_numpy(rng.integers(0, load - crop + 1, BATCH))
+    ox = torch.from_numpy(rng.integers(0, load - crop + 1, BATCH))
+    flip = torch.from_numpy(rng.integers(0, 2, BATCH).astype(bool))
+    ar = torch.arange(crop, device=dev)
+    rows = oy.to(dev)[:, None] + ar
+    cols = ox.to(dev)[:, None] + torch.where(flip.to(dev)[:, None],
+                                             crop - 1 - ar, ar)
+    bidx = torch.arange(BATCH, device=dev)[:, None, None]
+    yield _case("augment_batch", f"({BATCH},{load},{load},3)->{crop}", 2, 0,
+                lambda: augment_batch(u8, oy, ox, flip, crop),
+                lambda: augment_batch_reference(u8, oy, ox, flip, crop),
+                lambda: u8[bidx, rows[:, :, None], cols[:, None, :]].float()
+                * (2.0 / 255.0) - 1.0,
+                u8.numel() + 4.0 * BATCH * crop * crop * 3,
+                2.0 * BATCH * crop * crop * 3)
+    del u8
+
+    # instance norm forward and backward: generator norms (+ReLU) and
+    # discriminator norms; (shape, relu, per apply at batch 8, per step
+    # for each of batch 2B and B, the norm backward's extra calls per step
+    # from the conv3+IN backward for each batch)
+    norms = [((256, 64), True, 2, 4, 0), ((128, 128), True, 2, 4, 0),
+             ((64, 256), True, 1, 2, 18), ((64, 256), False, 0, 0, 18),
+             ((64, 128), False, 0, 2, 0), ((32, 256), False, 0, 2, 0),
+             ((31, 512), False, 0, 2, 0)]
+    for nb in (2 * BATCH, BATCH):
+        for (h, c), relu, per_apply, per_step, conv_bwd in norms:
+            x = randn(nb, h, h, c, scale=2.0, shift=0.5)
+            ga, be = randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1)
+            n = x.numel()
+            label = f"({nb},{h},{h},{c}) relu={relu}"
+            if per_step:
+                yield _case(
+                    "instance_norm", label, per_step,
+                    per_apply if nb == BATCH else 0,
+                    lambda x=x, ga=ga, be=be, r=relu: instance_norm(
+                        x, ga, be, relu=r),
+                    lambda x=x, ga=ga, be=be, r=relu: instance_norm_reference(
+                        x, ga, be, relu=r),
+                    lambda x=x, ga=ga, be=be: F.instance_norm(
+                        x.permute(0, 3, 1, 2), weight=ga, bias=be, eps=1e-5),
+                    8.0 * n, 6.0 * n)
+            dy = randn(nb, h, h, c)
+            xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            gl = ga.detach().requires_grad_(True)
+            bl = be.detach().requires_grad_(True)
+            yl = F.instance_norm(xl, weight=gl, bias=bl, eps=1e-5)
+            if relu:
+                yl = torch.relu(yl)
+            dyl = dy.permute(0, 3, 1, 2)
+            yield _case(
+                "instance_norm_bwd", label, per_step + conv_bwd, 0,
+                lambda x=x, ga=ga, be=be, dy=dy, r=relu: instance_norm_bwd(
+                    x, ga, be, dy, relu=r),
+                lambda x=x, ga=ga, be=be, dy=dy, r=relu:
+                instance_norm_bwd_reference(x, ga, be, dy, relu=r),
+                lambda yl=yl, xl=xl, gl=gl, bl=bl, dyl=dyl: torch.autograd.grad(
+                    yl, (xl, gl, bl), dyl, retain_graph=True),
+                12.0 * n, 14.0 * n, _norm_bwd_check(x, ga, be, relu))
+            del x, dy, xl, yl
+    # conv3 + IN forward: the 18 trunk pairs of each apply, half with ReLU
     h, c = 64, 256
-    x = randn(BATCH, h, h, c)
     w = randn(3, 3, c, c, scale=0.02)
     b, ga, be = randn(c, scale=0.02), randn(c, scale=0.1, shift=1.0), \
         randn(c, scale=0.1)
-    flops = 2.0 * BATCH * h * h * c * 9 * c
-    nbytes = 4.0 * (2 * x.numel() + w.numel() + 3 * c)
-    for relu, calls in ((True, 9), (False, 9)):
-        yield ("conv3_in_act", f"({BATCH},{h},{h},{c})->{c} reflect relu={relu}",
-               calls,
-               lambda relu=relu: conv3_in_act(x, w, b, ga, be, relu=relu),
-               lambda relu=relu: conv3_in_act_reference(x, w, b, ga, be,
-                                                        relu=relu),
-               lambda: F.instance_norm(F.conv2d(
-                   F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect"),
-                   w.permute(3, 2, 0, 1), b), weight=ga, bias=be, eps=1e-5),
-               nbytes, flops)
-    # conv7: the head, plus zeros padding at a smaller shape (not on the path)
-    for (nb, h, mode), calls in (((BATCH, 256, "reflect"), 1),
-                                 ((2, 64, "zeros"), 0)):
+    for nb in (2 * BATCH, BATCH):
+        x = randn(nb, h, h, c)
+        flops = 2.0 * nb * h * h * c * 9 * c
+        nbytes = 4.0 * (2 * x.numel() + w.numel() + 3 * c)
+        for relu in (True, False):
+            yield _case(
+                "conv3_in_act", f"({nb},{h},{h},{c})->{c} reflect relu={relu}",
+                18, 9 if nb == BATCH else 0,
+                lambda x=x, relu=relu: conv3_in_act(x, w, b, ga, be, relu=relu),
+                lambda x=x, relu=relu: conv3_in_act_reference(
+                    x, w, b, ga, be, relu=relu),
+                lambda x=x: F.instance_norm(F.conv2d(
+                    F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect"),
+                    w.permute(3, 2, 0, 1), b), weight=ga, bias=be, eps=1e-5),
+                nbytes, flops)
+        del x
+    # the 7x7 head: forward, dgrad, wgrad at both batches, and the forward
+    # with zeros padding at a smaller shape (not on the path)
+    w = randn(7, 7, 64, 3, scale=0.02)
+    b = randn(3, scale=0.02)
+    wt = w.permute(3, 2, 0, 1)
+    for nb, h, mode, per_step, per_apply in (
+            (2 * BATCH, 256, "reflect", 2, 0), (BATCH, 256, "reflect", 2, 1),
+            (2, 64, "zeros", 0, 0)):
         x = randn(nb, h, h, 64)
-        w = randn(7, 7, 64, 3, scale=0.02)
-        b = randn(3, scale=0.02)
+        flops = 2.0 * nb * h * h * 3 * 49 * 64
+        label = f"({nb},{h},{h},64)->3 {mode}"
         pad = ((lambda t: F.pad(t, (3, 3, 3, 3), mode="reflect"))
-               if mode == "reflect" else
-               (lambda t: F.pad(t, (3, 3, 3, 3))))
-        yield ("conv7", f"({nb},{h},{h},64)->3 {mode}", calls,
-               lambda x=x, w=w, b=b, mode=mode: conv7(x, w, b, mode),
-               lambda x=x, w=w, b=b, mode=mode: conv7_reference(x, w, b, mode),
-               lambda x=x, w=w, b=b, pad=pad: F.conv2d(
-                   pad(x.permute(0, 3, 1, 2)), w.permute(3, 2, 0, 1), b),
-               4.0 * (x.numel() + w.numel() + 3 + nb * h * h * 3),
-               2.0 * nb * h * h * 3 * 49 * 64)
+               if mode == "reflect" else (lambda t: F.pad(t, (3, 3, 3, 3))))
+        yield _case("conv7", label, per_step, per_apply,
+                    lambda x=x, mode=mode: conv7(x, w, b, mode),
+                    lambda x=x, mode=mode: conv7_reference(x, w, b, mode),
+                    lambda x=x, pad=pad: F.conv2d(pad(x.permute(0, 3, 1, 2)),
+                                                  wt, b),
+                    4.0 * (x.numel() + w.numel() + 3 + nb * h * h * 3), flops)
+        if not per_step:
+            continue
+        dy = randn(nb, h, h, 3)
+        dyn = dy.permute(0, 3, 1, 2)
+        yield _case("conv7_dgrad", label, per_step, 0,
+                    lambda dy=dy, mode=mode: conv7_dgrad(dy, w, mode),
+                    lambda dy=dy, mode=mode: conv7_dgrad_reference(dy, w, mode),
+                    lambda dyn=dyn, nb=nb, h=h: torch.nn.grad.conv2d_input(
+                        (nb, 64, h + 6, h + 6), wt, dyn),
+                    4.0 * (dy.numel() + w.numel() + x.numel()), flops)
+        yield _case("conv7_wgrad", label, per_step, 0,
+                    lambda x=x, dy=dy, mode=mode: conv7_wgrad(x, dy, mode),
+                    lambda x=x, dy=dy, mode=mode: conv7_wgrad_reference(
+                        x, dy, mode),
+                    lambda x=x, dyn=dyn, pad=pad: torch.nn.grad.conv2d_weight(
+                        pad(x.permute(0, 3, 1, 2)), (3, 64, 7, 7), dyn),
+                    4.0 * (x.numel() + dy.numel() + w.numel()), flops,
+                    _rel_check)
+        del x, dy, dyn
+
+
+def conv3_backward_parts(dev):
+    """The library convs of the conv3+IN backward at the step's shapes,
+    timed with their bound: (label, calls per step, fn, bytes, flops)."""
+    import torch
+
+    from uig_torch.kernels.convin import conv3_dgrad, conv3_wgrad
+
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    h, c = 64, 256
+    w = (torch.randn(3, 3, c, c, generator=g) * 0.02).to(dev)
+    for nb in (2 * BATCH, BATCH):
+        x = torch.randn(nb, h, h, c, generator=g).to(dev)
+        dyc = torch.randn(nb, h, h, c, generator=g).to(dev)
+        flops = 2.0 * nb * h * h * c * 9 * c
+        yield (f"conv3_dgrad ({nb},{h},{h},{c}) reflect", 36,
+               lambda dyc=dyc: conv3_dgrad(dyc, w, "reflect"),
+               4.0 * (2 * dyc.numel() + w.numel()), flops)
+        yield (f"conv3_wgrad ({nb},{h},{h},{c}) reflect", 36,
+               lambda x=x, dyc=dyc: conv3_wgrad(x, dyc, "reflect"),
+               4.0 * (x.numel() + dyc.numel() + w.numel()), flops)
+        del x, dyc
 
 
 def phase_kernels(dev) -> dict:
@@ -179,30 +382,273 @@ def phase_kernels(dev) -> dict:
 
     totals = {}
     with exact_fp32():
-        for name, label, calls, fn, plain, lib, nbytes, flops in \
-                kernel_cases(dev):
-            err = max_err(fn(), plain())
-            if err > TOL[name]:
-                raise AssertionError(
-                    f"{name} {label}: max|err| {err} > tol {TOL[name]}")
-            ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(lib)
-            bms, by = bound_ms(nbytes, flops)
-            emit({"phase": "kernel", "name": name, "case": label,
-                  "calls_per_apply": calls, "max_abs_err": err,
-                  "tol": TOL[name], "ms": ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, "bound_ms": bms, "bound_by": by})
-            t = totals.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                         "plain_ms": 0.0, "library_ms": 0.0,
-                                         "bound_ms": 0.0, "bound_by": by})
+        for c in kernel_cases(dev):
+            name = c["name"]
+            err, rel, extra = c["check"](c["fn"](), c["plain"]())
+            if rel > TOL[name]:
+                raise AssertionError(f"{name} {c['case']}: error {rel} > "
+                                     f"tol {TOL[name]}")
+            ms, plain_ms, lib_ms = (cuda_ms(c["fn"]), cuda_ms(c["plain"]),
+                                    cuda_ms(c["lib"]))
+            bms, by = bound_ms(c["bytes"], c["flops"])
+            emit({"phase": "kernel", "name": name, "case": c["case"],
+                  "calls_per_step": c["step"], "calls_per_apply": c["apply"],
+                  "max_abs_err": err, "checked_err": rel, "tol": TOL[name],
+                  "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "bound_ms": bms, "bound_by": by, **extra})
+            t = totals.setdefault(name, {"max_abs_err": 0.0, "bound_by": by,
+                                         "step": {}, "apply": {}})
             t["max_abs_err"] = max(t["max_abs_err"], err)
-            for k, v in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", lib_ms), ("bound_ms", bms)):
-                t[k] += calls * v
+            for per in ("step", "apply"):
+                acc = t[per]
+                for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("bound_ms", bms)):
+                    acc[k] = acc.get(k, 0.0) + c[per] * v
+        parts = {"ms": 0.0, "bound_ms": 0.0}
+        for label, calls, fn, nbytes, flops in conv3_backward_parts(dev):
+            ms = cuda_ms(fn)
+            bms, by = bound_ms(nbytes, flops)
+            emit({"phase": "conv3_backward_library", "case": label,
+                  "calls_per_step": calls, "ms": ms, "bound_ms": bms,
+                  "bound_by": by})
+            parts["ms"] += calls * ms
+            parts["bound_ms"] += calls * bms
+        emit({"phase": "conv3_backward_library", "per_step": parts})
     return totals
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the slice
+# phase 3: train
+# ---------------------------------------------------------------------------
+
+
+def state_tensors(st) -> dict:
+    """Every tensor of a train state, by a path name."""
+    out = {}
+    trees = {"g_params": st.g_params, "d_params": st.d_params, "ema": st.ema,
+             "g_mu": st.g_opt.mu, "g_nu": st.g_opt.nu, "d_mu": st.d_opt.mu,
+             "d_nu": st.d_opt.nu}
+    for tree, nets in trees.items():
+        for net, params in nets.items():
+            for name, t in params.items():
+                out[f"{tree}/{net}/{name}"] = t
+    out["pool_a"], out["pool_b"] = st.pool_a.buffer, st.pool_b.buffer
+    return out
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel wrapper takes its plain PyTorch version, on the card
+    too: the control run of ``compare_card_cpu`` (the same cuDNN convs, no
+    hand-written kernel)."""
+    from uig_torch.kernels import augment, conv, convin, norm
+
+    mods = (augment, conv, convin, norm)
+    saved = [m.on_cpu for m in mods]
+    for m in mods:
+        m.on_cpu = lambda name, *tensors: True
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.on_cpu = f
+
+
+def nudged(state, seed: int):
+    """A copy of ``state`` with every G and D parameter moved one fp32 ulp
+    up or down, by a seeded coin per element: the least change of the
+    step's inputs that fp32 can make."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    s = state.clone()
+    for tree in (s.g_params, s.d_params):
+        for sub in tree.values():
+            for k, t in sub.items():
+                up = torch.rand(t.shape, generator=gen) < 0.5
+                sub[k] = torch.nextafter(t, torch.where(
+                    up, torch.tensor(float("inf")), torch.tensor(float("-inf"))))
+    return s
+
+
+def flat_grads(grads: dict) -> dict:
+    return {f"{net}/{n}/{k}": t.cpu() for net, tree in grads.items()
+            for n, sub in tree.items() for k, t in sub.items()}
+
+
+def grad_gap(x: dict, y: dict, net: str, scale: float) -> tuple:
+    """(max |x - y| over net's leaves / scale, the three worst leaves)."""
+    errs = sorted((((x[k] - y[k]).abs().max().item() / scale, k)
+                   for k in y if k.startswith(net + "/")), reverse=True)
+    return errs[0][0], [[k, e] for e, k in errs[:3]]
+
+
+def compare_card_cpu(cfg, a, b) -> dict:
+    """One step at batch 1, full width, from one state and one set of draws,
+    taken four ways: on the card with the kernels (A); on the card with the
+    plain versions, through the same cuDNN convs (B); on the CPU with the
+    plain versions (C); and on the card with the kernels from the state
+    with every parameter nudged by one ulp (P).
+
+    A against B isolates the kernels, B against C the library convs, and A
+    against P measures how far the step's gradients move when its inputs
+    move by rounding alone: a ReLU or LeakyReLU pre-activation within
+    rounding of 0 takes either side, and the upstream gradients move with
+    it. Gates: losses within 1e-4 relative (A, C); gradients, per network
+    relative to its largest CPU gradient, A against C within GRAD_GAP and
+    within GRAD_GAP_OVER_FLOOR times A against P. The update is checked on
+    its own, with no element excluded: Adam and the EMA on the card from
+    A's gradients against the CPU's Adam and EMA from the same gradients,
+    within 1e-5."""
+    import torch
+
+    from uig_torch import kernels as K
+    from uig_torch.config import apply_overrides
+    from uig_torch.train import CycleGANTrainer
+
+    cfg1 = apply_overrides(cfg, ["data.batch_size=1"])
+    card, cpu = CycleGANTrainer(cfg1), CycleGANTrainer(cfg1, device="cpu")
+    s0 = cpu.init_state(SEED + 5)
+    batch = (a[:1], b[:1])
+    draws = cpu.draw(s0, 1, a.shape[1], a.shape[2])
+    out = {}
+
+    t0 = time.perf_counter()
+    s_a = s0.to(card.device)
+    ga, ma = card._grads(s_a, batch, draws)
+    card._update(s_a, ga)
+    torch.cuda.synchronize()
+    out["card_step_s"] = time.perf_counter() - t0
+    with plain_versions():
+        K.reset_launch_counts()
+        gb, _ = card._grads(s0.to(card.device), batch, draws)
+        if any(K.launch_counts().values()):
+            raise AssertionError(f"plain run launched {K.launch_counts()}")
+    gp, _ = card._grads(nudged(s0, SEED + 6).to(card.device), batch, draws)
+    t1 = time.perf_counter()
+    gc, mc = cpu._grads(s0.clone(), batch, draws)
+    out["cpu_grads_s"] = time.perf_counter() - t1
+
+    out["loss_rel_err"] = {}
+    for k in ("g_loss", "d_loss", "g_adv", "g_cycle", "g_idt", "d_a", "d_b"):
+        u, v = float(ma[k]), float(mc[k])
+        out["loss_rel_err"][k] = abs(u - v) / max(abs(v), 1e-30)
+    fa, fb, fc, fp = (flat_grads(g) for g in (ga, gb, gc, gp))
+    for net in ("g", "d"):
+        scale = max(t.abs().max().item() for k, t in fc.items()
+                    if k.startswith(net + "/"))
+        for pair, (x, y) in {"A_C": (fa, fc), "A_B": (fa, fb),
+                             "B_C": (fb, fc), "A_P": (fa, fp)}.items():
+            err, worst = grad_gap(x, y, net, scale)
+            out[f"{net}_grad_{pair}"] = err
+            out[f"{net}_grad_{pair}_worst"] = worst
+
+    s_chk = s0.clone()
+    cpu._update(s_chk, {net: {n: {k: t.cpu() for k, t in sub.items()}
+                              for n, sub in tree.items()}
+                        for net, tree in ga.items()})
+    ta, tc = state_tensors(s_a), state_tensors(s_chk)
+    out["update_max_abs_err"] = max((ta[k].cpu() - tc[k]).abs().max().item()
+                                    for k in tc if not k.startswith("pool"))
+    out["update_elements"] = sum(t.numel() for k, t in tc.items()
+                                 if not k.startswith("pool"))
+    emit({"phase": "card_vs_cpu_batch1", **out})
+
+    bad = {k: v for k, v in out["loss_rel_err"].items() if v > 1e-4}
+    for net in ("g", "d"):
+        gap, floor = out[f"{net}_grad_A_C"], out[f"{net}_grad_A_P"]
+        if gap > GRAD_GAP or gap > GRAD_GAP_OVER_FLOOR * floor:
+            bad[f"{net}_grad_A_C"] = (gap, floor)
+    if out["update_max_abs_err"] > 1e-5:
+        bad["update_max_abs_err"] = out["update_max_abs_err"]
+    if bad:
+        raise AssertionError(f"card vs CPU at batch 1: {bad}")
+    return out
+
+
+def phase_train(dev) -> dict:
+    import torch
+
+    from uig_torch import kernels as K
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.train import CycleGANTrainer
+
+    cfg = apply_overrides(get_preset(PRESET), TRAIN_OVERRIDES)
+    load = cfg.data.load_size
+    rng = np.random.default_rng(SEED + 3)
+    a, b = (rng.integers(0, 256, (BATCH, load, load, 3), dtype=np.uint8)
+            for _ in range(2))
+    tr = CycleGANTrainer(cfg)
+    state0 = tr.init_state(SEED)
+    out = {"phase": "train", "preset": PRESET, "overrides": TRAIN_OVERRIDES,
+           "batch": BATCH, "image": cfg.model.image_size}
+    torch.use_deterministic_algorithms(True)
+    try:
+        # the main path's run: one step, with every count at 0 before it
+        run_a = state0.clone()
+        K.reset_launch_counts()
+        run_a, m = tr.train_step(run_a, (a, b))
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        if launches != PER_STEP:
+            raise AssertionError(f"launches per step {launches} != {PER_STEP}")
+        out["launches_per_step"] = launches
+        for _ in range(2):
+            run_a, _ = tr.train_step(run_a, (a, b))
+        run_b = state0.clone()
+        for _ in range(3):
+            run_b, _ = tr.train_step(run_b, (a, b))
+        ta, tb = state_tensors(run_a), state_tensors(run_b)
+        differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+        counts = [(r.step, r.pool_a.count, r.pool_b.count, r.g_opt.count,
+                   r.d_opt.count) for r in (run_a, run_b)]
+        if differ or counts[0] != counts[1]:
+            raise AssertionError(f"two 3-step runs differ in {differ[:5]}")
+        out["byte_identical_3_steps"] = True
+        out["state_tensors_compared"] = len(ta)
+        del run_a, run_b, ta, tb
+
+        compare_card_cpu(cfg, a, b)  # prints its own line
+
+        # ~20 steps on the fixed batch: finite, falling cycle loss, timing
+        st = state0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, hist = [], []
+        for _ in range(20):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            st, m = tr.train_step(st, (a, b))
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+            hist.append({k: float(v) for k, v in m.items()})
+        bad = [h for h in hist if not all(np.isfinite(v) for v in h.values())]
+        if bad:
+            raise AssertionError(f"non-finite losses: {bad[0]}")
+        cyc = [h["g_cycle"] for h in hist]
+        if not np.mean(cyc[-5:]) < np.mean(cyc[:5]):
+            raise AssertionError(f"g_cycle does not fall: {cyc}")
+        step_ms = float(np.median(times[5:]))
+        out.update(
+            steps=len(hist), g_cycle_first=cyc[0], g_cycle_last=cyc[-1],
+            g_loss_first=hist[0]["g_loss"], g_loss_last=hist[-1]["g_loss"],
+            d_loss_first=hist[0]["d_loss"], d_loss_last=hist[-1]["d_loss"],
+            step_ms_median=step_ms, step_ms_timed=len(times[5:]),
+            step_ms_min=float(np.min(times[5:])),
+            step_ms_max=float(np.max(times[5:])),
+            img_per_s=1e3 * BATCH / step_ms,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        emit(out)
+        emit(profile_call(lambda: tr.train_step(st, (a, b)), "train_profile"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice
 # ---------------------------------------------------------------------------
 
 
@@ -290,19 +736,20 @@ def phase_slice(weights: str):
           "generator_ms_per_batch": gen_ms,
           "generator_img_per_s": 1e3 * BATCH / gen_ms,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    emit(profile_translate(tr, raw))
+    emit(profile_call(lambda: tr(raw), "profile"))
     return tr, launches
 
 
-def profile_translate(tr, raw) -> dict:
-    """Device time by kernel name over one translate call (torch.profiler),
+def profile_call(fn, phase: str) -> dict:
+    """Device time by kernel name over one call of ``fn`` (torch.profiler),
     and the share of the call's wall time that the card was busy."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr(raw)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict = {}
     for e in prof.events():
@@ -311,15 +758,16 @@ def profile_translate(tr, raw) -> dict:
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"phase": "profile", "wall_ms": wall_ms,
+    return {"phase": phase, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms if by_name else "not measured",
             "device_busy_share": busy_ms / wall_ms if by_name else "not measured",
+            "device_kernels": sum(n for n, _ in by_name.values()),
             "top": [{"kernel": k[:70], "calls": n, "ms": us / 1e3}
                     for k, (n, us) in top]}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve
+# phase 5: serve
 # ---------------------------------------------------------------------------
 
 
@@ -400,23 +848,27 @@ def main() -> int:
           "ptxas": ptxas[:12]})
     dev = torch.device("cuda", 0)
     totals = phase_kernels(dev)
+    step_launches = phase_train(dev)
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "g_a2b.npz")
         seeded_flax_weights(weights)
-        tr, launches = phase_slice(weights)
+        tr, apply_launches = phase_slice(weights)
         phase_serve(tr, weights)
     kernels = []
-    for name in ("instance_norm", "conv3_in_act", "conv7"):
+    for name in PER_STEP:
         t = totals[name]
-        if launches[name] < 1:
+        if step_launches[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
-        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "launches": launches[name],
-                        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"],
-                        "per": "one generator apply at batch 8"})
+        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name],
+                 "launches": step_launches[name],
+                 "launches_per_translate_apply": apply_launches[name],
+                 "max_abs_err": t["max_abs_err"], **t["step"],
+                 "bound_by": t["bound_by"],
+                 "per": f"one training step at batch {BATCH}"}
+        if apply_launches[name]:
+            entry["per_translate_apply"] = t["apply"]
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

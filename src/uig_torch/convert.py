@@ -1,4 +1,5 @@
-"""Carry generator weights between the flax layout and the port.
+"""Carry generator weights, and whole CycleGAN train states, between the
+JAX package's layout and the port.
 
 The flat flax layout is the one ``scripts/import_cyclegan_torch.py`` writes
 and reads: ``np.savez`` of keys like ``params/layers_0/kernel`` and
@@ -58,3 +59,101 @@ def load_generator_npz(path: str) -> dict[str, np.ndarray]:
     """Read the flat flax ``.npz`` of one generator (``params/...`` keys)."""
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+# ---------------------------------------------------------------------------
+# the whole CycleGAN train state
+# ---------------------------------------------------------------------------
+# A JAX ``CycleGANState`` crosses as a flat dict of numpy arrays: flax's
+# ``serialization.to_state_dict`` of the state, flattened with "/". Its keys:
+#   g_params/{a2b,b2a}/params/<path>       d_params/{a,b}/params/<path>
+#   ema/{a2b,b2a}/params/<path>
+#   {g,d}_opt/0/0/count, .../0/0/mu/<tree>/params/<path>, .../0/0/nu/...
+#       (optax.chain(optax.adam): ScaleByAdamState), {g,d}_opt/0/1/count
+#       (the learning-rate schedule's count, equal to Adam's)
+#   pool_{a,b}/buffer, pool_{a,b}/count, step, rng, ada_p
+# <path> is flax's module path ("layers_9/PadConv_0/kernel"); the port's
+# parameter name is the same path with dots.
+
+_TREES = {"g_params": ("a2b", "b2a"), "d_params": ("a", "b"),
+          "ema": ("a2b", "b2a")}
+_ADAM = "/0/0/"
+_SCHED = "/0/1/count"
+
+
+def _tree_from_flat(flat: dict, prefix: str, names, device) -> dict:
+    out = {n: {} for n in names}
+    for key, value in flat.items():
+        if not key.startswith(prefix):
+            continue
+        name, rest = key[len(prefix):].split("/", 1)
+        if not rest.startswith(_PREFIX):
+            raise KeyError(f"{key!r}: expected {prefix}{name}/{_PREFIX}...")
+        out[name][rest[len(_PREFIX):].replace("/", ".")] = torch.from_numpy(
+            np.array(value, dtype=np.float32)).to(device)
+    return out
+
+
+def _flat_from_tree(tree: dict, prefix: str) -> dict:
+    return {f"{prefix}{name}/{_PREFIX}{path.replace('.', '/')}": _numpy(t)
+            for name, sub in tree.items() for path, t in sub.items()}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy (never a view of a tensor a later step updates)."""
+    return np.array(t.detach().cpu(), dtype=np.float32)
+
+
+def state_from_jax_flat(flat: dict[str, np.ndarray], seed: int = 0,
+                        device="cpu"):
+    """A flat JAX ``CycleGANState`` -> the port's ``CycleGANState`` on
+    ``device``. ``seed`` seeds the port's own per-step draws (the JAX key
+    cannot be carried over and is kept in ``carried`` unchanged)."""
+    from uig_torch.train.pool import PoolState
+    from uig_torch.train.state import AdamState, CycleGANState
+
+    trees = {k: _tree_from_flat(flat, k + "/", names, device)
+             for k, names in _TREES.items()}
+
+    def adam(opt: str, names) -> AdamState:
+        count = int(flat[opt + _ADAM + "count"])
+        sched = int(flat[opt + _SCHED])
+        if sched != count:
+            raise ValueError(f"{opt}: schedule count {sched} != Adam count "
+                             f"{count}")
+        return AdamState(
+            count, _tree_from_flat(flat, opt + _ADAM + "mu/", names, device),
+            _tree_from_flat(flat, opt + _ADAM + "nu/", names, device))
+
+    def pool(name: str) -> PoolState:
+        return PoolState(torch.from_numpy(np.array(
+            flat[name + "/buffer"], dtype=np.float32)).to(device),
+            int(flat[name + "/count"]))
+
+    carried = {k: np.asarray(flat[k]) for k in ("rng", "ada_p") if k in flat}
+    return CycleGANState(
+        g_params=trees["g_params"], d_params=trees["d_params"],
+        g_opt=adam("g_opt", _TREES["g_params"]),
+        d_opt=adam("d_opt", _TREES["d_params"]), ema=trees["ema"],
+        pool_a=pool("pool_a"), pool_b=pool("pool_b"),
+        step=int(flat["step"]), seed=int(seed), carried=carried)
+
+
+def jax_flat_from_state(state) -> dict[str, np.ndarray]:
+    """The inverse of ``state_from_jax_flat``: numpy arrays under the JAX
+    state's flat keys (counts and step as int32)."""
+    flat = {}
+    for k in _TREES:
+        flat.update(_flat_from_tree(getattr(state, k), k + "/"))
+    for opt, st in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+        flat.update(_flat_from_tree(st.mu, opt + _ADAM + "mu/"))
+        flat.update(_flat_from_tree(st.nu, opt + _ADAM + "nu/"))
+        flat[opt + _ADAM + "count"] = np.int32(st.count)
+        flat[opt + _SCHED] = np.int32(st.count)
+    for name in ("pool_a", "pool_b"):
+        p = getattr(state, name)
+        flat[name + "/buffer"] = _numpy(p.buffer)
+        flat[name + "/count"] = np.int32(p.count)
+    flat["step"] = np.int32(state.step)
+    flat.update(state.carried)
+    return flat

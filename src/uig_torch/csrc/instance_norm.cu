@@ -25,48 +25,6 @@
 
 #include "in_common.cuh"
 
-namespace {
-
-constexpr int kCT = 32;    // channels per block (threadIdx.x)
-constexpr int kRows = 8;   // pixel lanes per block (threadIdx.y)
-
-__global__ void __launch_bounds__(kCT * kRows)
-    in_partials_kernel(const float* __restrict__ x, float* __restrict__ part,
-                       int B, int HW, int C, int chunks, int rows_per_chunk) {
-  const int c = blockIdx.y * kCT + threadIdx.x;
-  const int b = blockIdx.z;
-  const int chunk = blockIdx.x;
-  const int p0 = chunk * rows_per_chunk;
-  const int p1 = min(p0 + rows_per_chunk, HW);
-  float s1 = 0.f, s2 = 0.f;
-  if (c < C) {
-    const float* xb = x + (size_t)b * HW * C + c;
-    for (int p = p0 + threadIdx.y; p < p1; p += kRows) {
-      const float v = xb[(size_t)p * C];
-      s1 += v;
-      s2 += v * v;
-    }
-  }
-  __shared__ float r1[kRows][kCT + 1];
-  __shared__ float r2[kRows][kCT + 1];
-  r1[threadIdx.y][threadIdx.x] = s1;
-  r2[threadIdx.y][threadIdx.x] = s2;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    float t1 = 0.f, t2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      t1 += r1[j][threadIdx.x];
-      t2 += r2[j][threadIdx.x];
-    }
-    const size_t o = ((size_t)b * chunks + chunk) * C + c;
-    part[o] = t1;
-    part[(size_t)B * chunks * C + o] = t2;
-  }
-}
-
-}  // namespace
-
 // x, y: (B, HW, C) fp32, C % 4 == 0. gamma, beta: (C,). part: (2, B, chunks,
 // C) scratch; ss: (2, B, C) scratch. chunks * rows_per_chunk >= HW.
 extern "C" cudaError_t uig_instance_norm_fwd(const float* x,

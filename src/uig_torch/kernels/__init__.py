@@ -2,15 +2,23 @@
 kernel for a CUDA tensor (raising if it cannot), keeps a launch count in
 ``<wrapper>.launches``, and runs its plain PyTorch version only for a CPU
 tensor. The CUDA library is built at first launch (``_build``), never at
-import."""
+import. ``instance_norm_act``, ``conv3_in_act`` and ``conv7_act`` are the
+differentiable forms the models call."""
 
-from uig_torch.kernels.augment import (center_crop_normalize,
-                                       denormalize_to_u8)
-from uig_torch.kernels.conv import conv7, conv7_reference
+from uig_torch.kernels.augment import (augment_batch, augment_batch_reference,
+                                       center_crop_normalize,
+                                       denormalize_to_u8, draw_augment)
+from uig_torch.kernels.conv import (conv7, conv7_act, conv7_dgrad,
+                                    conv7_dgrad_reference, conv7_reference,
+                                    conv7_wgrad, conv7_wgrad_reference)
 from uig_torch.kernels.convin import conv3_in_act, conv3_in_act_reference
-from uig_torch.kernels.norm import instance_norm, instance_norm_reference
+from uig_torch.kernels.norm import (instance_norm, instance_norm_act,
+                                    instance_norm_bwd,
+                                    instance_norm_bwd_reference,
+                                    instance_norm_reference)
 
-KERNELS = (instance_norm, conv3_in_act, conv7)
+KERNELS = (augment_batch, instance_norm, instance_norm_bwd, conv3_in_act,
+           conv7, conv7_dgrad, conv7_wgrad)
 
 
 def reset_launch_counts() -> None:
@@ -24,13 +32,24 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "augment_batch",
+    "augment_batch_reference",
     "center_crop_normalize",
     "conv3_in_act",
     "conv3_in_act_reference",
     "conv7",
+    "conv7_act",
+    "conv7_dgrad",
+    "conv7_dgrad_reference",
     "conv7_reference",
+    "conv7_wgrad",
+    "conv7_wgrad_reference",
     "denormalize_to_u8",
+    "draw_augment",
     "instance_norm",
+    "instance_norm_act",
+    "instance_norm_bwd",
+    "instance_norm_bwd_reference",
     "instance_norm_reference",
     "launch_counts",
     "reset_launch_counts",

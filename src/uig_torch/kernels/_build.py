@@ -40,6 +40,11 @@ SIGNATURES = {
     "uig_conv3_in_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _F, _P],
     "uig_conv7_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "uig_augment": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "uig_instance_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _F, _I, _P],
+    "uig_conv7_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "uig_conv7_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,14 +1,22 @@
-"""Deterministic serving pre- and post-processing in plain PyTorch.
+"""Image pre- and post-processing. Images are NHWC.
 
-The port's copy of ``center_crop_normalize``, ``denormalize_to_u8`` and
-``_normalize`` from the JAX package's ``kernels/augment.py``. The JAX package
-runs these in XLA, not Pallas, so library ops are the right tool here.
-Images are NHWC.
+The serving half (``center_crop_normalize``, ``denormalize_to_u8``,
+``_normalize``) is the port's copy of the JAX package's ``kernels/augment.py``
+in plain PyTorch: the JAX package runs it in XLA, not Pallas.
+
+The training half, ``augment_batch``, is the random crop + flip + normalize
+of ``augment_batch_pallas`` (``kernels/augment_pallas.py``): the CUDA kernel
+in ``csrc/augment.cu`` with its plain PyTorch version. The offsets and flips
+are given, not drawn inside the kernel; ``draw_augment`` draws them from a
+``torch.Generator`` with the JAX function's ranges.
 """
 
 from __future__ import annotations
 
 import torch
+
+from uig_torch.kernels import _build
+from uig_torch.kernels._check import on_cpu
 
 
 def _normalize(x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
@@ -30,3 +38,62 @@ def center_crop_normalize(images: torch.Tensor, crop: int,
     x0 = (w - crop) // 2
     patch = images[:, y0:y0 + crop, x0:x0 + crop, :]
     return _normalize(patch, out_dtype).contiguous()
+
+
+def draw_augment(gen: torch.Generator, batch: int, height: int, width: int,
+                 crop: int):
+    """Per-example crop offsets and flips, as ``augment_batch`` draws them
+    in JAX: ``oy`` in [0, H - crop], ``ox`` in [0, W - crop], ``flip`` a
+    fair coin. CPU tensors."""
+    oy = torch.randint(0, height - crop + 1, (batch,), generator=gen)
+    ox = torch.randint(0, width - crop + 1, (batch,), generator=gen)
+    do_flip = torch.rand((batch,), generator=gen) < 0.5
+    return oy, ox, do_flip
+
+
+def augment_batch_reference(images: torch.Tensor, oy: torch.Tensor,
+                            ox: torch.Tensor, flip: torch.Tensor,
+                            crop: int) -> torch.Tensor:
+    b = images.shape[0]
+    ar = torch.arange(crop, device=images.device)
+    rows = oy.to(images.device).long()[:, None] + ar            # (B, crop)
+    j = torch.where(flip.to(images.device).bool()[:, None], crop - 1 - ar, ar)
+    cols = ox.to(images.device).long()[:, None] + j             # (B, crop)
+    bidx = torch.arange(b, device=images.device)[:, None, None]
+    patch = images[bidx, rows[:, :, None], cols[:, None, :]]    # (B, c, c, C)
+    return _normalize(patch)
+
+
+def augment_batch(images: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
+                  flip: torch.Tensor, crop: int) -> torch.Tensor:
+    """uint8 (B, H, W, C) -> fp32 (B, crop, crop, C) in [-1, 1]: example
+    ``b`` is the crop at rows ``oy[b]:``, columns ``ox[b]:``, mirrored left
+    to right where ``flip[b]``, then ``x * 2/255 - 1``."""
+    if images.dim() != 4 or images.dtype != torch.uint8:
+        raise ValueError(f"augment_batch: images must be uint8 (B, H, W, C), "
+                         f"got {images.dtype} {tuple(images.shape)}")
+    b, h, w, c = images.shape
+    if h < crop or w < crop:
+        raise ValueError(f"augment_batch: crop {crop} exceeds input {h}x{w}")
+    for name, t in (("oy", oy), ("ox", ox), ("flip", flip)):
+        if tuple(t.shape) != (b,):
+            raise ValueError(f"augment_batch: {name} must have shape ({b},)")
+    oy_h, ox_h = oy.cpu(), ox.cpu()
+    if bool(((oy_h < 0) | (oy_h > h - crop) | (ox_h < 0)
+             | (ox_h > w - crop)).any()):
+        raise ValueError("augment_batch: crop offset out of range")
+    if on_cpu("augment_batch", images):
+        return augment_batch_reference(images, oy, ox, flip, crop)
+    if not images.is_contiguous():
+        raise ValueError("augment_batch: images must be contiguous (NHWC)")
+    meta = torch.stack([oy_h.to(torch.int32), ox_h.to(torch.int32),
+                        flip.cpu().to(torch.int32)], 1).to(images.device)
+    y = torch.empty((b, crop, crop, c), device=images.device,
+                    dtype=torch.float32)
+    with torch.cuda.device(images.device):
+        _build.launch("uig_augment", images, meta, y, b, h, w, c, crop)
+    augment_batch.launches += 1
+    return y
+
+
+augment_batch.launches = 0

@@ -1,10 +1,13 @@
-"""The 7x7 stride-1 pad-3 conv + bias for few output channels: the CUDA
-kernel in ``csrc/conv7.cu`` and its plain PyTorch version.
+"""The 7x7 stride-1 pad-3 conv + bias for few output channels: the forward
+CUDA kernel in ``csrc/conv7.cu``, its input and weight gradients in
+``csrc/conv7_bwd.cu``, their plain PyTorch versions, and ``conv7_act``, the
+autograd function that pairs them.
 
 Replaces the JAX package's ``kernels/conv_pallas.py`` ``conv7_s2d`` (through
-``conv_core5`` -> ``_conv5_impl`` -> ``_conv5_kernel``). Same linear map; the
-TPU's space-to-depth view is a lane trick and is not carried over. x is NHWC,
-w is HWIO (7, 7, Cin, Cout) with Cout <= 4.
+``conv_core5`` -> ``_conv5_impl`` -> ``_conv5_kernel``; the backward's
+``_conv5_impl`` with ``fold=True`` and ``_wgrad5_impl``). Same linear map;
+the TPU's space-to-depth view is a lane trick and is not carried over. x is
+NHWC, w is HWIO (7, 7, Cin, Cout) with Cout <= 4.
 """
 
 from __future__ import annotations
@@ -14,8 +17,11 @@ import torch.nn.functional as F
 
 from uig_torch.kernels import _build
 from uig_torch.kernels._check import cuda_operand, on_cpu
+from uig_torch.kernels.reflect import reflect_fold
 
 MAX_COUT = 4
+_WGRAD_BLOCKS = 528  # wgrad blocks in flight: 4 per SM on 132 SMs
+_WTILE = (8, 16)     # wgrad pixel tile (csrc/conv7_bwd.cu kWH, kWW)
 
 
 def conv7_reference(x: torch.Tensor, w: torch.Tensor,
@@ -32,6 +38,18 @@ def conv7_reference(x: torch.Tensor, w: torch.Tensor,
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def _check_pad_mode(pad_mode: str) -> None:
+    if pad_mode not in ("reflect", "zeros"):
+        raise ValueError(f"unsupported pad_mode {pad_mode!r}")
+
+
+def _check_card(name: str, h: int, wd: int, cout: int, pad_mode: str) -> None:
+    if cout > MAX_COUT:
+        raise ValueError(f"{name}: Cout={cout} > {MAX_COUT}")
+    if pad_mode == "reflect" and (h < 4 or wd < 4):
+        raise ValueError(f"{name}: reflect padding needs H, W >= 4")
+
+
 def conv7(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
           pad_mode: str = "reflect") -> torch.Tensor:
     """pad-3 7x7 stride-1 conv + bias. x: (B, H, W, Cin); w: (7, 7, Cin,
@@ -43,13 +61,9 @@ def conv7(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
         bias = torch.zeros((cout,), device=x.device, dtype=torch.float32)
     if on_cpu("conv7", x, w, bias):
         return conv7_reference(x, w, bias, pad_mode)
-    if pad_mode not in ("reflect", "zeros"):
-        raise ValueError(f"unsupported pad_mode {pad_mode!r}")
-    if cout > MAX_COUT:
-        raise ValueError(f"conv7: Cout={cout} > {MAX_COUT}")
+    _check_pad_mode(pad_mode)
     nb, h, wd, cin = x.shape
-    if pad_mode == "reflect" and (h < 4 or wd < 4):
-        raise ValueError("conv7: reflect padding needs H, W >= 4")
+    _check_card("conv7", h, wd, cout, pad_mode)
     cuda_operand("conv7", "x", x)
     cuda_operand("conv7", "w", w)
     cuda_operand("conv7", "bias", bias, (cout,))
@@ -62,3 +76,121 @@ def conv7(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
 
 
 conv7.launches = 0
+
+
+def conv7_dgrad_reference(dy: torch.Tensor, w: torch.Tensor,
+                          pad_mode: str = "reflect") -> torch.Tensor:
+    nb, h, wd, _ = dy.shape
+    cin = w.shape[2]
+    wt = w.permute(3, 2, 0, 1)
+    dyn = dy.permute(0, 3, 1, 2)
+    if pad_mode == "reflect":
+        dxp = torch.nn.grad.conv2d_input((nb, cin, h + 6, wd + 6), wt, dyn)
+        return reflect_fold(dxp.permute(0, 2, 3, 1), 3).contiguous()
+    _check_pad_mode(pad_mode)
+    dx = torch.nn.grad.conv2d_input((nb, cin, h, wd), wt, dyn, padding=3)
+    return dx.permute(0, 2, 3, 1).contiguous()
+
+
+def conv7_dgrad(dy: torch.Tensor, w: torch.Tensor,
+                pad_mode: str = "reflect") -> torch.Tensor:
+    """Input gradient of ``conv7``: dy (B, H, W, Cout), w (7, 7, Cin, Cout)
+    -> dx (B, H, W, Cin), the reflect ring folded onto its sources."""
+    if dy.dim() != 4 or tuple(w.shape[:2]) != (7, 7) or w.shape[3] != dy.shape[3]:
+        raise ValueError(f"conv7_dgrad: bad shapes dy {tuple(dy.shape)}, "
+                         f"w {tuple(w.shape)}")
+    if on_cpu("conv7_dgrad", dy, w):
+        return conv7_dgrad_reference(dy, w, pad_mode)
+    _check_pad_mode(pad_mode)
+    nb, h, wd, cout = dy.shape
+    cin = w.shape[2]
+    _check_card("conv7_dgrad", h, wd, cout, pad_mode)
+    if cin % 4:
+        raise ValueError(f"conv7_dgrad: Cin={cin} must be a multiple of 4")
+    cuda_operand("conv7_dgrad", "dy", dy)
+    cuda_operand("conv7_dgrad", "w", w)
+    dx = torch.empty((nb, h, wd, cin), device=dy.device, dtype=torch.float32)
+    with torch.cuda.device(dy.device):
+        _build.launch("uig_conv7_dgrad", dy, w, dx, nb, h, wd, cin, cout,
+                      pad_mode == "reflect")
+    conv7_dgrad.launches += 1
+    return dx
+
+
+conv7_dgrad.launches = 0
+
+
+def conv7_wgrad_reference(x: torch.Tensor, dy: torch.Tensor,
+                          pad_mode: str = "reflect") -> torch.Tensor:
+    xn = x.permute(0, 3, 1, 2)
+    dyn = dy.permute(0, 3, 1, 2)
+    shape = (dy.shape[3], x.shape[3], 7, 7)
+    if pad_mode == "reflect":
+        dw = torch.nn.grad.conv2d_weight(
+            F.pad(xn, (3, 3, 3, 3), mode="reflect"), shape, dyn)
+    else:
+        _check_pad_mode(pad_mode)
+        dw = torch.nn.grad.conv2d_weight(xn, shape, dyn, padding=3)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+def _wgrad_chunks(tiles: int, groups: int) -> tuple[int, int]:
+    """(chunks, tiles per chunk) for about _WGRAD_BLOCKS blocks in all."""
+    chunks = max(1, min(tiles, -(-_WGRAD_BLOCKS // groups)))
+    per = -(-tiles // chunks)
+    return -(-tiles // per), per
+
+
+def conv7_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                pad_mode: str = "reflect") -> torch.Tensor:
+    """Weight gradient of ``conv7``: x (B, H, W, Cin), dy (B, H, W, Cout)
+    -> dw (7, 7, Cin, Cout), against the padded plane the forward read."""
+    if x.dim() != 4 or dy.dim() != 4 or x.shape[:3] != dy.shape[:3]:
+        raise ValueError(f"conv7_wgrad: bad shapes x {tuple(x.shape)}, "
+                         f"dy {tuple(dy.shape)}")
+    if on_cpu("conv7_wgrad", x, dy):
+        return conv7_wgrad_reference(x, dy, pad_mode)
+    _check_pad_mode(pad_mode)
+    nb, h, wd, cin = x.shape
+    cout = dy.shape[3]
+    _check_card("conv7_wgrad", h, wd, cout, pad_mode)
+    cuda_operand("conv7_wgrad", "x", x)
+    cuda_operand("conv7_wgrad", "dy", dy)
+    tiles = nb * -(-h // _WTILE[0]) * -(-wd // _WTILE[1])
+    chunks, per = _wgrad_chunks(tiles, -(-cin // 32))
+    part = torch.empty((chunks, 7, 7, cin, cout), device=x.device,
+                       dtype=torch.float32)
+    dw = torch.empty((7, 7, cin, cout), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        _build.launch("uig_conv7_wgrad", x, dy, part, dw, nb, h, wd, cin, cout,
+                      pad_mode == "reflect", chunks, per)
+    conv7_wgrad.launches += 1
+    return dw
+
+
+conv7_wgrad.launches = 0
+
+
+class _Conv7(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, pad_mode):
+        ctx.save_for_backward(x, w)
+        ctx.pad_mode = pad_mode
+        ctx.has_bias = bias is not None
+        return conv7(x, w, bias, pad_mode)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        need = ctx.needs_input_grad
+        dx = conv7_dgrad(dy, w, ctx.pad_mode) if need[0] else None
+        dw = conv7_wgrad(x, dy, ctx.pad_mode) if need[1] else None
+        db = dy.sum(dim=(0, 1, 2)) if ctx.has_bias and need[2] else None
+        return dx, dw, db, None
+
+
+def conv7_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
+              pad_mode: str = "reflect") -> torch.Tensor:
+    """``conv7`` with a gradient: K4f forward, K4d and K4w backward."""
+    return _Conv7.apply(x, w, bias, pad_mode)

@@ -7,6 +7,13 @@ Replaces the JAX package's ``kernels/convin_pallas.py`` forward
 normalize + affine (+ReLU). Same signature as the JAX ``conv3_in_act``;
 x is NHWC and w is HWIO (3, 3, C, F), which the kernel reads as the (9C, F)
 matrix of an implicit GEMM.
+
+The backward is the composition of ``convin_pallas.py``'s ``bwd``, which is
+XLA in JAX and no Pallas kernel: the instance norm backward (K2b,
+``kernels/norm.py``) on the saved conv output gives its gradient, the conv
+bias gradient is that gradient's sum, and the conv's weight and input
+gradients are library convs (cuDNN on the card) against the padded plane
+the forward read, with the reflect ring folded by ``kernels/reflect.py``.
 """
 
 from __future__ import annotations
@@ -16,7 +23,8 @@ import torch.nn.functional as F
 
 from uig_torch.kernels import _build
 from uig_torch.kernels._check import cuda_operand, on_cpu
-from uig_torch.kernels.norm import instance_norm_reference
+from uig_torch.kernels.norm import instance_norm_bwd, instance_norm_reference
+from uig_torch.kernels.reflect import reflect_fold
 
 _BM = 128  # output pixels per conv tile (csrc/conv3_in.cu kBM)
 
@@ -47,19 +55,11 @@ def conv3_in_act_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                                    eps, relu)
 
 
-def conv3_in_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 g: torch.Tensor, be: torch.Tensor, *, relu: bool,
-                 eps: float = 1e-5, pad_mode: str = "reflect") -> torch.Tensor:
-    """Pad-1 3x3 stride-1 conv + bias + InstanceNorm(scale=g, bias=be)
-    (+ReLU). x: (B, H, W, C); w: (3, 3, C, F). Output (B, H, W, F)."""
-    _check_pad_mode(pad_mode)
-    if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3) \
-            or w.shape[2] != x.shape[3]:
-        raise ValueError(f"conv3_in_act: bad shapes x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}")
+def _conv3_in_fwd(x, w, b, g, be, relu, eps, pad_mode):
+    """(y, y_conv): the normalized output and the conv output it came from."""
     if on_cpu("conv3_in_act", x, w, b, g, be):
-        return conv3_in_act_reference(x, w, b, g, be, relu=relu, eps=eps,
-                                      pad_mode=pad_mode)
+        yconv = conv3_reference(x, w, b, pad_mode)
+        return instance_norm_reference(yconv, g, be, eps, relu), yconv
     nb, h, wd, c = x.shape
     f = w.shape[3]
     if c % 4 or f % 4:
@@ -81,7 +81,72 @@ def conv3_in_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       nb, h, wd, c, f, pad_mode == "reflect", bool(relu),
                       float(eps))
     conv3_in_act.launches += 1
-    return y
+    return y, yconv
+
+
+def conv3_dgrad(dyc: torch.Tensor, w: torch.Tensor,
+                pad_mode: str) -> torch.Tensor:
+    """Input gradient of the pad-1 3x3 conv (library dgrad): onto the
+    (H+2, W+2) padded plane, then the reflect ring folded (reflect) or the
+    zero ring dropped (zeros)."""
+    nb, h, wd, _ = dyc.shape
+    wt = w.permute(3, 2, 0, 1)
+    dyn = dyc.permute(0, 3, 1, 2)
+    cin = w.shape[2]
+    if pad_mode == "reflect":
+        dxp = torch.nn.grad.conv2d_input((nb, cin, h + 2, wd + 2), wt, dyn)
+        return reflect_fold(dxp.permute(0, 2, 3, 1), 1).contiguous()
+    dx = torch.nn.grad.conv2d_input((nb, cin, h, wd), wt, dyn, padding=1)
+    return dx.permute(0, 2, 3, 1).contiguous()
+
+
+def conv3_wgrad(x: torch.Tensor, dyc: torch.Tensor,
+                pad_mode: str) -> torch.Tensor:
+    """Weight gradient of the pad-1 3x3 conv (library wgrad) against the
+    padded plane the forward read; HWIO (3, 3, C, F)."""
+    xn = x.permute(0, 3, 1, 2)
+    dyn = dyc.permute(0, 3, 1, 2)
+    shape = (dyc.shape[3], x.shape[3], 3, 3)
+    if pad_mode == "reflect":
+        dw = torch.nn.grad.conv2d_weight(
+            F.pad(xn, (1, 1, 1, 1), mode="reflect"), shape, dyn)
+    else:
+        dw = torch.nn.grad.conv2d_weight(xn, shape, dyn, padding=1)
+    return dw.permute(2, 3, 1, 0).contiguous()
+
+
+class _Conv3InAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, g, be, relu, eps, pad_mode):
+        y, yconv = _conv3_in_fwd(x, w, b, g, be, relu, eps, pad_mode)
+        ctx.save_for_backward(x, w, g, be, yconv)
+        ctx.relu, ctx.eps, ctx.pad_mode = relu, eps, pad_mode
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, g, be, yconv = ctx.saved_tensors
+        dyc, dg, dbe = instance_norm_bwd(yconv, g, be, dy.contiguous(),
+                                         ctx.eps, ctx.relu)
+        db = dyc.sum(dim=(0, 1, 2))
+        need = ctx.needs_input_grad
+        dx = conv3_dgrad(dyc, w, ctx.pad_mode) if need[0] else None
+        dw = conv3_wgrad(x, dyc, ctx.pad_mode) if need[1] else None
+        return dx, dw, db, dg, dbe, None, None, None
+
+
+def conv3_in_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 g: torch.Tensor, be: torch.Tensor, *, relu: bool,
+                 eps: float = 1e-5, pad_mode: str = "reflect") -> torch.Tensor:
+    """Pad-1 3x3 stride-1 conv + bias + InstanceNorm(scale=g, bias=be)
+    (+ReLU), with a gradient. x: (B, H, W, C); w: (3, 3, C, F). Output
+    (B, H, W, F)."""
+    _check_pad_mode(pad_mode)
+    if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3) \
+            or w.shape[2] != x.shape[3]:
+        raise ValueError(f"conv3_in_act: bad shapes x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    return _Conv3InAct.apply(x, w, b, g, be, bool(relu), float(eps), pad_mode)
 
 
 conv3_in_act.launches = 0

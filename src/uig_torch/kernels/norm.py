@@ -1,10 +1,13 @@
-"""Instance norm forward: the CUDA kernel in ``csrc/instance_norm.cu`` and
-its plain PyTorch version.
+"""Instance norm: the forward CUDA kernel in ``csrc/instance_norm.cu``, the
+backward in ``csrc/instance_norm_bwd.cu``, their plain PyTorch versions, and
+``instance_norm_act``, the autograd function that pairs them.
 
-Replaces the JAX package's ``kernels/norm_pallas.py`` forward
-(``_fwd_impl`` -> ``_in_fwd_kernel``). Numerics of the JAX InstanceNorm: fp32
-one-pass moments E[x], E[x^2] over (H, W), variance clamped at 0, eps inside
-the square root, affine, optional fused ReLU. x is NHWC.
+Replaces the JAX package's ``kernels/norm_pallas.py`` (``_fwd_impl`` ->
+``_in_fwd_kernel`` and ``_bwd_impl`` -> ``_in_bwd_kernel``). Numerics of the
+JAX InstanceNorm: fp32 one-pass moments E[x], E[x^2] over (H, W), variance
+clamped at 0, eps inside the square root, affine, optional fused ReLU. The
+backward recomputes the moments from x with the same formulas, and with
+ReLU masks dy by the recomputed pre-activation. x is NHWC.
 """
 
 from __future__ import annotations
@@ -18,15 +21,19 @@ _TARGET_BLOCKS = 1024  # enough blocks in flight to fill 132 SMs several times
 _MIN_ROWS = 64         # pixels per chunk, at least
 
 
+def _moments(x32: torch.Tensor, eps: float):
+    mean = x32.mean(dim=(1, 2), keepdim=True)
+    mean_sq = x32.square().mean(dim=(1, 2), keepdim=True)
+    var = torch.clamp(mean_sq - mean.square(), min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
 def instance_norm_reference(x: torch.Tensor, gamma: torch.Tensor,
                             beta: torch.Tensor, eps: float = 1e-5,
                             relu: bool = False) -> torch.Tensor:
     x32 = x.to(torch.float32)
-    mean = x32.mean(dim=(1, 2), keepdim=True)
-    mean_sq = x32.square().mean(dim=(1, 2), keepdim=True)
-    var = torch.clamp(mean_sq - mean.square(), min=0.0)
-    y = (x32 - mean) * torch.rsqrt(var + eps) * gamma.to(torch.float32) \
-        + beta.to(torch.float32)
+    mean, r = _moments(x32, eps)
+    y = (x32 - mean) * r * gamma.to(torch.float32) + beta.to(torch.float32)
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
@@ -67,3 +74,79 @@ def instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 instance_norm.launches = 0
+
+
+def instance_norm_bwd_reference(x: torch.Tensor, gamma: torch.Tensor,
+                                beta: torch.Tensor, dy: torch.Tensor,
+                                eps: float = 1e-5, relu: bool = False):
+    x32, dy32 = x.to(torch.float32), dy.to(torch.float32)
+    g, be = gamma.to(torch.float32), beta.to(torch.float32)
+    mean, r = _moments(x32, eps)
+    xhat = (x32 - mean) * r
+    if relu:
+        dy32 = torch.where(xhat * g + be > 0, dy32, 0.0)
+    dyh = dy32 * g
+    mean_dyh = dyh.mean(dim=(1, 2), keepdim=True)
+    mean_dyh_x = (dyh * xhat).mean(dim=(1, 2), keepdim=True)
+    dx = r * (dyh - mean_dyh - xhat * mean_dyh_x)
+    dgamma = (dy32 * xhat).sum(dim=(0, 1, 2))
+    dbeta = dy32.sum(dim=(0, 1, 2))
+    return dx.to(x.dtype), dgamma, dbeta
+
+
+def instance_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                      dy: torch.Tensor, eps: float = 1e-5,
+                      relu: bool = False):
+    """(dx, dgamma, dbeta) of ``instance_norm(x, gamma, beta, eps, relu)``
+    for the output gradient ``dy``."""
+    if x.dim() != 4 or dy.shape != x.shape:
+        raise ValueError(f"instance_norm_bwd: x {tuple(x.shape)} and dy "
+                         f"{tuple(dy.shape)} must be one (B, H, W, C) shape")
+    if on_cpu("instance_norm_bwd", x, gamma, beta, dy):
+        return instance_norm_bwd_reference(x, gamma, beta, dy, eps, relu)
+    b, h, w, c = x.shape
+    if c % 4:
+        raise ValueError(f"instance_norm_bwd: C={c} must be a multiple of 4")
+    name = "instance_norm_bwd"
+    cuda_operand(name, "x", x)
+    cuda_operand(name, "dy", dy)
+    cuda_operand(name, "gamma", gamma, (c,))
+    cuda_operand(name, "beta", beta, (c,))
+    hw = h * w
+    chunks, rows = _chunks(b, hw, c)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty((c,), device=x.device, dtype=torch.float32)
+    dbeta = torch.empty_like(dgamma)
+    part = torch.empty((2, b, chunks, c), device=x.device, dtype=torch.float32)
+    ws = torch.empty((6, b, c), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        _build.launch("uig_instance_norm_bwd", x, gamma, beta, dy, dx, dgamma,
+                      dbeta, part, ws, b, hw, c, chunks, rows, float(eps),
+                      bool(relu))
+    instance_norm_bwd.launches += 1
+    return dx, dgamma, dbeta
+
+
+instance_norm_bwd.launches = 0
+
+
+class _InstanceNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, relu):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps, ctx.relu = eps, relu
+        return instance_norm(x, gamma, beta, eps, relu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta = ctx.saved_tensors
+        dx, dgamma, dbeta = instance_norm_bwd(x, gamma, beta,
+                                              dy.contiguous(), ctx.eps,
+                                              ctx.relu)
+        return dx, dgamma, dbeta, None, None
+
+
+def instance_norm_act(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                      eps: float = 1e-5, relu: bool = False) -> torch.Tensor:
+    """``instance_norm`` with a gradient: K2f forward, K2b backward."""
+    return _InstanceNorm.apply(x, gamma, beta, float(eps), bool(relu))

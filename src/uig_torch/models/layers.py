@@ -1,11 +1,15 @@
 """NHWC building blocks of the ResNet generator, in PyTorch.
 
-The port of the JAX package's ``models/layers.py`` for the serving path.
-Activations are NHWC (contiguous) at every public function, as in JAX.
+The port of the JAX package's ``models/layers.py`` for serving and
+training. Activations are NHWC (contiguous) at every public function, as in
+JAX.
 Parameters keep flax's names and layouts (conv kernels HWIO, instance norm
 ``scale``/``bias``), so converting a flax tree is a rename
 (``uig_torch.convert``). Library convs run on a permuted NCHW view, which is
-a channels_last tensor and costs no copy.
+a channels_last tensor and costs no copy. Every module is differentiable:
+the kernels through their autograd functions (``instance_norm_act``,
+``conv3_in_act``, ``conv7_act``), reflect padding through
+``kernels/reflect.py``, whose adjoint folds the ring in a fixed order.
 
 The JAX execution knobs (``pad_impl``, ``s2d_block``, ``dx_s2d``, ``impl``,
 ``convin``) are accepted and ignored: every setting computes the same map,
@@ -18,9 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from uig_torch.kernels.conv import MAX_COUT, conv7
+from uig_torch.kernels.conv import MAX_COUT, conv7_act
 from uig_torch.kernels.convin import conv3_in_act
-from uig_torch.kernels.norm import instance_norm
+from uig_torch.kernels.norm import instance_norm_act
+from uig_torch.kernels.reflect import reflect_pad
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -43,7 +48,7 @@ class InstanceNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-        return instance_norm(x, self.scale, self.bias, self.eps, relu)
+        return instance_norm_act(x, self.scale, self.bias, self.eps, relu)
 
 
 class PadConv(nn.Module):
@@ -77,15 +82,13 @@ class PadConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.routes_to_conv7():
-            return conv7(x, self.kernel, self.bias, self.pad_mode)
-        xn = _nchw(x)
+            return conv7_act(x, self.kernel, self.bias, self.pad_mode)
         w = self.kernel.permute(3, 2, 0, 1)
         if self.pad and self.pad_mode == "reflect":
-            p = self.pad
-            y = F.conv2d(F.pad(xn, (p, p, p, p), mode="reflect"), w, self.bias,
+            y = F.conv2d(_nchw(reflect_pad(x, self.pad)), w, self.bias,
                          stride=self.stride)
         else:
-            y = F.conv2d(xn, w, self.bias, stride=self.stride,
+            y = F.conv2d(_nchw(x), w, self.bias, stride=self.stride,
                          padding=self.pad)
         return _nhwc(y)
 

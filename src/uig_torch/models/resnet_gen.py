@@ -2,8 +2,8 @@
 
     c7s1-64 -> d128 -> d256 -> R256 x n -> u128 -> u64 -> c7s1-3, tanh
 
-The port of the JAX package's ``models/resnet_gen.py`` for serving. The
-layer list is the same flat list, so layer ``i`` holds the parameters of
+The port of the JAX package's ``models/resnet_gen.py`` for serving and
+training. The layer list is the same flat list, so layer ``i`` holds the parameters of
 flax's ``layers_{i}`` (the ``"relu"`` and ``"tanh"`` entries have none).
 Only ``resample="strided"`` is ported. The JAX generator's TPU execution
 knobs (``head_s2d``, ``conv_impl``, ``convin_pallas``, ...) have no
@@ -75,15 +75,24 @@ class ResNetGenerator(nn.Module):
         return x
 
 
-def generator_from_config(model_cfg) -> ResNetGenerator:
-    """The serving generator of a ``ModelConfig`` (kind cyclegan), fp32."""
+def check_float32(model_cfg, dtype_field: str) -> None:
+    """Raise unless ``model_cfg.<dtype_field>`` (``eval_dtype`` for serving,
+    ``compute_dtype`` for training) is float32: bf16 is on the ROADMAP."""
+    dtype = getattr(model_cfg, dtype_field)
+    if dtype != "float32":
+        raise NotImplementedError(
+            f"model.{dtype_field}={dtype!r}: the port runs float32 only "
+            f"(bf16 is on the ROADMAP); pass model.{dtype_field}=float32")
+
+
+def generator_from_config(model_cfg,
+                          dtype_field: str = "eval_dtype") -> ResNetGenerator:
+    """The generator of a ``ModelConfig`` (kind cyclegan), fp32. Serving
+    checks ``model.eval_dtype``, training ``model.compute_dtype``."""
     if model_cfg.kind != "cyclegan":
         raise NotImplementedError(
-            f"model.kind={model_cfg.kind!r}: the port serves cyclegan only")
-    if model_cfg.eval_dtype != "float32":
-        raise NotImplementedError(
-            f"model.eval_dtype={model_cfg.eval_dtype!r}: the port serves "
-            "float32 only (bf16 serving is on the ROADMAP)")
+            f"model.kind={model_cfg.kind!r}: the port has cyclegan only")
+    check_float32(model_cfg, dtype_field)
     return ResNetGenerator(
         out_channels=model_cfg.out_channels,
         base_features=model_cfg.g_base_features,

@@ -1,5 +1,6 @@
-"""uig_torch.convert and uig_torch.config: flax generator weights and JAX
-config files cross into the port unchanged."""
+"""uig_torch.convert and uig_torch.config: flax generator weights, whole JAX
+CycleGAN train states and JAX config files cross into the port
+unchanged."""
 
 import json
 
@@ -15,9 +16,12 @@ from uig.config import config_to_dict as jax_config_to_dict
 from uig.config import get_preset as jax_get_preset
 from uig.models import ResNetGenerator as JaxGenerator
 from uig_torch.config import config_to_dict, get_preset, load_config
+from uig.models import PatchDiscriminator as JaxDisc
 from uig_torch.convert import (flax_from_generator_state,
-                               generator_state_from_flax, load_generator_npz)
-from uig_torch.models import ResNetGenerator
+                               generator_state_from_flax,
+                               jax_flat_from_state, load_generator_npz,
+                               state_from_jax_flat)
+from uig_torch.models import PatchDiscriminator, ResNetGenerator
 
 
 def _flax_flat(base=8, blocks=2, upsample="conv_transpose", seed=0):
@@ -96,3 +100,78 @@ def test_state_tensors_are_fp32_cpu():
     state = generator_state_from_flax(_flax_flat())
     assert all(t.dtype == torch.float32 and t.device.type == "cpu"
                for t in state.values())
+
+
+def _jax_state_flat(seed=0):
+    """A flat JAX-layout CycleGAN state (the keys of
+    ``flax.serialization.to_state_dict``) with perturbed leaves, built
+    without a trainer: generator and discriminator trees, two Adam states,
+    pools, step, key."""
+    rng = np.random.default_rng(seed)
+    g = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(
+        JaxGenerator(base_features=8, n_res_blocks=1).init(
+            jax.random.PRNGKey(seed), jnp.zeros((1, 16, 16, 3))),
+        sep="/").items()}
+    d = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(
+        JaxDisc(base_features=8, n_layers=2).init(
+            jax.random.PRNGKey(seed), jnp.zeros((1, 16, 16, 3))),
+        sep="/").items()}
+
+    def rand(shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    flat = {}
+    for tree, nets, leaves in (("g_params", ("a2b", "b2a"), g),
+                               ("d_params", ("a", "b"), d),
+                               ("ema", ("a2b", "b2a"), g)):
+        for net in nets:
+            for k, v in leaves.items():
+                flat[f"{tree}/{net}/{k}"] = rand(v.shape)
+    for opt, nets, leaves in (("g_opt", ("a2b", "b2a"), g),
+                              ("d_opt", ("a", "b"), d)):
+        for mom in ("mu", "nu"):
+            for net in nets:
+                for k, v in leaves.items():
+                    flat[f"{opt}/0/0/{mom}/{net}/{k}"] = rand(v.shape)
+        flat[f"{opt}/0/0/count"] = np.int32(5)
+        flat[f"{opt}/0/1/count"] = np.int32(5)
+    for pool in ("pool_a", "pool_b"):
+        flat[pool + "/buffer"] = rand((3, 16, 16, 3))
+        flat[pool + "/count"] = np.int32(3)
+    flat.update(step=np.int32(5), rng=np.array([0, 7], np.uint32),
+                ada_p=np.float32(0.0))
+    return flat
+
+
+def test_train_state_round_trip_and_names():
+    flat = _jax_state_flat()
+    state = state_from_jax_flat(flat, seed=3)
+    assert state.step == 5 and state.seed == 3
+    assert state.g_opt.count == state.d_opt.count == 5
+    assert state.pool_a.count == 3
+    g_names = set(ResNetGenerator(base_features=8,
+                                  n_res_blocks=1).state_dict())
+    d_names = set(PatchDiscriminator(8, 2).state_dict())
+    for tree, names in ((state.g_params, g_names), (state.ema, g_names),
+                        (state.g_opt.mu, g_names), (state.d_params, d_names),
+                        (state.d_opt.nu, d_names)):
+        for sub in tree.values():
+            assert set(sub) == names
+    back = jax_flat_from_state(state)
+    assert set(back) == set(flat)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+    # the inverse copies: a later in-place step leaves it untouched
+    state.g_params["a2b"]["layers_0.kernel"].add_(1.0)
+    np.testing.assert_array_equal(back["g_params/a2b/params/layers_0/kernel"],
+                                  flat["g_params/a2b/params/layers_0/kernel"])
+
+
+def test_train_state_checks_counts_and_keys():
+    flat = _jax_state_flat()
+    bad = dict(flat, **{"g_opt/0/1/count": np.int32(4)})
+    with pytest.raises(ValueError, match="schedule count"):
+        state_from_jax_flat(bad)
+    bad = dict(flat, **{"g_params/a2b/layers_0/kernel": np.zeros(1)})
+    with pytest.raises(KeyError, match="params/"):
+        state_from_jax_flat(bad)

@@ -1,8 +1,13 @@
 """uig_torch.kernels.convin against the JAX fused conv3+IN (the Pallas
 kernel in interpret mode). The port runs on the CPU, where the wrapper takes
 its plain version. fp32; atol 1e-5 covers sums over 9*16 terms and 64 pixels
-taken in another order."""
+taken in another order. The gradients of the differentiable ``conv3_in_act``
+(norm backward, then library dgrad/wgrad with the reflect ring folded) are
+held against ``jax.vjp`` of the JAX function: dx within 1e-5; dw, db, dgamma
+and dbeta (sums over the batch) within 1e-5 of the largest gradient of the
+call, since the conv bias feeds the norm and its true gradient is 0."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,3 +48,23 @@ def test_bad_pad_mode_and_shapes_raise():
         conv3_in_act(x, w, b, g, be, relu=True, pad_mode="circular")
     with pytest.raises(ValueError, match="bad shapes"):
         conv3_in_act(x, w[:, :, :8], b, g, be, relu=True)
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+@pytest.mark.parametrize("relu", [False, True])
+def test_gradients_match_jax_vjp(pad_mode, relu):
+    arrs = _inputs(seed=5)
+    dy = np.random.default_rng(6).standard_normal((2, 8, 8, 16)).astype(
+        np.float32)
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    y = conv3_in_act(*ins, relu=relu, pad_mode=pad_mode)
+    got = torch.autograd.grad(y, ins, torch.from_numpy(dy))
+    _, vjp = jax.vjp(lambda *a: jax_conv3_in_act(*a, relu=relu,
+                                                 pad_mode=pad_mode),
+                     *map(jnp.asarray, arrs))
+    want = [np.asarray(v) for v in vjp(jnp.asarray(dy))]
+    np.testing.assert_allclose(got[0].numpy(), want[0], atol=ATOL)
+    scale = max(np.abs(w).max() for w in want[1:])
+    for name, u, v in zip(("dw", "db", "dgamma", "dbeta"), got[1:], want[1:]):
+        np.testing.assert_allclose(u.numpy(), v, rtol=0, atol=ATOL * scale,
+                                   err_msg=name)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card against their plain PyTorch versions,
 at ragged shapes the main path does not reach (tiles cut at every edge,
-channel counts that fill no tile), plus the guards a CUDA tensor meets.
+channel counts that fill no tile), plus the guards a CUDA tensor meets; the
+autograd functions on the card against autograd of their plain versions;
+and repeat runs of the reductions, which must be bit-equal.
 
 Needs an NVIDIA card: every test is marked ``cuda`` and skips without one.
 This file imports neither JAX nor the JAX package, so it runs where only
@@ -9,16 +11,26 @@ PyTorch is installed:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: fp32 sums taken in another order than the plain version's;
-outputs are O(1) and the longest sum has 49 * 24 terms.
+outputs are O(1) and the longest sum has 49 * 24 terms (1e-4). Sums over a
+whole plane or batch (dgamma, dbeta, dw) hold to 1e-4 relative to their
+largest value. The augment kernel is exact up to 1 ulp (2.4e-7). With a
+fused ReLU, the norm backward is compared where the recomputed
+pre-activation is at least 1e-4 from 0: at the kink either side is right.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from uig_torch.kernels import (conv3_in_act, conv3_in_act_reference, conv7,
-                               conv7_reference, instance_norm,
+from uig_torch.kernels import (augment_batch, augment_batch_reference,
+                               conv3_in_act, conv3_in_act_reference, conv7,
+                               conv7_act, conv7_dgrad, conv7_dgrad_reference,
+                               conv7_reference, conv7_wgrad,
+                               conv7_wgrad_reference, instance_norm,
+                               instance_norm_act, instance_norm_bwd,
+                               instance_norm_bwd_reference,
                                instance_norm_reference)
+from uig_torch.kernels.reflect import reflect_pad
 from uig_torch.serving import exact_fp32
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +121,148 @@ def test_cuda_operands_are_checked_not_bypassed(dev):
                       torch.ones(6, device=dev))
     with pytest.raises(ValueError, match="Cout"):
         conv7(x, _randn(dev, 7, 7, 8, 5), None)
+
+
+def _rel_close(kernel_out, plain_out, rel=1e-4, scale=None):
+    torch.cuda.synchronize()
+    if scale is None:
+        scale = max(plain_out.abs().max().item(), 1e-6)
+    err = (kernel_out - plain_out).abs().max().item()
+    assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("shape,crop", [((8, 286, 286, 3), 256),
+                                        ((3, 37, 41, 3), 32),
+                                        ((2, 9, 9, 1), 9)])
+def test_augment(dev, shape, crop):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    b, h, w, _ = shape
+    oy = torch.from_numpy(rng.integers(0, h - crop + 1, b))
+    ox = torch.from_numpy(rng.integers(0, w - crop + 1, b))
+    flip = torch.from_numpy(np.arange(b) % 2 == 0)
+    before = augment_batch.launches
+    y = augment_batch(x, oy, ox, flip, crop)
+    assert augment_batch.launches == before + 1
+    torch.cuda.synchronize()
+    ref = augment_batch_reference(x, oy, ox, flip, crop)
+    assert (y - ref).abs().max().item() <= 2.4e-7
+
+
+@pytest.mark.parametrize("shape", [(3, 13, 17, 36), (1, 1, 5, 4),
+                                   (2, 31, 31, 512), (2, 64, 64, 64)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_instance_norm_bwd(dev, shape, relu):
+    c = shape[-1]
+    x = _randn(dev, *shape, scale=2.0, shift=0.5)
+    g = _randn(dev, c, scale=0.2, shift=1.0, seed=1)
+    b = _randn(dev, c, scale=0.2, seed=2)
+    dy = _randn(dev, *shape, seed=3)
+    before = instance_norm_bwd.launches
+    dx, dg, db = instance_norm_bwd(x, g, b, dy, relu=relu)
+    assert instance_norm_bwd.launches == before + 1
+    rdx, rdg, rdb = instance_norm_bwd_reference(x, g, b, dy, relu=relu)
+    keep = torch.ones_like(x, dtype=torch.bool)
+    if relu:
+        xn = instance_norm_reference(x, torch.ones_like(g), torch.zeros_like(b))
+        keep = (xn * g + b).abs() >= 1e-4
+    _close(torch.where(keep, dx, 0.0), torch.where(keep, rdx, 0.0))
+    _rel_close(dg, rdg)
+    _rel_close(db, rdb)
+    again = instance_norm_bwd(x, g, b, dy, relu=relu)
+    assert all(torch.equal(u, v) for u, v in zip((dx, dg, db), again))
+
+
+_CONV7_SHAPES = [((2, 37, 45, 24), 3), ((1, 4, 4, 8), 1), ((1, 9, 33, 16), 4),
+                 ((2, 16, 16, 36), 3)]
+
+
+@pytest.mark.parametrize("shape,cout", _CONV7_SHAPES)
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_conv7_dgrad(dev, shape, cout, pad_mode):
+    b, h, w, cin = shape
+    dy = _randn(dev, b, h, w, cout)
+    wt = _randn(dev, 7, 7, cin, cout, scale=0.05, seed=1)
+    before = conv7_dgrad.launches
+    dx = conv7_dgrad(dy, wt, pad_mode)
+    assert conv7_dgrad.launches == before + 1
+    _close(dx, conv7_dgrad_reference(dy, wt, pad_mode))
+
+
+@pytest.mark.parametrize("shape,cout", _CONV7_SHAPES)
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_conv7_wgrad(dev, shape, cout, pad_mode):
+    x = _randn(dev, *shape)
+    dy = _randn(dev, *shape[:3], cout, seed=1)
+    before = conv7_wgrad.launches
+    dw = conv7_wgrad(x, dy, pad_mode)
+    assert conv7_wgrad.launches == before + 1
+    _rel_close(dw, conv7_wgrad_reference(x, dy, pad_mode))
+    assert torch.equal(dw, conv7_wgrad(x, dy, pad_mode))  # no atomics
+
+
+def _grads(fn, inputs, ct):
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ins)
+    return [out] + list(torch.autograd.grad(out, ins, ct))
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_instance_norm_function(dev, relu):
+    x = _randn(dev, 2, 9, 11, 20, scale=2.0)
+    g = _randn(dev, 20, scale=0.2, shift=1.0, seed=1)
+    b = _randn(dev, 20, scale=0.2, seed=2)
+    ct = _randn(dev, 2, 9, 11, 20, seed=3)
+    got = _grads(lambda *a: instance_norm_act(*a, relu=relu), (x, g, b), ct)
+    want = _grads(lambda *a: instance_norm_reference(*a, relu=relu),
+                  (x, g, b), ct)
+    for u, v in zip(got, want):
+        _rel_close(u, v)
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3_in_function(dev, pad_mode, relu):
+    x = _randn(dev, 2, 10, 12, 16)
+    w = _randn(dev, 3, 3, 16, 8, scale=0.1, seed=1)
+    b, g, be = (_randn(dev, 8, scale=0.1, seed=2),
+                _randn(dev, 8, scale=0.2, shift=1.0, seed=3),
+                _randn(dev, 8, scale=0.2, seed=4))
+    ct = _randn(dev, 2, 10, 12, 8, seed=5)
+    got = _grads(lambda *a: conv3_in_act(*a, relu=relu, pad_mode=pad_mode),
+                 (x, w, b, g, be), ct)
+    want = _grads(lambda *a: conv3_in_act_reference(*a, relu=relu,
+                                                    pad_mode=pad_mode),
+                  (x, w, b, g, be), ct)
+    # the conv bias feeds the norm: its true gradient is 0, and both sides
+    # give rounding noise at the scale of the weight gradient
+    for i, (u, v) in enumerate(zip(got, want)):
+        _rel_close(u, v, scale=want[2].abs().max().item() if i == 3 else None)
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_conv7_function(dev, pad_mode):
+    x = _randn(dev, 2, 12, 20, 16)
+    w = _randn(dev, 7, 7, 16, 3, scale=0.05, seed=1)
+    b = _randn(dev, 3, scale=0.1, seed=2)
+    ct = _randn(dev, 2, 12, 20, 3, seed=3)
+    got = _grads(lambda *a: conv7_act(*a, pad_mode), (x, w, b), ct)
+    want = _grads(lambda *a: conv7_reference(*a, pad_mode), (x, w, b), ct)
+    for u, v in zip(got, want):
+        _rel_close(u, v)
+
+
+def test_reflect_pad_adjoint_is_deterministic(dev):
+    x = _randn(dev, 2, 9, 7, 4)
+    ct = _randn(dev, 2, 15, 13, 4, seed=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = _grads(lambda t: reflect_pad(t, 3), (x,), ct)
+        again = _grads(lambda t: reflect_pad(t, 3), (x,), ct)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = _grads(lambda t: torch.nn.functional.pad(
+        t.permute(0, 3, 1, 2), (3, 3, 3, 3), mode="reflect").permute(
+            0, 2, 3, 1), (x,), ct)
+    _close(got[1], want[1])
+    assert torch.equal(got[1], again[1])
