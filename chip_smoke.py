@@ -35,9 +35,25 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 5. serve: the HTTP server on the card answers 12 concurrent PNG requests,
    each equal to a direct ``Translator`` call, and reports its /stats.
 
-Then one ``kernels`` line (every kernel with its launches in one training
-step and in one translate apply, its error, and its times and bound summed
-over one training step), the nvidia-smi line, and, last,
+6. vqgan_slice: a ``Translator`` for ``vqgan512`` (512² reconstruction
+   through the codebook, fp32) at batch 4, weights from
+   ``convert.seeded_vqgan_flax`` (flax's initializers) through an ``.npz``.
+   Each apply must launch the attention forward 4 times; two runs must be
+   byte-identical; at batch 1 the card and the CPU (plain versions) must
+   agree on the encoder output, on the codes wherever the two nearest
+   codewords are further apart than rounding can reach, and on
+   ``decode_codes`` of the same codes (``VQ_TOL``).
+7. vqgan_train: a ``VQGANTrainer`` for ``vqgan512`` at full width with the
+   fp32 overrides and ``loss.vq_disc_start=0`` (D and the adaptive weight
+   on), batch 4 per domain (union 8). One step's launches; 3 steps twice
+   byte-identical; the batch-1 card-vs-CPU step of phase 3's method; 10
+   steps on a fixed batch with finite metrics and a falling ``rec``; step
+   time, img/s, peak memory and one profiled step.
+
+Then one ``kernels`` line (every kernel with its launches on its own path:
+one CycleGAN training step and translate apply, or one VQGAN training step
+and reconstruct apply for the attention kernels; its error, and its times
+and bound summed over that step), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -74,17 +90,24 @@ PEAK_BYTES = 3.35e12
 # reports: max |kernel - plain| for outputs of O(1) (fp32 sums in another
 # order over up to 9*256 and 49*64 terms); for sums over a whole batch and
 # plane (the norm backward's dgamma/dbeta, the 7x7 wgrad) the error relative
-# to the largest value; the augment kernel is exact up to 1 ulp.
+# to the largest value; the augment kernel is exact up to 1 ulp. Attention:
+# each output's error relative to its largest value (softmax sums over 1024
+# keys in another order; an H100 read 2.2e-6 forward, 3.0e-6 backward).
 TOL = {"augment_batch": 2.4e-7, "instance_norm": 1e-4,
        "instance_norm_bwd": 1e-4, "conv3_in_act": 2e-4, "conv7": 1e-4,
-       "conv7_dgrad": 1e-4, "conv7_wgrad": 1e-4}
+       "conv7_dgrad": 1e-4, "conv7_wgrad": 1e-4,
+       "attention_fwd": 1e-5, "attention_bwd": 1e-5}
 # The card-vs-CPU step at batch 1 (compare_card_cpu): the largest gradient
-# gap allowed, relative to the network's largest gradient, and as a multiple
-# of the gap that a one-ulp nudge of the parameters makes on the card. On an
-# H100 (700 W) the four pairs read 4.8e-3 to 6.7e-3 for G and 1.4e-3 to
-# 1.6e-3 for D, the nudge alone 6.2e-3 and 1.6e-3: no fp32 pair of
-# implementations agrees closer at this size, so the limits sit at 1.5x the
-# largest reading and 2x the nudge's.
+# gap allowed, relative to the network's largest gradient, and the largest
+# gap the kernels may add (card with kernels against card with the plain
+# versions) as a multiple of the gap that a one-ulp nudge of the parameters
+# makes on the card. On an H100 (700 W), CycleGAN at 256²: the four pairs
+# read 4.8e-3 to 6.7e-3 for G and 1.4e-3 to 1.6e-3 for D, the nudge alone
+# 6.2e-3 and 1.6e-3. VQGAN at 512²: G 3.7e-3 to 5.0e-3 with the nudge at
+# 5.0e-3; D's library convs (cuDNN against the CPU, no kernel involved)
+# 3.4e-3 against a nudge of 1.0e-3, the kernels 7.9e-4. No fp32 pair of
+# implementations agrees closer at these sizes, so the limits sit at 1.5x
+# the largest reading and 2x the nudge's.
 GRAD_GAP = 1e-2
 GRAD_GAP_OVER_FLOOR = 2.0
 REPLACES = {
@@ -95,6 +118,8 @@ REPLACES = {
     "conv7": "src/uig/kernels/conv_pallas.py:209",
     "conv7_dgrad": "src/uig/kernels/conv_pallas.py:209",
     "conv7_wgrad": "src/uig/kernels/conv_pallas.py:273",
+    "attention_fwd": "src/uig/kernels/attention_pallas.py:65",
+    "attention_bwd": "src/uig/kernels/attention_pallas.py:142",
 }
 SOURCES = {
     "augment_batch": "src/uig_torch/csrc/augment.cu",
@@ -104,10 +129,12 @@ SOURCES = {
     "conv7": "src/uig_torch/csrc/conv7.cu",
     "conv7_dgrad": "src/uig_torch/csrc/conv7_bwd.cu",
     "conv7_wgrad": "src/uig_torch/csrc/conv7_bwd.cu",
+    "attention_fwd": "src/uig_torch/csrc/attention.cu",
+    "attention_bwd": "src/uig_torch/csrc/attention.cu",
 }
 PER_APPLY = {"augment_batch": 0, "instance_norm": 5, "instance_norm_bwd": 0,
              "conv3_in_act": 18, "conv7": 1, "conv7_dgrad": 0,
-             "conv7_wgrad": 0}
+             "conv7_wgrad": 0, "attention_fwd": 0, "attention_bwd": 0}
 # launches in one training step of cyclegan256_dp (fused applies): 4
 # generator applies (2 at 2B, 2 at B) with 5 norms, 18 conv3+IN and 1 head
 # each; 4 discriminator applies (2 at B in the G loss, 2 at 2B in the D
@@ -115,7 +142,28 @@ PER_APPLY = {"augment_batch": 0, "instance_norm": 5, "instance_norm_bwd": 0,
 # each conv3+IN backward runs the norm backward once.
 PER_STEP = {"augment_batch": 2, "instance_norm": 32,
             "instance_norm_bwd": 32 + 72, "conv3_in_act": 72, "conv7": 4,
-            "conv7_dgrad": 4, "conv7_wgrad": 4}
+            "conv7_dgrad": 4, "conv7_wgrad": 4, "attention_fwd": 0,
+            "attention_bwd": 0}
+
+VQ_PRESET = "vqgan512"
+VQ_OVERRIDES = TRAIN_OVERRIDES + ["loss.vq_disc_start=0"]
+VQ_BATCH = 4  # per domain: the step trains on the union batch of 8
+# launches in one reconstruct apply of vqgan512: 4 attention blocks (2 in
+# the encoder, 2 in the decoder), each one K5f.
+VQ_PER_APPLY = {k: 0 for k in PER_APPLY} | {"attention_fwd": 4}
+# launches in one VQGAN training step: both augments; the 4 attention
+# blocks forward once and backward once (the adaptive weight reads the main
+# forward's graph); D (3 instance norms) on the reconstruction for the G
+# loss and on the real and fake unions for the D loss; the norm backward
+# runs for each of those 3 applies, and once more for the adversarial
+# gradient at the decoder's last kernel.
+VQ_PER_STEP = {k: 0 for k in PER_STEP} | {
+    "augment_batch": 2, "instance_norm": 9, "instance_norm_bwd": 12,
+    "attention_fwd": 4, "attention_bwd": 4}
+# vqgan_slice, card against CPU at batch 1: the encoder output within
+# VQ_TOL["z"] of its largest value; the decoder images from the same codes
+# within VQ_TOL["image"] (absolute, images in [-1, 1]) and 1 uint8 step.
+VQ_TOL = {"z": 1e-3, "image": 4e-3}
 
 
 def emit(obj: dict) -> None:
@@ -200,21 +248,32 @@ def _norm_bwd_check(x, g, b, relu):
     return check
 
 
+def _multi_rel_check(outs, refs):
+    """Several outputs: the largest error of each relative to its own
+    largest value."""
+    errs = [max_err(o, r) for o, r in zip(outs, refs)]
+    rels = [e / max(r.abs().max().item(), 1e-30) for e, r in zip(errs, refs)]
+    return max(errs), max(rels), {}
+
+
 def _case(name, label, step, apply, fn, plain, lib, nbytes, flops,
-          check=_abs_check):
+          check=_abs_check, path="cyclegan"):
     return {"name": name, "case": label, "step": step, "apply": apply,
             "fn": fn, "plain": plain, "lib": lib, "bytes": nbytes,
-            "flops": flops, "check": check}
+            "flops": flops, "check": check, "path": path}
 
 
 def kernel_cases(dev):
     """Yield one case per kernel and shape of the training step and the
-    translate apply: calls per training step and per translate apply, the
-    kernel, its plain version, a library call, bytes and flops."""
+    translate apply of its path (CycleGAN, or VQGAN for attention): calls
+    per training step and per translate apply, the kernel, its plain
+    version, a library call, bytes and flops."""
     import torch
     import torch.nn.functional as F
 
-    from uig_torch.kernels import (augment_batch, augment_batch_reference,
+    from uig_torch.kernels import (attention_bwd, attention_bwd_reference,
+                                   attention_fwd, attention_reference,
+                                   augment_batch, augment_batch_reference,
                                    conv3_in_act, conv3_in_act_reference,
                                    conv7, conv7_dgrad, conv7_dgrad_reference,
                                    conv7_reference, conv7_wgrad,
@@ -353,6 +412,34 @@ def kernel_cases(dev):
                     _rel_check)
         del x, dy, dyn
 
+    # K5f at the reconstruct apply's batch 4 and the VQGAN step's union
+    # batch 8, K5b at the step's: (B, 1024, 512), the 32² latent grid of a
+    # 512² image at 512 channels
+    n, d = 1024, 512
+    for nb, per_step, per_apply in ((VQ_BATCH, 0, 4), (2 * VQ_BATCH, 4, 0)):
+        q, k, v, do = (randn(nb, n, d) for _ in range(4))
+        label = f"({nb},{n},{d})"
+        yield _case("attention_fwd", label, per_step, per_apply,
+                    lambda q=q, k=k, v=v: attention_fwd(q, k, v)[0],
+                    lambda q=q, k=k, v=v: attention_reference(q, k, v),
+                    lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                        q, k, v),
+                    4.0 * (4 * q.numel() + nb * n), 4.0 * nb * n * n * d,
+                    _rel_check, path="vqgan")
+        if not per_step:
+            continue
+        o, lse = attention_fwd(q, k, v)
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl)
+        yield _case("attention_bwd", label, per_step, 0,
+                    lambda: attention_bwd(q, k, v, o, lse, do),
+                    lambda: attention_bwd_reference(q, k, v, do),
+                    lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                                retain_graph=True),
+                    4.0 * (8 * q.numel() + nb * n), 10.0 * nb * n * n * d,
+                    _multi_rel_check, path="vqgan")
+
 
 def conv3_backward_parts(dev):
     """The library convs of the conv3+IN backward at the step's shapes,
@@ -392,6 +479,7 @@ def phase_kernels(dev) -> dict:
                                     cuda_ms(c["lib"]))
             bms, by = bound_ms(c["bytes"], c["flops"])
             emit({"phase": "kernel", "name": name, "case": c["case"],
+                  "path": c["path"],
                   "calls_per_step": c["step"], "calls_per_apply": c["apply"],
                   "max_abs_err": err, "checked_err": rel, "tol": TOL[name],
                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -422,18 +510,31 @@ def phase_kernels(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def state_tensors(st) -> dict:
-    """Every tensor of a train state, by a path name."""
+def _flatten(tree, prefix: str = "") -> dict:
+    """Every tensor of a nested dict (None leaves skipped), by a path."""
     out = {}
-    trees = {"g_params": st.g_params, "d_params": st.d_params, "ema": st.ema,
-             "g_mu": st.g_opt.mu, "g_nu": st.g_opt.nu, "d_mu": st.d_opt.mu,
-             "d_nu": st.d_opt.nu}
-    for tree, nets in trees.items():
-        for net, params in nets.items():
-            for name, t in params.items():
-                out[f"{tree}/{net}/{name}"] = t
-    out["pool_a"], out["pool_b"] = st.pool_a.buffer, st.pool_b.buffer
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        elif v is not None:
+            out[prefix + k] = v
     return out
+
+
+def state_tensors(st) -> dict:
+    """Every tensor of a train state (CycleGAN or VQGAN), by a path name."""
+    out = _flatten({"g_params": st.g_params, "d_params": st.d_params,
+                    "ema": st.ema, "g_mu": st.g_opt.mu, "g_nu": st.g_opt.nu,
+                    "d_mu": st.d_opt.mu, "d_nu": st.d_opt.nu})
+    if hasattr(st, "pool_a"):
+        out["pool_a"], out["pool_b"] = st.pool_a.buffer, st.pool_b.buffer
+    return out
+
+
+def state_counts(st) -> tuple:
+    pools = ((st.pool_a.count, st.pool_b.count) if hasattr(st, "pool_a")
+             else ())
+    return (st.step, st.g_opt.count, st.d_opt.count, *pools)
 
 
 @contextlib.contextmanager
@@ -441,9 +542,10 @@ def plain_versions():
     """Every kernel wrapper takes its plain PyTorch version, on the card
     too: the control run of ``compare_card_cpu`` (the same cuDNN convs, no
     hand-written kernel)."""
-    from uig_torch.kernels import augment, conv, convin, norm
+    import importlib
 
-    mods = (augment, conv, convin, norm)
+    mods = [importlib.import_module(f"uig_torch.kernels.{m}")
+            for m in ("attention", "augment", "conv", "convin", "norm")]
     saved = [m.on_cpu for m in mods]
     for m in mods:
         m.on_cpu = lambda name, *tensors: True
@@ -454,6 +556,18 @@ def plain_versions():
             m.on_cpu = f
 
 
+def _nudge(tree: dict, gen) -> None:
+    import torch
+
+    for k, t in tree.items():
+        if isinstance(t, dict):
+            _nudge(t, gen)
+        else:
+            up = torch.rand(t.shape, generator=gen) < 0.5
+            tree[k] = torch.nextafter(t, torch.where(
+                up, torch.tensor(float("inf")), torch.tensor(float("-inf"))))
+
+
 def nudged(state, seed: int):
     """A copy of ``state`` with every G and D parameter moved one fp32 ulp
     up or down, by a seeded coin per element: the least change of the
@@ -462,18 +576,19 @@ def nudged(state, seed: int):
 
     gen = torch.Generator(device="cpu").manual_seed(seed)
     s = state.clone()
-    for tree in (s.g_params, s.d_params):
-        for sub in tree.values():
-            for k, t in sub.items():
-                up = torch.rand(t.shape, generator=gen) < 0.5
-                sub[k] = torch.nextafter(t, torch.where(
-                    up, torch.tensor(float("inf")), torch.tensor(float("-inf"))))
+    _nudge(s.g_params, gen)
+    _nudge(s.d_params, gen)
     return s
 
 
+def _tree_to_cpu(tree):
+    if not isinstance(tree, dict):
+        return None if tree is None else tree.cpu()
+    return {k: _tree_to_cpu(v) for k, v in tree.items()}
+
+
 def flat_grads(grads: dict) -> dict:
-    return {f"{net}/{n}/{k}": t.cpu() for net, tree in grads.items()
-            for n, sub in tree.items() for k, t in sub.items()}
+    return {k: t.cpu() for k, t in _flatten(grads).items()}
 
 
 def grad_gap(x: dict, y: dict, net: str, scale: float) -> tuple:
@@ -483,7 +598,12 @@ def grad_gap(x: dict, y: dict, net: str, scale: float) -> tuple:
     return errs[0][0], [[k, e] for e, k in errs[:3]]
 
 
-def compare_card_cpu(cfg, a, b) -> dict:
+def _rel(u, v) -> float:
+    return abs(float(u) - float(v)) / max(abs(float(v)), 1e-30)
+
+
+def compare_card_cpu(trainer_cls, cfg, a, b, loss_keys, phase,
+                     grad_metrics=()) -> dict:
     """One step at batch 1, full width, from one state and one set of draws,
     taken four ways: on the card with the kernels (A); on the card with the
     plain versions, through the same cuDNN convs (B); on the CPU with the
@@ -495,19 +615,21 @@ def compare_card_cpu(cfg, a, b) -> dict:
     move by rounding alone: a ReLU or LeakyReLU pre-activation within
     rounding of 0 takes either side, and the upstream gradients move with
     it. Gates: losses within 1e-4 relative (A, C); gradients, per network
-    relative to its largest CPU gradient, A against C within GRAD_GAP and
-    within GRAD_GAP_OVER_FLOOR times A against P. The update is checked on
-    its own, with no element excluded: Adam and the EMA on the card from
-    A's gradients against the CPU's Adam and EMA from the same gradients,
-    within 1e-5."""
+    relative to its largest CPU gradient, A against C within GRAD_GAP, and
+    A against B (what the kernels change) within GRAD_GAP_OVER_FLOOR times
+    A against P. ``grad_metrics`` are metrics made from gradients (the
+    VQGAN adaptive weight, and the loss it scales): gated as gradients are,
+    relative to their own value, with a floor of 1e-4 under the nudge. The
+    update is checked on its own, with no element excluded: Adam and the
+    EMA on the card from A's gradients against the CPU's Adam and EMA from
+    the same gradients, within 1e-5."""
     import torch
 
     from uig_torch import kernels as K
     from uig_torch.config import apply_overrides
-    from uig_torch.train import CycleGANTrainer
 
     cfg1 = apply_overrides(cfg, ["data.batch_size=1"])
-    card, cpu = CycleGANTrainer(cfg1), CycleGANTrainer(cfg1, device="cpu")
+    card, cpu = trainer_cls(cfg1), trainer_cls(cfg1, device="cpu")
     s0 = cpu.init_state(SEED + 5)
     batch = (a[:1], b[:1])
     draws = cpu.draw(s0, 1, a.shape[1], a.shape[2])
@@ -521,18 +643,17 @@ def compare_card_cpu(cfg, a, b) -> dict:
     out["card_step_s"] = time.perf_counter() - t0
     with plain_versions():
         K.reset_launch_counts()
-        gb, _ = card._grads(s0.to(card.device), batch, draws)
+        gb, mb = card._grads(s0.to(card.device), batch, draws)
         if any(K.launch_counts().values()):
             raise AssertionError(f"plain run launched {K.launch_counts()}")
-    gp, _ = card._grads(nudged(s0, SEED + 6).to(card.device), batch, draws)
+    gp, mp = card._grads(nudged(s0, SEED + 6).to(card.device), batch, draws)
     t1 = time.perf_counter()
     gc, mc = cpu._grads(s0.clone(), batch, draws)
     out["cpu_grads_s"] = time.perf_counter() - t1
 
-    out["loss_rel_err"] = {}
-    for k in ("g_loss", "d_loss", "g_adv", "g_cycle", "g_idt", "d_a", "d_b"):
-        u, v = float(ma[k]), float(mc[k])
-        out["loss_rel_err"][k] = abs(u - v) / max(abs(v), 1e-30)
+    out["loss_rel_err"] = {k: _rel(ma[k], mc[k]) for k in loss_keys}
+    out["loss_rel_err_A_B"] = {k: _rel(ma[k], mb[k]) for k in loss_keys}
+    out["loss_rel_err_A_P"] = {k: _rel(ma[k], mp[k]) for k in loss_keys}
     fa, fb, fc, fp = (flat_grads(g) for g in (ga, gb, gc, gp))
     for net in ("g", "d"):
         scale = max(t.abs().max().item() for k, t in fc.items()
@@ -544,25 +665,33 @@ def compare_card_cpu(cfg, a, b) -> dict:
             out[f"{net}_grad_{pair}_worst"] = worst
 
     s_chk = s0.clone()
-    cpu._update(s_chk, {net: {n: {k: t.cpu() for k, t in sub.items()}
-                              for n, sub in tree.items()}
-                        for net, tree in ga.items()})
+    cpu._update(s_chk, _tree_to_cpu(ga))
     ta, tc = state_tensors(s_a), state_tensors(s_chk)
     out["update_max_abs_err"] = max((ta[k].cpu() - tc[k]).abs().max().item()
                                     for k in tc if not k.startswith("pool"))
     out["update_elements"] = sum(t.numel() for k, t in tc.items()
                                  if not k.startswith("pool"))
-    emit({"phase": "card_vs_cpu_batch1", **out})
+    emit({"phase": phase, **out})
 
-    bad = {k: v for k, v in out["loss_rel_err"].items() if v > 1e-4}
+    bad = {}
+    for k in loss_keys:
+        ac = out["loss_rel_err"][k]
+        if k not in grad_metrics:
+            if ac > 1e-4:
+                bad[k] = ac
+            continue
+        ab, ap = out["loss_rel_err_A_B"][k], out["loss_rel_err_A_P"][k]
+        if ac > GRAD_GAP or ab > max(GRAD_GAP_OVER_FLOOR * ap, 1e-4):
+            bad[k] = (ac, ab, ap)
     for net in ("g", "d"):
-        gap, floor = out[f"{net}_grad_A_C"], out[f"{net}_grad_A_P"]
-        if gap > GRAD_GAP or gap > GRAD_GAP_OVER_FLOOR * floor:
-            bad[f"{net}_grad_A_C"] = (gap, floor)
+        gap, kern = out[f"{net}_grad_A_C"], out[f"{net}_grad_A_B"]
+        floor = out[f"{net}_grad_A_P"]
+        if gap > GRAD_GAP or kern > GRAD_GAP_OVER_FLOOR * floor:
+            bad[f"{net}_grad"] = (gap, kern, floor)
     if out["update_max_abs_err"] > 1e-5:
         bad["update_max_abs_err"] = out["update_max_abs_err"]
     if bad:
-        raise AssertionError(f"card vs CPU at batch 1: {bad}")
+        raise AssertionError(f"{phase}: card vs CPU at batch 1: {bad}")
     return out
 
 
@@ -600,15 +729,16 @@ def phase_train(dev) -> dict:
             run_b, _ = tr.train_step(run_b, (a, b))
         ta, tb = state_tensors(run_a), state_tensors(run_b)
         differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
-        counts = [(r.step, r.pool_a.count, r.pool_b.count, r.g_opt.count,
-                   r.d_opt.count) for r in (run_a, run_b)]
+        counts = [state_counts(r) for r in (run_a, run_b)]
         if differ or counts[0] != counts[1]:
             raise AssertionError(f"two 3-step runs differ in {differ[:5]}")
         out["byte_identical_3_steps"] = True
         out["state_tensors_compared"] = len(ta)
         del run_a, run_b, ta, tb
 
-        compare_card_cpu(cfg, a, b)  # prints its own line
+        compare_card_cpu(CycleGANTrainer, cfg, a, b,
+                         ("g_loss", "d_loss", "g_adv", "g_cycle", "g_idt",
+                          "d_a", "d_b"), "card_vs_cpu_batch1")
 
         # ~20 steps on the fixed batch: finite, falling cycle loss, timing
         st = state0
@@ -767,6 +897,228 @@ def profile_call(fn, phase: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 6 and 7: the VQGAN reconstruct path and training step
+# ---------------------------------------------------------------------------
+
+
+def seeded_vq_weights(path: str) -> None:
+    """Flax-layout weights for ``vqgan512`` at full width, drawn from a
+    seed by flax's initializers (``convert.seeded_vqgan_flax``)."""
+    from uig_torch.config import get_preset
+    from uig_torch.convert import seeded_vqgan_flax
+    from uig_torch.models import generator_from_config
+
+    np.savez(path, **seeded_vqgan_flax(
+        generator_from_config(get_preset(VQ_PRESET).model), SEED))
+
+
+def _code_agreement(z_card, z_cpu, codes_card, codes_cpu, codebook) -> dict:
+    """Codes must agree wherever the gap between a latent's two nearest
+    codewords exceeds what the card's and the CPU's encoder outputs can
+    move it by: |d(z', e_j) - d(z', e_k) - (d(z, e_j) - d(z, e_k))|
+    <= 4 |z' - z| max|e|, plus 1e-5 (|z|^2 + max|e|^2) for the rounding of
+    fp32 distances in either package. Distances in float64."""
+    import torch
+
+    cb = codebook.detach().double().cpu()
+    z = z_cpu.double().reshape(-1, cb.shape[1])
+    d = ((z ** 2).sum(1, keepdim=True) - 2.0 * z @ cb.T
+         + (cb ** 2).sum(1)[None, :])
+    two = torch.topk(d, 2, dim=1, largest=False).values
+    gap = two[:, 1] - two[:, 0]
+    dz = (z_card.double().cpu().reshape(z.shape) - z).norm(dim=1)
+    e_max = cb.norm(dim=1).max()
+    margin = 4.0 * dz * e_max + 1e-5 * ((z ** 2).sum(1) + e_max ** 2)
+    checked = gap > margin
+    differ = codes_card.flatten().cpu() != codes_cpu.flatten().cpu()
+    return {"latents": int(z.shape[0]), "checked": int(checked.sum()),
+            "differ_checked": int((differ & checked).sum()),
+            "differ_within_margin": int((differ & ~checked).sum()),
+            "min_gap": float(gap.min()), "max_margin": float(margin.max())}
+
+
+def phase_vqgan_slice(weights: str) -> dict:
+    import torch
+
+    from uig_torch import kernels as K
+    from uig_torch.kernels.augment import center_crop_normalize
+    from uig_torch.serving import Translator, exact_fp32
+
+    t0 = time.perf_counter()
+    tr = Translator(VQ_PRESET, weights, batch_size=VQ_BATCH)
+    rng = np.random.default_rng(SEED + 7)
+    raw = rng.integers(0, 256, (VQ_BATCH, tr.load, tr.load, 3),
+                       dtype=np.uint8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    K.reset_launch_counts()
+    out1 = tr(raw)  # the main path's run
+    launches = K.launch_counts()
+    if launches != VQ_PER_APPLY:
+        raise AssertionError(f"launches per apply {launches} != "
+                             f"{VQ_PER_APPLY}")
+    K.reset_launch_counts()
+    out2 = tr(raw)
+    if K.launch_counts() != VQ_PER_APPLY:
+        raise AssertionError(f"second apply launched {K.launch_counts()}")
+    if out1.shape != (VQ_BATCH, tr.crop, tr.crop, 3) or out1.dtype != np.uint8:
+        raise AssertionError(f"output {out1.dtype} {out1.shape}")
+    if not np.array_equal(out1, out2):
+        raise AssertionError("two runs on the same batch differ")
+    if int(out1.max()) - int(out1.min()) < 64:
+        raise AssertionError("output nearly constant")
+
+    # card against CPU (plain versions) at batch 1
+    t1 = time.perf_counter()
+    cpu = Translator(VQ_PRESET, weights, batch_size=1, device="cpu")
+    x = center_crop_normalize(torch.from_numpy(raw[:1]), tr.crop)
+    with torch.inference_mode(), exact_fp32():
+        z_card = tr.generator.encoder(x.to(tr.device))
+        vq_card = tr.generator.quantizer(z_card)
+        z_cpu = cpu.generator.encoder(x)
+        vq_cpu = cpu.generator.quantizer(z_cpu)
+        codes = vq_cpu.codes
+        img_card = tr.generator.decode_codes(codes.to(tr.device)).cpu()
+        img_cpu = cpu.generator.decode_codes(codes)
+    z_err = ((z_card.cpu() - z_cpu).abs().max() / z_cpu.abs().max()).item()
+    agree = _code_agreement(z_card, z_cpu, vq_card.codes, vq_cpu.codes,
+                            cpu.generator.quantizer.codebook)
+    img_err = (img_card - img_cpu).abs().max().item()
+    u8_card = tr.decode_codes(codes.numpy())
+    u8_cpu = cpu.decode_codes(codes.numpy())
+    u8_steps = int(np.abs(u8_card.astype(np.int16) - u8_cpu).max())
+    cpu_s = time.perf_counter() - t1
+    bad = {}
+    if z_err > VQ_TOL["z"]:
+        bad["z"] = z_err
+    if agree["differ_checked"]:
+        bad["codes"] = agree
+    if img_err > VQ_TOL["image"] or u8_steps > 1:
+        bad["decode_codes"] = (img_err, u8_steps)
+
+    iters = 5
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(iters):
+        tr(raw)
+    wall = (time.perf_counter() - t2) / iters
+    xf = center_crop_normalize(torch.from_numpy(raw).to(tr.device), tr.crop)
+    torch.cuda.reset_peak_memory_stats()
+    gen_ms = cuda_ms(lambda: tr.translate_float(xf), iters=iters, warmup=1)
+    lat = tr.generator.encoder.latent_resolution
+    codes4 = rng.integers(0, tr.cfg.model.vq_codebook_size,
+                          (VQ_BATCH, lat, lat))
+    dec_ms = cuda_ms(lambda: tr.decode_codes(codes4), iters=iters, warmup=1)
+    with torch.inference_mode(), exact_fp32():
+        vq4 = tr.generator.encode(xf)
+    emit({"phase": "vqgan_slice", "preset": VQ_PRESET, "batch": VQ_BATCH,
+          "output": list(out1.shape), "byte_identical_repeat": True,
+          "launches_per_apply": launches, "setup_seconds": setup_s,
+          "cpu_batch1_seconds": cpu_s, "z_rel_err": z_err,
+          "z_tol": VQ_TOL["z"], "codes": agree,
+          "decode_codes_max_abs_err": img_err,
+          "decode_codes_tol": VQ_TOL["image"],
+          "decode_codes_u8_max_step": u8_steps,
+          "distinct_codes": int(vq4.codes.unique().numel()),
+          "perplexity": float(vq4.perplexity),
+          "reconstruct_ms_per_batch": 1e3 * wall,
+          "reconstruct_img_per_s": VQ_BATCH / wall,
+          "generator_ms_per_batch": gen_ms,
+          "generator_img_per_s": 1e3 * VQ_BATCH / gen_ms,
+          "decode_codes_ms_per_batch": dec_ms,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if bad:
+        raise AssertionError(f"vqgan_slice card vs CPU: {bad}")
+    emit(profile_call(lambda: tr(raw), "vqgan_slice_profile"))
+    return launches
+
+
+def phase_vqgan_train() -> dict:
+    import torch
+
+    from uig_torch import kernels as K
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.train import VQGANTrainer
+
+    cfg = apply_overrides(get_preset(VQ_PRESET), VQ_OVERRIDES)
+    load = cfg.data.load_size
+    rng = np.random.default_rng(SEED + 8)
+    a, b = (rng.integers(0, 256, (VQ_BATCH, load, load, 3), dtype=np.uint8)
+            for _ in range(2))
+    tr = VQGANTrainer(cfg)
+    state0 = tr.init_state(SEED)
+    out = {"phase": "vqgan_train", "preset": VQ_PRESET,
+           "overrides": VQ_OVERRIDES, "batch_per_domain": VQ_BATCH,
+           "union_batch": 2 * VQ_BATCH, "image": cfg.model.image_size}
+    torch.use_deterministic_algorithms(True)
+    try:
+        # the main path's run: one step, with every count at 0 before it
+        run_a = state0.clone()
+        K.reset_launch_counts()
+        run_a, _ = tr.train_step(run_a, (a, b))
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        if launches != VQ_PER_STEP:
+            raise AssertionError(f"launches per VQGAN step {launches} != "
+                                 f"{VQ_PER_STEP}")
+        out["launches_per_step"] = launches
+        for _ in range(2):
+            run_a, _ = tr.train_step(run_a, (a, b))
+        run_b = state0.clone()
+        for _ in range(3):
+            run_b, _ = tr.train_step(run_b, (a, b))
+        ta, tb = state_tensors(run_a), state_tensors(run_b)
+        differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+        if differ or state_counts(run_a) != state_counts(run_b):
+            raise AssertionError(f"two 3-step runs differ in {differ[:5]}")
+        out["byte_identical_3_steps"] = True
+        out["state_tensors_compared"] = len(ta)
+        del run_a, run_b, ta, tb
+
+        compare_card_cpu(VQGANTrainer, cfg, a, b,
+                         ("g_loss", "d_loss", "rec", "codebook", "g_adv",
+                          "perplexity", "lambda_adapt"),
+                         "vqgan_card_vs_cpu_batch1",
+                         grad_metrics=("lambda_adapt", "g_loss"))
+
+        # 10 steps on the fixed batch: finite, falling rec, timing
+        st = state0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, hist = [], []
+        for _ in range(10):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            st, m = tr.train_step(st, (a, b))
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+            hist.append({k: float(v) for k, v in m.items()})
+        bad = [h for h in hist if not all(np.isfinite(v) for v in h.values())]
+        if bad:
+            raise AssertionError(f"non-finite metrics: {bad[0]}")
+        rec = [h["rec"] for h in hist]
+        if not np.mean(rec[-3:]) < np.mean(rec[:3]):
+            raise AssertionError(f"rec does not fall: {rec}")
+        step_ms = float(np.median(times[2:]))
+        out.update(
+            steps=len(hist), rec=rec, first=hist[0], last=hist[-1],
+            step_ms_median=step_ms, step_ms_timed=len(times[2:]),
+            step_ms_min=float(np.min(times[2:])),
+            step_ms_max=float(np.max(times[2:])),
+            img_per_s=1e3 * 2 * VQ_BATCH / step_ms,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        emit(out)
+        emit(profile_call(lambda: tr.train_step(st, (a, b)),
+                          "vqgan_train_profile"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: serve
 # ---------------------------------------------------------------------------
 
@@ -854,19 +1206,34 @@ def main() -> int:
         seeded_flax_weights(weights)
         tr, apply_launches = phase_slice(weights)
         phase_serve(tr, weights)
+        del tr
+        torch.cuda.empty_cache()
+        vq_weights = os.path.join(tmp, "vqgan512.npz")
+        seeded_vq_weights(vq_weights)
+        vq_apply_launches = phase_vqgan_slice(vq_weights)
+    torch.cuda.empty_cache()
+    vq_step_launches = phase_vqgan_train()
     kernels = []
     for name in PER_STEP:
         t = totals[name]
-        if step_launches[name] < 1:
+        if name.startswith("attention"):
+            step_l, apply_l = vq_step_launches, vq_apply_launches
+            per = (f"one {VQ_PRESET} training step at union batch "
+                   f"{2 * VQ_BATCH}; per reconstruct apply at batch "
+                   f"{VQ_BATCH}")
+        else:
+            step_l, apply_l = step_launches, apply_launches
+            per = (f"one {PRESET} training step at batch {BATCH}; per "
+                   f"translate apply at batch {BATCH}")
+        if step_l[name] < 1:
             raise AssertionError(f"{name} never launched on the main path")
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": REPLACES[name],
-                 "launches": step_launches[name],
-                 "launches_per_translate_apply": apply_launches[name],
+                 "launches": step_l[name],
+                 "launches_per_translate_apply": apply_l[name],
                  "max_abs_err": t["max_abs_err"], **t["step"],
-                 "bound_by": t["bound_by"],
-                 "per": f"one training step at batch {BATCH}"}
-        if apply_launches[name]:
+                 "bound_by": t["bound_by"], "per": per}
+        if apply_l[name]:
             entry["per_translate_apply"] = t["apply"]
         kernels.append(entry)
     emit({"kernels": kernels})

@@ -1,5 +1,6 @@
-"""Carry generator weights, and whole CycleGAN train states, between the
-JAX package's layout and the port.
+"""Carry generator weights, and whole CycleGAN and VQGAN train states,
+between the JAX package's layout and the port; and draw VQGAN weights in
+that layout from a seed.
 
 The flat flax layout is the one ``scripts/import_cyclegan_torch.py`` writes
 and reads: ``np.savez`` of keys like ``params/layers_0/kernel`` and
@@ -95,8 +96,10 @@ def _tree_from_flat(flat: dict, prefix: str, names, device) -> dict:
 
 
 def _flat_from_tree(tree: dict, prefix: str) -> dict:
-    return {f"{prefix}{name}/{_PREFIX}{path.replace('.', '/')}": _numpy(t)
-            for name, sub in tree.items() for path, t in sub.items()}
+    out = {}
+    for name, sub in tree.items():
+        out.update(_flat_from_params(sub, f"{prefix}{name}/{_PREFIX}"))
+    return out
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -154,6 +157,96 @@ def jax_flat_from_state(state) -> dict[str, np.ndarray]:
         p = getattr(state, name)
         flat[name + "/buffer"] = _numpy(p.buffer)
         flat[name + "/count"] = np.int32(p.count)
+    flat["step"] = np.int32(state.step)
+    flat.update(state.carried)
+    return flat
+
+
+# ---------------------------------------------------------------------------
+# VQGAN: seeded weights and the whole train state
+# ---------------------------------------------------------------------------
+# A JAX ``VQGANState`` crosses as a flat dict as the CycleGAN state does. One
+# generator and one discriminator, so no network name after the tree:
+#   g_params/params/<path>    d_params/params/<path>    ema/a2b/params/<path>
+#   {g,d}_opt/0/0/count, {g,d}_opt/0/0/{mu,nu}/params/<path>,
+#   {g,d}_opt/0/1/count       rng, step
+
+
+def seeded_vqgan_flax(model: nn.Module, seed: int) -> dict[str, np.ndarray]:
+    """Flat flax-layout weights for ``model`` (a ``VQGANGenerator``), drawn
+    with numpy from ``seed`` by flax's default initializers: conv kernels
+    lecun-normal (a normal truncated at 2 sigma, scaled to variance
+    1 / fan_in with fan_in = kh * kw * cin), zero biases, unit GroupNorm
+    scales, and the codebook ``variance_scaling(1, "fan_in", "uniform")``,
+    uniform within +-sqrt(3 / K)."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)
+        if name.endswith(".kernel"):
+            v = rng.standard_normal(shape)
+            while (bad := np.abs(v) > 2.0).any():
+                v[bad] = rng.standard_normal(int(bad.sum()))
+            v *= np.sqrt(1.0 / np.prod(shape[:-1])) / 0.87962566103423978
+        elif name.endswith(".codebook"):
+            lim = np.sqrt(3.0 / shape[0])
+            v = rng.uniform(-lim, lim, shape)
+        elif name.endswith(".scale"):
+            v = np.ones(shape)
+        else:
+            v = np.zeros(shape)
+        flat[_PREFIX + name.replace(".", "/")] = v.astype(np.float32)
+    return flat
+
+
+def _params_from_flat(flat: dict, prefix: str, device) -> dict:
+    return {k[len(prefix):].replace("/", "."): torch.from_numpy(
+        np.array(v, dtype=np.float32)).to(device)
+        for k, v in flat.items() if k.startswith(prefix)}
+
+
+def _flat_from_params(params: dict, prefix: str) -> dict:
+    return {prefix + name.replace(".", "/"): _numpy(t)
+            for name, t in params.items()}
+
+
+def vqgan_state_from_jax_flat(flat: dict[str, np.ndarray], seed: int = 0,
+                              device="cpu"):
+    """A flat JAX ``VQGANState`` -> the port's ``VQGANState`` on ``device``;
+    ``seed`` seeds the port's own draws (the JAX key stays in
+    ``carried``)."""
+    from uig_torch.train.state import AdamState, VQGANState
+
+    def adam(opt: str) -> AdamState:
+        count = int(flat[opt + _ADAM + "count"])
+        if int(flat[opt + _SCHED]) != count:
+            raise ValueError(f"{opt}: schedule count {int(flat[opt + _SCHED])}"
+                             f" != Adam count {count}")
+        return AdamState(
+            count,
+            _params_from_flat(flat, opt + _ADAM + "mu/" + _PREFIX, device),
+            _params_from_flat(flat, opt + _ADAM + "nu/" + _PREFIX, device))
+
+    carried = {k: np.asarray(flat[k]) for k in ("rng",) if k in flat}
+    return VQGANState(
+        g_params=_params_from_flat(flat, "g_params/" + _PREFIX, device),
+        d_params=_params_from_flat(flat, "d_params/" + _PREFIX, device),
+        g_opt=adam("g_opt"), d_opt=adam("d_opt"),
+        ema={"a2b": _params_from_flat(flat, "ema/a2b/" + _PREFIX, device)},
+        step=int(flat["step"]), seed=int(seed), carried=carried)
+
+
+def jax_flat_from_vqgan_state(state) -> dict[str, np.ndarray]:
+    """The inverse of ``vqgan_state_from_jax_flat``."""
+    flat = {}
+    flat.update(_flat_from_params(state.g_params, "g_params/" + _PREFIX))
+    flat.update(_flat_from_params(state.d_params, "d_params/" + _PREFIX))
+    flat.update(_flat_from_params(state.ema["a2b"], "ema/a2b/" + _PREFIX))
+    for opt, st in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+        flat.update(_flat_from_params(st.mu, opt + _ADAM + "mu/" + _PREFIX))
+        flat.update(_flat_from_params(st.nu, opt + _ADAM + "nu/" + _PREFIX))
+        flat[opt + _ADAM + "count"] = np.int32(st.count)
+        flat[opt + _SCHED] = np.int32(st.count)
     flat["step"] = np.int32(state.step)
     flat.update(state.carried)
     return flat

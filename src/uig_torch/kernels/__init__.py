@@ -3,8 +3,12 @@ kernel for a CUDA tensor (raising if it cannot), keeps a launch count in
 ``<wrapper>.launches``, and runs its plain PyTorch version only for a CPU
 tensor. The CUDA library is built at first launch (``_build``), never at
 import. ``instance_norm_act``, ``conv3_in_act`` and ``conv7_act`` are the
-differentiable forms the models call."""
+differentiable forms the ResNet models call; ``attention`` the one the VQGAN
+attention block calls."""
 
+from uig_torch.kernels.attention import (attention, attention_bwd,
+                                         attention_bwd_reference,
+                                         attention_fwd, attention_reference)
 from uig_torch.kernels.augment import (augment_batch, augment_batch_reference,
                                        center_crop_normalize,
                                        denormalize_to_u8, draw_augment)
@@ -18,7 +22,7 @@ from uig_torch.kernels.norm import (instance_norm, instance_norm_act,
                                     instance_norm_reference)
 
 KERNELS = (augment_batch, instance_norm, instance_norm_bwd, conv3_in_act,
-           conv7, conv7_dgrad, conv7_wgrad)
+           conv7, conv7_dgrad, conv7_wgrad, attention_fwd, attention_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -32,6 +36,11 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "attention",
+    "attention_bwd",
+    "attention_bwd_reference",
+    "attention_fwd",
+    "attention_reference",
     "augment_batch",
     "augment_batch_reference",
     "center_crop_normalize",

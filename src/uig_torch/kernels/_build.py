@@ -45,6 +45,9 @@ SIGNATURES = {
                               _I, _I, _F, _I, _P],
     "uig_conv7_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "uig_conv7_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "uig_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "uig_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,129 @@
+"""Single-head attention: the forward CUDA kernel (K5f) and the backward
+(K5b) in ``csrc/attention.cu``, their plain PyTorch versions, and
+``attention``, the autograd function that the VQGAN ``AttnBlock`` calls.
+
+Replaces the JAX package's ``kernels/attention_pallas.py``
+(``_attention_fwd_impl`` -> ``_attn_kernel``, ``_attention_bwd_impl`` ->
+``_attn_bwd_kernel``). q, k, v are (B, N, D) fp32; the softmax is taken in
+fp32 over scale * q k^T with scale = 1/sqrt(D), stabilised by the row max.
+The forward also returns the row log-sum-exp (B, N): the port keeps it as
+the backward's residual, beside q, k, v and o (JAX keeps q, k, v and
+recomputes the row max).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from uig_torch.kernels import _build
+from uig_torch.kernels._check import cuda_operand, on_cpu
+
+MAX_D = 512  # the kernels keep a 32 x D accumulator in registers
+
+
+def _scale(d: int) -> float:
+    return 1.0 / float(d) ** 0.5
+
+
+def _logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    return torch.bmm(q.to(torch.float32),
+                     k.to(torch.float32).transpose(1, 2)) * _scale(q.shape[-1])
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v: the JAX package's ``attention_xla``."""
+    p = torch.softmax(_logits(q, k), dim=-1)
+    return torch.bmm(p, v.to(torch.float32)).to(q.dtype)
+
+
+def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor):
+    """(dq, dk, dv) for the output gradient ``do``, by the JAX backward
+    kernel's arithmetic: P recomputed, dS = P o (dP - rowsum(P o dP))."""
+    scale = _scale(q.shape[-1])
+    q32, k32, v32 = (t.to(torch.float32) for t in (q, k, v))
+    do32 = do.to(torch.float32)
+    p = torch.softmax(_logits(q32, k32), dim=-1)
+    dp = torch.bmm(do32, v32.transpose(1, 2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = scale * torch.bmm(ds, k32)
+    dk = scale * torch.bmm(ds.transpose(1, 2), q32)
+    dv = torch.bmm(p.transpose(1, 2), do32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_qkv(name: str, *ts: torch.Tensor) -> tuple[int, int, int]:
+    shape = tuple(ts[0].shape)
+    if len(shape) != 3 or any(tuple(t.shape) != shape for t in ts):
+        raise ValueError(f"{name}: q, k, v (and do) must share one (B, N, D) "
+                         f"shape, got {[tuple(t.shape) for t in ts]}")
+    return shape
+
+
+def _check_cuda(name: str, b: int, n: int, d: int, tensors: dict) -> None:
+    if d % 4 or not 4 <= d <= MAX_D or n < 1:
+        raise ValueError(f"{name}: needs N >= 1 and D a multiple of 4 in "
+                         f"[4, {MAX_D}], got N={n}, D={d}")
+    for what, (t, shape) in tensors.items():
+        cuda_operand(name, what, t, shape)
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(o, lse): o = softmax(q k^T / sqrt(D)) v, (B, N, D), and the row
+    log-sum-exp of the scaled logits, (B, N)."""
+    b, n, d = _check_qkv("attention_fwd", q, k, v)
+    if on_cpu("attention_fwd", q, k, v):
+        return attention_reference(q, k, v), torch.logsumexp(_logits(q, k), -1)
+    _check_cuda("attention_fwd", b, n, d,
+                {"q": (q, None), "k": (k, None), "v": (v, None)})
+    o = torch.empty_like(q)
+    lse = torch.empty((b, n), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        _build.launch("uig_attention_fwd", q, k, v, o, lse, b, n, d, _scale(d))
+    attention_fwd.launches += 1
+    return o, lse
+
+
+attention_fwd.launches = 0
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor):
+    """(dq, dk, dv) of ``attention_fwd(q, k, v)`` for the output gradient
+    ``do``; ``o`` and ``lse`` are that call's outputs."""
+    b, n, d = _check_qkv("attention_bwd", q, k, v, o, do)
+    if on_cpu("attention_bwd", q, k, v, o, lse, do):
+        return attention_bwd_reference(q, k, v, do)
+    _check_cuda("attention_bwd", b, n, d,
+                {"q": (q, None), "k": (k, None), "v": (v, None),
+                 "o": (o, None), "do": (do, None), "lse": (lse, (b, n))})
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((b, n), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        _build.launch("uig_attention_bwd", q, k, v, o, lse, do, delta, dq, dk,
+                      dv, b, n, d, _scale(d))
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+attention_bwd.launches = 0
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = attention_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return attention_bwd(q, k, v, o, lse, do.contiguous())
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``attention_fwd``'s output with a gradient: K5f forward, K5b
+    backward."""
+    return _Attention.apply(q, k, v)

@@ -1,4 +1,4 @@
-"""NHWC building blocks of the ResNet generator, in PyTorch.
+"""NHWC building blocks of the ResNet and VQGAN generators, in PyTorch.
 
 The port of the JAX package's ``models/layers.py`` for serving and
 training. Activations are NHWC (contiguous) at every public function, as in
@@ -103,8 +103,52 @@ class _ConvTransposeParams(nn.Module):
 
 
 def nearest_up2(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x spatial upsample of NHWC x."""
-    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    """Nearest-neighbour 2x spatial upsample of NHWC x, as broadcast and
+    reshape (the JAX form): its backward is a sum over each 2x2 window, in
+    a fixed order."""
+    b, h, w, c = x.shape
+    y = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+    return y.reshape(b, 2 * h, 2 * w, c)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """flax's ``padding="SAME"`` along one spatial dim: (low, high) zeros so
+    that the output has ceil(size / stride) positions. A 3x3 stride-2 conv
+    on an even plane pads (0, 1), not torch's symmetric ``padding=1``."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv(features, (k, k), strides=(s, s))`` with its default
+    ``"SAME"`` zero padding: kernel HWIO, bias. A 1x1 stride-1 conv is a
+    matmul over channels (XLA's dot in JAX); the others run ``F.conv2d``."""
+
+    def __init__(self, in_features: int, features: int, kernel: int,
+                 stride: int = 1):
+        super().__init__()
+        self.k, self.stride = kernel, stride
+        self.kernel = nn.Parameter(
+            torch.zeros(kernel, kernel, in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        if self.k == 1 and self.stride == 1:
+            y = torch.matmul(x.reshape(-1, c), self.kernel[0, 0]) + self.bias
+            return y.reshape(b, h, w, -1)
+        (top, bottom), (left, right) = (same_pads(h, self.k, self.stride),
+                                        same_pads(w, self.k, self.stride))
+        xc = _nchw(x)
+        wt = self.kernel.permute(3, 2, 0, 1)
+        if top == bottom and left == right:
+            y = F.conv2d(xc, wt, self.bias, stride=self.stride,
+                         padding=(top, left))
+        else:
+            y = F.conv2d(F.pad(xc, (left, right, top, bottom)), wt, self.bias,
+                         stride=self.stride)
+        return _nhwc(y)
 
 
 class UpsampleConv(nn.Module):

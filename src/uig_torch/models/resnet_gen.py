@@ -73,29 +73,3 @@ class ResNetGenerator(nn.Module):
                     x = layer(x)
             i += 1
         return x
-
-
-def check_float32(model_cfg, dtype_field: str) -> None:
-    """Raise unless ``model_cfg.<dtype_field>`` (``eval_dtype`` for serving,
-    ``compute_dtype`` for training) is float32: bf16 is on the ROADMAP."""
-    dtype = getattr(model_cfg, dtype_field)
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"model.{dtype_field}={dtype!r}: the port runs float32 only "
-            f"(bf16 is on the ROADMAP); pass model.{dtype_field}=float32")
-
-
-def generator_from_config(model_cfg,
-                          dtype_field: str = "eval_dtype") -> ResNetGenerator:
-    """The generator of a ``ModelConfig`` (kind cyclegan), fp32. Serving
-    checks ``model.eval_dtype``, training ``model.compute_dtype``."""
-    if model_cfg.kind != "cyclegan":
-        raise NotImplementedError(
-            f"model.kind={model_cfg.kind!r}: the port has cyclegan only")
-    check_float32(model_cfg, dtype_field)
-    return ResNetGenerator(
-        out_channels=model_cfg.out_channels,
-        base_features=model_cfg.g_base_features,
-        n_res_blocks=model_cfg.n_res_blocks, norm=model_cfg.norm,
-        pad_mode=model_cfg.padding, upsample=model_cfg.upsample,
-        resample=model_cfg.resample, in_channels=model_cfg.in_channels)

@@ -1,6 +1,8 @@
 """The serving translator: uint8 (n, load, load, 3) in, uint8 (n, crop,
 crop, 3) out, through center crop + normalize, the fp32 generator and
-denormalize, on the card.
+denormalize, on the card. For ``model.kind == "vqgan"`` the generator's
+output is the reconstruction through the codebook (translate is
+reconstruct), and ``decode_codes`` turns codebook indices into images.
 
 The port's counterpart of the JAX package's ``ExportedTranslator`` over
 ``export_translate``: the same static batch with the pad-the-tail-then-trim
@@ -45,7 +47,8 @@ def exact_fp32():
 
 
 class Translator:
-    """``y_u8 = translator(x_u8)`` for the CycleGAN generator of ``config``.
+    """``y_u8 = translator(x_u8)`` for the generator of ``config`` (CycleGAN
+    or VQGAN).
 
     ``config``: preset name or ``config.json``. ``weights``: flat flax
     ``.npz`` of one generator; ``direction`` names the direction it
@@ -65,6 +68,7 @@ class Translator:
                                           self.generator)
         self.generator.load_state_dict(state, strict=True)
         self.generator.to(self.device).eval().requires_grad_(False)
+        self.vqgan = self.cfg.model.kind == "vqgan"
         self.batch = batch_size
         self.crop = self.cfg.model.image_size
         self.load = self.cfg.data.load_size
@@ -83,25 +87,50 @@ class Translator:
             "preset": self.cfg.run.name,
         }
 
+    def _apply(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.generator(x)
+        return y[0] if self.vqgan else y
+
     def translate_float(self, x: torch.Tensor) -> torch.Tensor:
         """[-1, 1] NHWC fp32 on the device -> the generator's output."""
         with torch.inference_mode(), exact_fp32():
-            return self.generator(x)
+            return self._apply(x)
 
-    def __call__(self, raw_u8: np.ndarray) -> np.ndarray:
-        n = raw_u8.shape[0]
+    def _pad(self, arr: np.ndarray) -> np.ndarray:
+        """``arr`` (n, ...) repeated at its last item to the static batch."""
+        n = arr.shape[0]
         if n == 0 or n > self.batch:
             raise ValueError(f"batch {n} out of range for static batch "
                              f"{self.batch}")
+        if n < self.batch:
+            arr = np.concatenate([arr, np.repeat(arr[-1:], self.batch - n, 0)])
+        return np.ascontiguousarray(arr)
+
+    def decode_codes(self, codes: np.ndarray) -> np.ndarray:
+        """VQGAN codebook indices (n, h, w) -> uint8 images (n, H, W, 3)
+        through the decoder, at the static batch."""
+        if not self.vqgan:
+            raise ValueError(f"decode_codes needs a vqgan model, this is "
+                             f"{self.cfg.model.kind!r}")
+        n = codes.shape[0]
+        k = self.cfg.model.vq_codebook_size
+        if codes.ndim != 3 or codes.min() < 0 or codes.max() >= k:
+            raise ValueError(f"codes must be (n, h, w) in [0, {k})")
+        codes = self._pad(codes)
+        with torch.inference_mode(), exact_fp32():
+            c = torch.from_numpy(codes).to(self.device)
+            out = denormalize_to_u8(self.generator.decode_codes(c))
+            return out.cpu().numpy()[:n]
+
+    def __call__(self, raw_u8: np.ndarray) -> np.ndarray:
+        n = raw_u8.shape[0]
+        raw_u8 = self._pad(raw_u8)
         expect = (self.load, self.load, 3)
         if tuple(raw_u8.shape[1:]) != expect or raw_u8.dtype != np.uint8:
             raise ValueError(f"expected uint8 (n, {self.load}, {self.load}, 3), "
                              f"got {raw_u8.dtype} {raw_u8.shape}")
-        pad = self.batch - n
-        if pad:
-            raw_u8 = np.concatenate([raw_u8, np.repeat(raw_u8[-1:], pad, 0)])
         with torch.inference_mode(), exact_fp32():
-            raw = torch.from_numpy(np.ascontiguousarray(raw_u8)).to(self.device)
+            raw = torch.from_numpy(raw_u8).to(self.device)
             x = center_crop_normalize(raw, self.crop)
-            out = denormalize_to_u8(self.generator(x))
+            out = denormalize_to_u8(self._apply(x))
             return out.cpu().numpy()[:n]

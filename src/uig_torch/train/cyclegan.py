@@ -49,7 +49,8 @@ from uig_torch.serving import exact_fp32
 from uig_torch.train import losses as L
 from uig_torch.train.ema import ema_update
 from uig_torch.train.pool import ImagePool
-from uig_torch.train.state import Adam, CycleGANState, tree_leaves, tree_map
+from uig_torch.train.state import (Adam, CycleGANState, normal_init,
+                                   tree_leaves, tree_map, tree_unflatten)
 
 
 def _refuse_unported(cfg) -> None:
@@ -69,21 +70,6 @@ def _refuse_unported(cfg) -> None:
                                       "yet (ROADMAP); set it off")
     if cfg.data.augment not in ("pallas", "xla", "none"):
         raise ValueError(f"unknown augment impl {cfg.data.augment!r}")
-
-
-def _init_params(module: torch.nn.Module, gen: torch.Generator) -> dict:
-    """flax's initializers: conv kernels normal(0.02), biases zeros,
-    instance-norm scales ones."""
-    params = {}
-    for name, p in module.named_parameters():
-        if name.endswith(".kernel"):
-            v = torch.randn(p.shape, generator=gen) * 0.02
-        elif name.endswith(".scale"):
-            v = torch.ones(p.shape)
-        else:
-            v = torch.zeros(p.shape)
-        params[name] = v
-    return params
 
 
 class CycleGANTrainer:
@@ -119,10 +105,10 @@ class CycleGANTrainer:
         def on_dev(tree):
             return tree_map(lambda t: t.to(dev), tree)
 
-        g_params = on_dev({"a2b": _init_params(self.generator, gen),
-                           "b2a": _init_params(self.generator, gen)})
-        d_params = on_dev({"a": _init_params(self.discriminator, gen),
-                           "b": _init_params(self.discriminator, gen)})
+        g_params = on_dev({"a2b": normal_init(self.generator, gen),
+                           "b2a": normal_init(self.generator, gen)})
+        d_params = on_dev({"a": normal_init(self.discriminator, gen),
+                           "b": normal_init(self.discriminator, gen)})
         hw = self.cfg.model.image_size
         img = (hw, hw, self.cfg.model.out_channels)
         return CycleGANState(
@@ -255,8 +241,8 @@ class CycleGANTrainer:
             d_loss, d_aux = self._d_loss(dp, real_a, d_fake_a, real_b,
                                          d_fake_b)
             d_grads = torch.autograd.grad(d_loss, tree_leaves(dp))
-        grads = {"g": _unflatten(state.g_params, g_grads),
-                 "d": _unflatten(state.d_params, d_grads)}
+        grads = {"g": tree_unflatten(state.g_params, g_grads),
+                 "d": tree_unflatten(state.d_params, d_grads)}
         zero = torch.zeros((), device=self.device)
         metrics = {
             "g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
@@ -293,12 +279,3 @@ class CycleGANTrainer:
             return functional_call(self.generator, ema[direction],
                                    (x.to(self.device, torch.float32),))
 
-
-def _unflatten(like: dict, leaves) -> dict:
-    it = iter(leaves)
-
-    def walk(tree):
-        return {k: walk(tree[k]) if isinstance(tree[k], dict) else next(it)
-                for k in sorted(tree)}
-
-    return walk(like)

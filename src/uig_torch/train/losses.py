@@ -1,7 +1,7 @@
-"""GAN, cycle and identity losses, in PyTorch.
+"""GAN, cycle, identity and L1 losses, in PyTorch.
 
 The port of the JAX package's ``train/losses.py`` (``gan_loss_g``,
-``gan_loss_d``, ``cycle_loss``, ``identity_loss``). Every loss is computed
+``gan_loss_d``, ``cycle_loss``, ``identity_loss``, ``l1_loss``). Every loss is computed
 in fp32 whatever the compute dtype. A logit argument may be one map or a
 tuple/list of maps (multi-scale PatchGAN), whose losses sum over scales.
 """
@@ -57,3 +57,8 @@ def cycle_loss(real: torch.Tensor, reconstructed: torch.Tensor) -> torch.Tensor:
 def identity_loss(real: torch.Tensor, same: torch.Tensor) -> torch.Tensor:
     """L1 identity mapping |G(y) - y|_1, as a mean."""
     return torch.mean(torch.abs(_f32(same) - _f32(real)))
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """mean |a - b|: the VQGAN reconstruction loss."""
+    return torch.mean(torch.abs(_f32(a) - _f32(b)))

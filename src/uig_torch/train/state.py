@@ -66,6 +66,32 @@ def tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def tree_unflatten(like: dict, leaves) -> dict:
+    """The inverse of ``tree_leaves``: ``leaves`` in ``like``'s structure."""
+    it = iter(leaves)
+
+    def walk(tree):
+        return {k: walk(tree[k]) if isinstance(tree[k], dict) else next(it)
+                for k in sorted(tree)}
+
+    return walk(like)
+
+
+def normal_init(module: torch.nn.Module, gen: torch.Generator) -> dict:
+    """The ResNet generator's and the PatchGAN's flax initializers: conv
+    kernels normal(0.02), biases zeros, instance-norm scales ones."""
+    params = {}
+    for name, p in module.named_parameters():
+        if name.endswith(".kernel"):
+            v = torch.randn(p.shape, generator=gen) * 0.02
+        elif name.endswith(".scale"):
+            v = torch.ones(p.shape)
+        else:
+            v = torch.zeros(p.shape)
+        params[name] = v
+    return params
+
+
 @dataclass
 class AdamState:
     count: int
@@ -160,4 +186,44 @@ class CycleGANState:
                              self.pool_a.count),
             pool_b=PoolState(self.pool_b.buffer.to(device, copy=True),
                              self.pool_b.count),
+            step=self.step, seed=self.seed, carried=dict(self.carried))
+
+
+def _adam_to(st: AdamState, device) -> AdamState:
+    def move(tree):
+        return tree_map(lambda t: t.to(device, copy=True), tree)
+
+    return AdamState(st.count, move(st.mu), move(st.nu))
+
+
+@dataclass
+class VQGANState:
+    """The VQGAN trainer's state: one generator (the shared autoencoder) and
+    one discriminator, their Adam states, the EMA of the generator under
+    ``"a2b"`` (translate is reconstruct), and the step. Parameter trees are
+    flat dicts of fp32 tensors keyed as the modules' state dicts.
+    ``carried`` keeps JAX state fields the port does not use (the PRNG
+    key)."""
+    g_params: dict
+    d_params: dict
+    g_opt: AdamState
+    d_opt: AdamState
+    ema: dict
+    step: int
+    seed: int
+    carried: dict = field(default_factory=dict)
+
+    def clone(self) -> "VQGANState":
+        """A deep copy (``train_step`` consumes the state it is given)."""
+        return copy.deepcopy(self)
+
+    def to(self, device) -> "VQGANState":
+        """A deep copy with every tensor on ``device``."""
+        def move(tree):
+            return tree_map(lambda t: t.to(device, copy=True), tree)
+
+        return VQGANState(
+            g_params=move(self.g_params), d_params=move(self.d_params),
+            g_opt=_adam_to(self.g_opt, device),
+            d_opt=_adam_to(self.d_opt, device), ema=move(self.ema),
             step=self.step, seed=self.seed, carried=dict(self.carried))

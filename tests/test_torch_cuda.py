@@ -16,13 +16,19 @@ whole plane or batch (dgamma, dbeta, dw) hold to 1e-4 relative to their
 largest value. The augment kernel is exact up to 1 ulp (2.4e-7). With a
 fused ReLU, the norm backward is compared where the recomputed
 pre-activation is at least 1e-4 from 0: at the kink either side is right.
+Attention: the output and dq/dk/dv within 1e-5 of their largest value (fp32
+softmax sums over at most 300 keys in another order), the log-sum-exp
+within 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from uig_torch.kernels import (augment_batch, augment_batch_reference,
+from uig_torch.kernels import (attention, attention_bwd,
+                               attention_bwd_reference, attention_fwd,
+                               attention_reference, augment_batch,
+                               augment_batch_reference,
                                conv3_in_act, conv3_in_act_reference, conv7,
                                conv7_act, conv7_dgrad, conv7_dgrad_reference,
                                conv7_reference, conv7_wgrad,
@@ -266,3 +272,45 @@ def test_reflect_pad_adjoint_is_deterministic(dev):
             0, 2, 3, 1), (x,), ct)
     _close(got[1], want[1])
     assert torch.equal(got[1], again[1])
+
+
+_ATTN_SHAPES = [(1, 37, 64), (2, 300, 256), (1, 70, 512), (3, 33, 36)]
+
+
+@pytest.mark.parametrize("shape", _ATTN_SHAPES, ids=str)
+def test_attention_kernels(dev, shape):
+    """Ragged N (tiles cut at the edge), D in {64, 256, 512} and one that
+    fills no float4 group of 32, B = 1; repeats are bit-equal (no
+    atomics)."""
+    q, k, v, do = (_randn(dev, *shape, seed=i) for i in range(4))
+    before = (attention_fwd.launches, attention_bwd.launches)
+    o, lse = attention_fwd(q, k, v)
+    _rel_close(o, attention_reference(q, k, v), rel=1e-5)
+    logits = torch.bmm(q, k.transpose(1, 2)) / shape[-1] ** 0.5
+    _close(lse, torch.logsumexp(logits, -1))
+    got = attention_bwd(q, k, v, o, lse, do)
+    for g, w in zip(got, attention_bwd_reference(q, k, v, do)):
+        _rel_close(g, w, rel=1e-5)
+    assert (attention_fwd.launches, attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(o, attention_fwd(q, k, v)[0])
+    for g, again in zip(got, attention_bwd(q, k, v, o, lse, do)):
+        assert torch.equal(g, again)
+
+
+def test_attention_function(dev):
+    q, k, v, ct = (_randn(dev, 2, 50, 32, seed=i) for i in range(4))
+    got = _grads(attention, (q, k, v), ct)
+    want = _grads(attention_reference, (q, k, v), ct)
+    for u, w in zip(got, want):
+        _rel_close(u, w, rel=1e-5)
+
+
+def test_attention_refuses_what_it_cannot_take(dev):
+    for d in (6, 516):
+        x = _randn(dev, 1, 8, d)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            attention_fwd(x, x, x)
+    x = _randn(dev, 1, 8, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_fwd(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2))

@@ -36,6 +36,7 @@ def test_no_jax_or_uig_imports(path):
 def test_import_leaves_jax_out_and_builds_nothing():
     code = ("import sys; import uig_torch.serving, uig_torch.serve, "
             "uig_torch.cli.__main__, uig_torch.train.cyclegan, "
+            "uig_torch.models.vqgan, uig_torch.train.vqgan, "
             "uig_torch.convert, uig_torch.kernels._build as b; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'uig' or m.startswith('uig.') for m in sys.modules); "

@@ -106,3 +106,20 @@ def test_tpu_knobs_are_accepted_and_ignored():
     tl.ResnetBlock(8, convin=True, pad_impl="explicit")
     with pytest.raises(NotImplementedError):
         tl.ResnetBlock(8, norm="group")
+
+
+def test_nearest_up2_vjp_matches_jax():
+    """The broadcast + reshape form: forward and VJP (a 2x2 window sum) as
+    JAX's ``layers.nearest_up2``; the CycleGAN ``resize_conv`` upsampling
+    runs it, and its output is bit-equal to the repeat_interleave form."""
+    x = _x((2, 3, 5, 4))
+    g = _x((2, 6, 10, 4), seed=2)
+    y, vjp = jax.vjp(jl.nearest_up2, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    yt = tl.nearest_up2(xt)
+    np.testing.assert_array_equal(yt.detach().numpy(), np.asarray(y))
+    dx, = torch.autograd.grad(yt, xt, torch.from_numpy(g))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               atol=1e-6)
+    old = xt.detach().repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    assert torch.equal(yt.detach(), old)
