@@ -103,15 +103,18 @@ def _flat_from_tree(tree: dict, prefix: str) -> dict:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    """A numpy copy (never a view of a tensor a later step updates)."""
-    return np.array(t.detach().cpu(), dtype=np.float32)
+    """An fp32 numpy copy (never a view of a tensor a later step updates);
+    exact for bf16 tensors."""
+    return np.array(t.detach().to(torch.float32).cpu(), dtype=np.float32)
 
 
 def state_from_jax_flat(flat: dict[str, np.ndarray], seed: int = 0,
-                        device="cpu"):
+                        device="cpu", pool_dtype=torch.float32):
     """A flat JAX ``CycleGANState`` -> the port's ``CycleGANState`` on
     ``device``. ``seed`` seeds the port's own per-step draws (the JAX key
-    cannot be carried over and is kept in ``carried`` unchanged)."""
+    cannot be carried over and is kept in ``carried`` unchanged). The
+    replay pools hold the compute dtype, ``pool_dtype``; a bf16 pool crosses
+    as fp32 arrays (exact), which the caller widens from JAX's bf16."""
     from uig_torch.train.pool import PoolState
     from uig_torch.train.state import AdamState, CycleGANState
 
@@ -130,7 +133,7 @@ def state_from_jax_flat(flat: dict[str, np.ndarray], seed: int = 0,
 
     def pool(name: str) -> PoolState:
         return PoolState(torch.from_numpy(np.array(
-            flat[name + "/buffer"], dtype=np.float32)).to(device),
+            flat[name + "/buffer"], dtype=np.float32)).to(device, pool_dtype),
             int(flat[name + "/count"]))
 
     carried = {k: np.asarray(flat[k]) for k in ("rng", "ada_p") if k in flat}

@@ -1,16 +1,21 @@
 // Fused 3x3 stride-1 pad-1 conv (reflect or zeros) + bias + instance norm
-// (+ReLU) over NHWC fp32, for the generator's residual trunk.
+// (+ReLU) over NHWC fp32 or bf16, for the generator's residual trunk.
 //
 // Replaces: src/uig/kernels/convin_pallas.py, _convin_fwd_impl ->
 // _convin_kernel (the TPU kernel keeps one example's padded plane resident in
 // VMEM, runs the conv as im2col strips on the matrix unit, accumulates the
-// channel moments from the values it just produced, then normalizes).
+// channel moments from the values it just produced, then normalizes). In
+// bf16 the conv accumulates in fp32, acc + bias is rounded once to bf16 for
+// y_conv, and the moments come from those rounded values, as there.
 //
 // Bound on this card: operations. At (8, 64, 64, 256) -> 256 the conv is
 // 38.7 GFLOP: about 0.58 ms at the H100 SXM data-sheet 67 TFLOP/s fp32
 // (700 W), while its ~70 MB of reads and writes take about 20 us. The serving
 // path is fp32 at "highest" precision, so this kernel uses fp32 FMAs and not
 // the TF32 tensor cores (TF32 would break parity with the JAX reference).
+// The bf16 variant runs the same fp32 FMAs on widened values; its bound at
+// the data-sheet's 989 TFLOP/s bf16 tensor-core rate is ~0.04 ms, which this
+// design does not approach (a later redesign's work).
 //
 // Design: an implicit GEMM. Output pixels of one image are the M dimension,
 // output channels N, and the (3, 3, C) window K = 9C, read straight from the
@@ -19,13 +24,15 @@
 // through two small shared-memory tiles. The A loader gathers the window
 // with reflect padding as index mirroring (row -1 -> row 1, row H -> H-2), or
 // a masked zero load, so no padded tensor is ever materialized. A 4-channel
-// run never crosses a tap because C % 4 == 0, so it is one float4 load.
-// The epilogue adds the bias, writes y_conv, and sums y and y^2 per channel
+// run never crosses a tap because C % 4 == 0, so it is one 4-wide load.
+// The epilogue adds the bias, rounds to the storage type, writes y_conv,
+// and sums the rounded y and y^2 per channel
 // over the tile's pixels in a fixed order into a (2, B, tiles, F) scratch:
 // deterministic, no float atomics. in_common.cuh then reduces those partials
 // and normalizes y_conv into the output, as the instance norm kernel does.
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
 #include "in_common.cuh"
 
 namespace {
@@ -40,9 +47,10 @@ __device__ __forceinline__ int mirror(int i, int n) {
 }
 
 // grid (ceil(HW / kBM), ceil(F / kBN), B), block kThreads.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    conv3_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, float* __restrict__ y,
+    conv3_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                      const float* __restrict__ bias, T* __restrict__ y,
                       float* __restrict__ part, int B, int H, int W, int C,
                       int F, int reflect) {
   __shared__ __align__(16) float As[kBK][kBM];
@@ -56,7 +64,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
   const int K = 9 * C;
-  const float* xb = x + (size_t)b * HW * C;
+  const T* xb = x + (size_t)b * HW * C;
 
   // A loader: one pixel, one run of 4 K entries.
   const int a_row = tid >> 1;
@@ -95,9 +103,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       } else {
         in = sy >= 0 && sy < H && sx >= 0 && sx < W;
       }
-      if (in)
-        av = *reinterpret_cast<const float4*>(xb + ((size_t)sy * W + sx) * C +
-                                              c);
+      if (in) av = load4(xb + ((size_t)sy * W + sx) * C + c);
     }
     As[a_k + 0][a_row] = av.x;
     As[a_k + 1][a_row] = av.y;
@@ -106,8 +112,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
     const int kb = k0 + b_row;
-    if (b_ok && kb < K)
-      bv = *reinterpret_cast<const float4*>(w + (size_t)kb * F + n0 + b_col);
+    if (b_ok && kb < K) bv = load4(w + (size_t)kb * F + n0 + b_col);
     *reinterpret_cast<float4*>(&Bs[b_row][b_col]) = bv;
     __syncthreads();
 
@@ -148,17 +153,14 @@ __global__ void __launch_bounds__(kThreads, 2)
       float v[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        v[j] = acc[i][j] + bv[j];
+        v[j] = round_to<T>(acc[i][j] + bv[j]);
         s1[j] += v[j];
         s2[j] += v[j] * v[j];
       }
-      float* yrow = y + ((size_t)b * HW + m) * F + n0;
-      if (lo_ok)
-        *reinterpret_cast<float4*>(yrow + tn * 4) =
-            make_float4(v[0], v[1], v[2], v[3]);
+      T* yrow = y + ((size_t)b * HW + m) * F + n0;
+      if (lo_ok) store4(yrow + tn * 4, make_float4(v[0], v[1], v[2], v[3]));
       if (hi_ok)
-        *reinterpret_cast<float4*>(yrow + 64 + tn * 4) =
-            make_float4(v[4], v[5], v[6], v[7]);
+        store4(yrow + 64 + tn * 4, make_float4(v[4], v[5], v[6], v[7]));
     }
   }
 #pragma unroll
@@ -183,25 +185,42 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-}  // namespace
-
-// x: (B, H, W, C) fp32, w: (9C, F) from HWIO (3, 3, C, F), bias/gamma/beta
-// (F,). yconv, y: (B, H, W, F). part: (2, B, tiles, F) with tiles =
-// ceil(H*W / 128); ss: (2, B, F). C % 4 == 0, F % 4 == 0.
-extern "C" cudaError_t uig_conv3_in_fwd(const float* x, const float* w,
-                                        const float* bias, const float* gamma,
-                                        const float* beta, float* yconv,
-                                        float* y, float* part, float* ss,
-                                        int B, int H, int W, int C, int F,
-                                        int reflect, int relu, float eps,
-                                        cudaStream_t stream) {
+template <typename T>
+cudaError_t fwd(const T* x, const T* w, const float* bias, const float* gamma,
+                const float* beta, T* yconv, T* y, float* part, float* ss,
+                int B, int H, int W, int C, int F, int reflect, int relu,
+                float eps, cudaStream_t stream) {
   const int HW = H * W;
   const int tiles = (HW + kBM - 1) / kBM;
   const dim3 grid(tiles, (F + kBN - 1) / kBN, B);
-  conv3_gemm_kernel<<<grid, kThreads, 0, stream>>>(x, w, bias, yconv, part, B,
-                                                   H, W, C, F, reflect);
+  conv3_gemm_kernel<T><<<grid, kThreads, 0, stream>>>(
+      x, w, bias, yconv, part, B, H, W, C, F, reflect);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return in_finalize_apply(part, gamma, beta, ss, yconv, y, B, HW, F, tiles,
-                           eps, relu, stream);
+  return in_finalize_apply<T>(part, gamma, beta, ss, yconv, y, B, HW, F,
+                              tiles, eps, relu, stream);
+}
+
+}  // namespace
+
+// x: (B, H, W, C), w: (9C, F) from HWIO (3, 3, C, F), yconv, y: (B, H, W,
+// F), all fp32, or all bf16 when is_bf16. bias/gamma/beta (F,) fp32.
+// part: (2, B, tiles, F) fp32 with tiles = ceil(H*W / 128); ss: (2, B, F)
+// fp32. C % 4 == 0, F % 4 == 0.
+extern "C" cudaError_t uig_conv3_in_fwd(const void* x, const void* w,
+                                        const float* bias, const float* gamma,
+                                        const float* beta, void* yconv,
+                                        void* y, float* part, float* ss,
+                                        int B, int H, int W, int C, int F,
+                                        int reflect, int relu, float eps,
+                                        int is_bf16, cudaStream_t stream) {
+  if (is_bf16)
+    return fwd<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                     bias, gamma, beta, static_cast<bf16*>(yconv),
+                     static_cast<bf16*>(y), part, ss, B, H, W, C, F, reflect,
+                     relu, eps, stream);
+  return fwd<float>(static_cast<const float*>(x), static_cast<const float*>(w),
+                    bias, gamma, beta, static_cast<float*>(yconv),
+                    static_cast<float*>(y), part, ss, B, H, W, C, F, reflect,
+                    relu, eps, stream);
 }

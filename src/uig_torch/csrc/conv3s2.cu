@@ -1,0 +1,503 @@
+// Square k x k conv with zero padding and a stride, over NHWC fp32 or bf16,
+// with its input and weight gradients: the generator's 3x3 stride-2 pad-1
+// downsamples (d128: 64 -> 128 channels at 256^2, d256: 128 -> 256 at
+// 128^2), and with stride 1 and no padding the generic VALID conv.
+//   fwd:   x (B, H, W, C), w (k, k, C, F) [+ bias (F,)] -> y (B, Ho, Wo, F)
+//   dgrad: dy (B, Ho, Wo, F), wt (k, k, F, C) (w transposed) -> dx (B, H, W, C)
+//   wgrad: x, dy -> dw (k, k, C, F)
+// with Ho = (H + 2 pad - k) / stride + 1.
+//
+// Replaces: src/uig/kernels/conv_pallas.py, conv3s2_s2d (kc=2, bi=2, bo=1)
+// and conv_core (kc=k, bi=bo=1), both through conv_core5 -> _make_conv5 ->
+// _conv5_impl -> _conv5_kernel; the backward's _conv5_impl on the padded dy
+// with _dgrad_weights, and _wgrad5_impl -> _wgrad5_kernel. On the TPU the
+// stride is folded into a space-to-depth 5-D view so that the matrix unit's
+// lanes fill; here the stride is index arithmetic in the loaders, and no
+// padded or space-to-depth tensor is ever materialized.
+//
+// Bound on this card: operations. d128 and d256 at batch 16 are each
+// 2 * 16 * 128^2 * 128 * 9 * 64 = 3.87e10 FLOP (dgrad and wgrad the same):
+// 0.58 ms at the H100 SXM data-sheet 67 TFLOP/s fp32 FMA rate (700 W). In
+// bf16 the same count takes 0.039 ms at the 989 TFLOP/s tensor-core rate,
+// about the time to read x once (134 MB at d128, fp32); these kernels use
+// fp32 FMAs in both types, so a bf16 row reads low against that bound.
+//
+// Design: one implicit GEMM core, K3's (csrc/conv3_in.cu): a block computes
+// a 128 x BN tile (BN 128, or 64 when the N side is at most 64), 8 x 8
+// outputs a thread in registers, stepping K by 8 through two fp32 shared
+// tiles. Loads widen T to fp32 four values at a time (C % 4 == 0 and
+// F % 4 == 0, so a run of four never crosses a tap); every sum is an fp32
+// FMA in a fixed order; each output is rounded once to T.
+//   fwd: M = output pixels of one image, N = F, K = (tap, c), read straight
+//        from the HWIO weights as a (k k C, F) row-major matrix; the A loader
+//        gathers the strided window with zero padding as a masked load; the
+//        bias is added in fp32 before the one rounding.
+//   dgrad: the adjoint. A dx pixel (i, j) receives the outputs whose window
+//        holds it: the taps di with stride | (i + pad - di), which depend
+//        only on (i mod stride, j mod stride). A block owns one such parity
+//        class (stride^2 classes, 1 for stride 1): M = the class's pixels,
+//        N = C, K = (tap of the class, o), B the rows of wt. For the 3x3
+//        stride-2 pad-1 conv the classes have 1 x 1, 1 x 2, 2 x 1 and 2 x 2
+//        taps: a gather in a fixed order, with no atomics and no
+//        zero-stuffed dy, and no multiply by a structural zero.
+//   wgrad: M = (tap, c) (k k C rows), N = F, K = pixels of the whole batch.
+//        The pixels are cut into chunks; each block sums its chunk in order
+//        into a partial (chunks, k k C, F) in fp32, and a second pass sums
+//        the partials in chunk order and rounds once, as K4w does. Repeat
+//        runs give the same bits.
+#include <cuda_runtime.h>
+
+#include "dtype.cuh"
+
+namespace {
+
+constexpr int kBM = 128;      // GEMM rows per block
+constexpr int kBK = 8;        // K step
+constexpr int kMaxTaps = 49;  // k <= 7
+
+// The thread's 8 x 8 outputs: rows tm*4 + i and 64 + tm*4 + i, columns
+// tn*4 + j and BN/2 + tn*4 + j (i, j < 4) of the block's kBM x BN tile.
+__device__ __forceinline__ int row_of(int i, int tm) {
+  return i < 4 ? tm * 4 + i : 64 + tm * 4 + (i - 4);
+}
+
+template <int BN>
+__device__ __forceinline__ void mma_step(float (*As)[kBM], float (*Bs)[BN],
+                                         float (&acc)[8][8], int tm, int tn) {
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][tm * 4]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + tm * 4]);
+    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tn * 4]);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(&Bs[kk][BN / 2 + tn * 4]);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// A run of four K entries of one GEMM row, transposed into As[k][row].
+__device__ __forceinline__ void put_a(float (*As)[kBM], int k, int row,
+                                      float4 v) {
+  As[k + 0][row] = v.x;
+  As[k + 1][row] = v.y;
+  As[k + 2][row] = v.z;
+  As[k + 3][row] = v.w;
+}
+
+// ------------------------------------------------------------------ fwd --
+// grid (ceil(Ho Wo / kBM), ceil(F / BN), B), block 2 BN.
+template <typename T, int BN>
+__global__ void __launch_bounds__(2 * BN)
+    conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ bias, T* __restrict__ y, int H,
+                    int W, int C, int F, int Ho, int Wo, int k, int stride,
+                    int pad) {
+  constexpr int kThreads = 2 * BN;
+  constexpr int kALoads = kBM * kBK / 4 / kThreads;
+  __shared__ __align__(16) float As[kBK][kBM];
+  __shared__ __align__(16) float Bs[kBK][BN];
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int M = Ho * Wo;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+  const int K = k * k * C;
+  const T* xb = x + (size_t)b * H * W * C;
+
+  // A loader: kALoads (output pixel, run of 4 K entries) a thread
+  int a_row[kALoads], a_k[kALoads], a_iy[kALoads], a_ix[kALoads];
+  bool a_ok[kALoads];
+#pragma unroll
+  for (int q = 0; q < kALoads; ++q) {
+    const int idx = tid + q * kThreads;
+    a_row[q] = idx >> 1;
+    a_k[q] = (idx & 1) * 4;
+    const int m = m0 + a_row[q];
+    a_ok[q] = m < M;
+    const int oy = a_ok[q] ? m / Wo : 0;
+    const int ox = a_ok[q] ? m - oy * Wo : 0;
+    a_iy[q] = oy * stride - pad;
+    a_ix[q] = ox * stride - pad;
+  }
+  // B loader: one K row, 4 output channels
+  const int b_row = tid / (BN / 4);
+  const int b_col = (tid % (BN / 4)) * 4;
+  const bool b_ok = n0 + b_col < F;
+
+  const int tm = tid / (BN / 8), tn = tid % (BN / 8);
+  float acc[8][8];
+  zero(acc);
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+#pragma unroll
+    for (int q = 0; q < kALoads; ++q) {
+      float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int kq = k0 + a_k[q];
+      if (a_ok[q] && kq < K) {
+        const int tap = kq / C;
+        const int c = kq - tap * C;
+        const int di = tap / k;
+        const int sy = a_iy[q] + di;
+        const int sx = a_ix[q] + tap - di * k;
+        if (sy >= 0 && sy < H && sx >= 0 && sx < W)
+          av = load4(xb + ((size_t)sy * W + sx) * C + c);
+      }
+      put_a(As, a_k[q], a_row[q], av);
+    }
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int kb = k0 + b_row;
+    if (b_ok && kb < K) bv = load4(w + (size_t)kb * F + n0 + b_col);
+    *reinterpret_cast<float4*>(&Bs[b_row][b_col]) = bv;
+    __syncthreads();
+    mma_step<BN>(As, Bs, acc, tm, tn);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int col = half ? BN / 2 + tn * 4 : tn * 4;
+    if (n0 + col >= F) continue;
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (bias != nullptr) bv = load4(bias + n0 + col);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + row_of(i, tm);
+      if (m >= M) continue;
+      const float* a = &acc[i][half * 4];
+      store4(y + ((size_t)b * M + m) * F + n0 + col,
+             make_float4(a[0] + bv.x, a[1] + bv.y, a[2] + bv.z, a[3] + bv.w));
+    }
+  }
+}
+
+// ---------------------------------------------------------------- dgrad --
+// grid (ceil(ceil(H / s) ceil(W / s) / kBM), ceil(C / BN), B s^2), block
+// 2 BN. Block z = b * s^2 + class, class = (i mod s) * s + (j mod s).
+template <typename T, int BN>
+__global__ void __launch_bounds__(2 * BN)
+    conv_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ wt,
+                      T* __restrict__ dx, int H, int W, int C, int F, int Ho,
+                      int Wo, int k, int stride, int pad) {
+  constexpr int kThreads = 2 * BN;
+  constexpr int kALoads = kBM * kBK / 4 / kThreads;
+  __shared__ __align__(16) float As[kBK][kBM];
+  __shared__ __align__(16) float Bs[kBK][BN];
+  __shared__ int tap_row[kMaxTaps];  // (di k + dj) F: the tap's rows of wt
+  __shared__ int tap_oy[kMaxTaps];   // oy - a for dx row i = s a + pi
+  __shared__ int tap_ox[kMaxTaps];   // ox - e for dx column j = s e + pj
+  __shared__ int n_taps;
+
+  const int tid = threadIdx.x;
+  const int s = stride;
+  const int cls = blockIdx.z % (s * s);
+  const int b = blockIdx.z / (s * s);
+  const int pi = cls / s, pj = cls - pi * s;
+  const int Hc = (H - pi + s - 1) / s, Wc = (W - pj + s - 1) / s;
+  const int M = Hc * Wc;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+  if (m0 >= M) return;  // the whole block: this class has fewer pixels
+
+  // the class's taps, rows then columns ascending: the fixed order of sums
+  if (tid == 0) {
+    int nt = 0;
+    for (int di = 0; di < k; ++di) {
+      const int ry = pi + pad - di;
+      if (((ry % s) + s) % s) continue;
+      for (int dj = 0; dj < k; ++dj) {
+        const int rx = pj + pad - dj;
+        if (((rx % s) + s) % s) continue;
+        tap_row[nt] = (di * k + dj) * F;
+        tap_oy[nt] = ry / s;  // exact: s divides ry
+        tap_ox[nt] = rx / s;
+        ++nt;
+      }
+    }
+    n_taps = nt;
+  }
+  __syncthreads();
+  const int K = n_taps * F;
+  const T* dyb = dy + (size_t)b * Ho * Wo * F;
+
+  int a_row[kALoads], a_k[kALoads], a_a[kALoads], a_e[kALoads];
+  bool a_ok[kALoads];
+#pragma unroll
+  for (int q = 0; q < kALoads; ++q) {
+    const int idx = tid + q * kThreads;
+    a_row[q] = idx >> 1;
+    a_k[q] = (idx & 1) * 4;
+    const int m = m0 + a_row[q];
+    a_ok[q] = m < M;
+    a_a[q] = a_ok[q] ? m / Wc : 0;
+    a_e[q] = a_ok[q] ? m - a_a[q] * Wc : 0;
+  }
+  const int b_row = tid / (BN / 4);
+  const int b_col = (tid % (BN / 4)) * 4;
+  const bool b_ok = n0 + b_col < C;
+
+  const int tm = tid / (BN / 8), tn = tid % (BN / 8);
+  float acc[8][8];
+  zero(acc);
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+#pragma unroll
+    for (int q = 0; q < kALoads; ++q) {
+      float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+      const int kq = k0 + a_k[q];
+      if (a_ok[q] && kq < K) {
+        const int t = kq / F;
+        const int o = kq - t * F;
+        const int oy = a_a[q] + tap_oy[t];
+        const int ox = a_e[q] + tap_ox[t];
+        if (oy >= 0 && oy < Ho && ox >= 0 && ox < Wo)
+          av = load4(dyb + ((size_t)oy * Wo + ox) * F + o);
+      }
+      put_a(As, a_k[q], a_row[q], av);
+    }
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int kb = k0 + b_row;
+    if (b_ok && kb < K) {
+      const int t = kb / F;
+      const int row = tap_row[t] + (kb - t * F);
+      bv = load4(wt + (size_t)row * C + n0 + b_col);
+    }
+    *reinterpret_cast<float4*>(&Bs[b_row][b_col]) = bv;
+    __syncthreads();
+    mma_step<BN>(As, Bs, acc, tm, tn);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + row_of(i, tm);
+    if (m >= M) continue;
+    const int a = m / Wc, e = m - (m / Wc) * Wc;
+    T* o = dx + (((size_t)b * H + s * a + pi) * W + s * e + pj) * C + n0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = half ? BN / 2 + tn * 4 : tn * 4;
+      if (n0 + col >= C) continue;
+      const float* v = &acc[i][half * 4];
+      store4(o + col, make_float4(v[0], v[1], v[2], v[3]));
+    }
+  }
+}
+
+// ---------------------------------------------------------------- wgrad --
+// grid (ceil(k k C / kBM), ceil(F / BN), chunks), block 2 BN. Block z sums
+// pixels [z per_chunk, (z + 1) per_chunk) of the batch's B Ho Wo outputs
+// and writes part[z] as (k k C, F).
+template <typename T, int BN>
+__global__ void __launch_bounds__(2 * BN)
+    conv_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                      float* __restrict__ part, int B, int H, int W, int C,
+                      int F, int Ho, int Wo, int k, int stride, int pad,
+                      int per_chunk) {
+  constexpr int kThreads = 2 * BN;
+  constexpr int kALoads = kBM * kBK / 4 / kThreads;
+  __shared__ __align__(16) float As[kBK][kBM];
+  __shared__ __align__(16) float Bs[kBK][BN];
+
+  const int tid = threadIdx.x;
+  const int M = k * k * C;
+  const int HWo = Ho * Wo;
+  const int P = B * HWo;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+  const int p0 = blockIdx.z * per_chunk;
+  const int p1 = min(p0 + per_chunk, P);
+
+  // A loader: As[pixel][m], four consecutive m (one tap, four channels) of
+  // one pixel a load; the thread's m run is the same at every K step
+  const int a_m = (tid % (kBM / 4)) * 4;
+  const int m = m0 + a_m;
+  const bool m_ok = m < M;
+  const int tap = m_ok ? m / C : 0;
+  const int c = m_ok ? m - tap * C : 0;
+  const int di = tap / k, dj = tap - (tap / k) * k;
+  const int b_row = tid / (BN / 4);
+  const int b_col = (tid % (BN / 4)) * 4;
+  const bool b_ok = n0 + b_col < F;
+
+  const int tm = tid / (BN / 8), tn = tid % (BN / 8);
+  float acc[8][8];
+  zero(acc);
+
+  for (int k0 = p0; k0 < p1; k0 += kBK) {
+#pragma unroll
+    for (int q = 0; q < kALoads; ++q) {
+      const int a_kk = (tid + q * kThreads) / (kBM / 4);
+      const int p = k0 + a_kk;
+      float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m_ok && p < p1) {
+        const int bb = p / HWo;
+        const int r = p - bb * HWo;
+        const int oy = r / Wo;
+        const int sy = oy * stride + di - pad;
+        const int sx = (r - oy * Wo) * stride + dj - pad;
+        if (sy >= 0 && sy < H && sx >= 0 && sx < W)
+          av = load4(x + (((size_t)bb * H + sy) * W + sx) * C + c);
+      }
+      *reinterpret_cast<float4*>(&As[a_kk][a_m]) = av;
+    }
+    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int p = k0 + b_row;
+    if (b_ok && p < p1) bv = load4(dy + (size_t)p * F + n0 + b_col);
+    *reinterpret_cast<float4*>(&Bs[b_row][b_col]) = bv;
+    __syncthreads();
+    mma_step<BN>(As, Bs, acc, tm, tn);
+    __syncthreads();
+  }
+
+  float* pz = part + (size_t)blockIdx.z * M * F;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int mm = m0 + row_of(i, tm);
+    if (mm >= M) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = half ? BN / 2 + tn * 4 : tn * 4;
+      if (n0 + col >= F) continue;
+      const float* v = &acc[i][half * 4];
+      *reinterpret_cast<float4*>(pz + (size_t)mm * F + n0 + col) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// dw[e] = sum over chunks, in order, of part[chunk][e], rounded once to T.
+template <typename T>
+__global__ void conv_wgrad_reduce_kernel(const float* __restrict__ part,
+                                         T* __restrict__ dw, int n,
+                                         int chunks) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < chunks; ++z) s += part[(size_t)z * n + e];
+  dw[e] = from_f32<T>(s);
+}
+
+bool bad_shape(int C, int F, int k, int stride, int pad) {
+  return C % 4 || F % 4 || k < 1 || k > 7 || stride < 1 || pad < 0;
+}
+
+template <typename T, int BN>
+cudaError_t fwd(const void* x, const void* w, const void* bias, void* y,
+                int B, int H, int W, int C, int F, int k, int stride, int pad,
+                cudaStream_t stream) {
+  const int Ho = (H + 2 * pad - k) / stride + 1;
+  const int Wo = (W + 2 * pad - k) / stride + 1;
+  const dim3 grid((Ho * Wo + kBM - 1) / kBM, (F + BN - 1) / BN, B);
+  conv_fwd_kernel<T, BN><<<grid, 2 * BN, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(bias), static_cast<T*>(y), H, W, C, F, Ho, Wo, k,
+      stride, pad);
+  return cudaGetLastError();
+}
+
+template <typename T, int BN>
+cudaError_t dgrad(const void* dy, const void* wt, void* dx, int B, int H,
+                  int W, int C, int F, int k, int stride, int pad,
+                  cudaStream_t stream) {
+  const int Ho = (H + 2 * pad - k) / stride + 1;
+  const int Wo = (W + 2 * pad - k) / stride + 1;
+  const int s = stride;
+  const int mc = ((H + s - 1) / s) * ((W + s - 1) / s);
+  const dim3 grid((mc + kBM - 1) / kBM, (C + BN - 1) / BN, B * s * s);
+  conv_dgrad_kernel<T, BN><<<grid, 2 * BN, 0, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(wt),
+      static_cast<T*>(dx), H, W, C, F, Ho, Wo, k, stride, pad);
+  return cudaGetLastError();
+}
+
+template <typename T, int BN>
+cudaError_t wgrad(const void* x, const void* dy, float* part, void* dw, int B,
+                  int H, int W, int C, int F, int k, int stride, int pad,
+                  int chunks, int per_chunk, cudaStream_t stream) {
+  const int Ho = (H + 2 * pad - k) / stride + 1;
+  const int Wo = (W + 2 * pad - k) / stride + 1;
+  const int M = k * k * C;
+  const dim3 grid((M + kBM - 1) / kBM, (F + BN - 1) / BN, chunks);
+  conv_wgrad_kernel<T, BN><<<grid, 2 * BN, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), part, B, H, W, C,
+      F, Ho, Wo, k, stride, pad, per_chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = M * F;
+  conv_wgrad_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
+      part, static_cast<T*>(dw), n, chunks);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (B, H, W, C); w: HWIO (k, k, C, F) = a (k k C, F) matrix; bias: (F,)
+// or null; y: (B, Ho, Wo, F); all fp32, or all bf16 when is_bf16.
+// C % 4 == 0, F % 4 == 0, k <= 7.
+extern "C" cudaError_t uig_conv_fwd(const void* x, const void* w,
+                                    const void* bias, void* y, int B, int H,
+                                    int W, int C, int F, int k, int stride,
+                                    int pad, int is_bf16,
+                                    cudaStream_t stream) {
+  if (bad_shape(C, F, k, stride, pad)) return cudaErrorInvalidValue;
+  if (is_bf16)
+    return F <= 64 ? fwd<bf16, 64>(x, w, bias, y, B, H, W, C, F, k, stride,
+                                   pad, stream)
+                   : fwd<bf16, 128>(x, w, bias, y, B, H, W, C, F, k, stride,
+                                    pad, stream);
+  return F <= 64 ? fwd<float, 64>(x, w, bias, y, B, H, W, C, F, k, stride,
+                                  pad, stream)
+                 : fwd<float, 128>(x, w, bias, y, B, H, W, C, F, k, stride,
+                                   pad, stream);
+}
+
+// dy: (B, Ho, Wo, F); wt: (k, k, F, C), the forward's w with its last two
+// axes swapped; dx: (B, H, W, C); all fp32, or all bf16 when is_bf16.
+extern "C" cudaError_t uig_conv_dgrad(const void* dy, const void* wt,
+                                      void* dx, int B, int H, int W, int C,
+                                      int F, int k, int stride, int pad,
+                                      int is_bf16, cudaStream_t stream) {
+  if (bad_shape(C, F, k, stride, pad)) return cudaErrorInvalidValue;
+  if (is_bf16)
+    return C <= 64 ? dgrad<bf16, 64>(dy, wt, dx, B, H, W, C, F, k, stride,
+                                     pad, stream)
+                   : dgrad<bf16, 128>(dy, wt, dx, B, H, W, C, F, k, stride,
+                                      pad, stream);
+  return C <= 64 ? dgrad<float, 64>(dy, wt, dx, B, H, W, C, F, k, stride,
+                                    pad, stream)
+                 : dgrad<float, 128>(dy, wt, dx, B, H, W, C, F, k, stride,
+                                     pad, stream);
+}
+
+// x: (B, H, W, C), dy: (B, Ho, Wo, F), dw: (k, k, C, F); all fp32, or all
+// bf16 when is_bf16. part: (chunks, k k C, F) fp32 scratch with
+// chunks * per_chunk >= B Ho Wo.
+extern "C" cudaError_t uig_conv_wgrad(const void* x, const void* dy,
+                                      float* part, void* dw, int B, int H,
+                                      int W, int C, int F, int k, int stride,
+                                      int pad, int chunks, int per_chunk,
+                                      int is_bf16, cudaStream_t stream) {
+  if (bad_shape(C, F, k, stride, pad)) return cudaErrorInvalidValue;
+  if (is_bf16)
+    return F <= 64 ? wgrad<bf16, 64>(x, dy, part, dw, B, H, W, C, F, k,
+                                     stride, pad, chunks, per_chunk, stream)
+                   : wgrad<bf16, 128>(x, dy, part, dw, B, H, W, C, F, k,
+                                      stride, pad, chunks, per_chunk, stream);
+  return F <= 64 ? wgrad<float, 64>(x, dy, part, dw, B, H, W, C, F, k, stride,
+                                    pad, chunks, per_chunk, stream)
+                 : wgrad<float, 128>(x, dy, part, dw, B, H, W, C, F, k,
+                                     stride, pad, chunks, per_chunk, stream);
+}

@@ -1,5 +1,5 @@
-// Direct 7x7 stride-1 pad-3 conv (reflect or zeros) + bias over NHWC fp32,
-// for few output channels (the generator head, Cin 64 -> Cout 3).
+// Direct 7x7 stride-1 pad-3 conv (reflect or zeros) + bias over NHWC fp32
+// or bf16, for few output channels (the generator head, Cin 64 -> Cout 3).
 //
 // Replaces: src/uig/kernels/conv_pallas.py, _conv5_impl -> _conv5_kernel with
 // _assemble_mirror, as reached from conv7_s2d via conv_core5 (on the TPU the
@@ -8,7 +8,10 @@
 //
 // Bound on this card: operations. At (8, 256, 256, 64) -> 3 the conv is
 // 9.87 GFLOP, about 0.147 ms at the H100 SXM data-sheet 67 TFLOP/s fp32
-// (700 W); its 134 MB read and 6 MB write take about 42 us.
+// (700 W); its 134 MB read and 6 MB write take about 42 us. In bf16 (x, w
+// and the bias already rounded to bf16, as JAX's PadConv casts them) the
+// same fp32 FMAs run on widened values and y is rounded once; its bound at
+// the 989 TFLOP/s bf16 tensor-core rate is ~0.01 ms, by bytes ~0.02 ms.
 //
 // Design: one thread per output pixel computes all (<= 4) output channels,
 // so a product with N = 3 wastes nothing on padding to a matrix tile. A
@@ -20,6 +23,8 @@
 // broadcast. A warp reads 32 neighbouring pixels of one tile row: no bank
 // conflicts. Bias is added in the epilogue; tanh stays outside, as in JAX.
 #include <cuda_runtime.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -35,9 +40,10 @@ __device__ __forceinline__ int mirror(int i, int n) {
 }
 
 // grid (ceil(W / kTW), ceil(H / kTH), B), block (kTW, kTH).
+template <typename T>
 __global__ void __launch_bounds__(kTW * kTH)
-    conv7_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bias, float* __restrict__ y, int H,
+    conv7_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ bias, T* __restrict__ y, int H,
                  int W, int Cin, int Cout, int reflect) {
   __shared__ float tile[kCK][kIH][kIW];
   __shared__ float4 wsm[49][kCK];
@@ -50,7 +56,7 @@ __global__ void __launch_bounds__(kTW * kTH)
   const int oy = blockIdx.y * kTH + ty;
   const int gx0 = blockIdx.x * kTW - kR;
   const int gy0 = blockIdx.y * kTH - kR;
-  const float* xb = x + (size_t)b * H * W * Cin;
+  const T* xb = x + (size_t)b * H * W * Cin;
 
   float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
   for (int c0 = 0; c0 < Cin; c0 += kCK) {
@@ -71,7 +77,7 @@ __global__ void __launch_bounds__(kTW * kTH)
         // Past the far edge of a ragged last tile even a mirrored index can
         // fall outside; those cells feed only masked outputs.
         if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-          v = xb[((size_t)gy * W + gx) * Cin + c0 + c];
+          v = to_f32(xb[((size_t)gy * W + gx) * Cin + c0 + c]);
       }
       tile[c][r][col] = v;
     }
@@ -80,11 +86,11 @@ __global__ void __launch_bounds__(kTW * kTH)
       const int t = i / kCK;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (c < ck) {
-        const float* wp = w + ((size_t)t * Cin + c0 + c) * Cout;
-        v.x = wp[0];
-        if (Cout > 1) v.y = wp[1];
-        if (Cout > 2) v.z = wp[2];
-        if (Cout > 3) v.w = wp[3];
+        const T* wp = w + ((size_t)t * Cin + c0 + c) * Cout;
+        v.x = to_f32(wp[0]);
+        if (Cout > 1) v.y = to_f32(wp[1]);
+        if (Cout > 2) v.z = to_f32(wp[2]);
+        if (Cout > 3) v.w = to_f32(wp[3]);
       }
       wsm[t][c] = v;
     }
@@ -106,24 +112,36 @@ __global__ void __launch_bounds__(kTW * kTH)
     __syncthreads();
   }
   if (ox < W && oy < H) {
-    float* yp = y + (((size_t)b * H + oy) * W + ox) * Cout;
-    yp[0] = acc0 + bias[0];
-    if (Cout > 1) yp[1] = acc1 + bias[1];
-    if (Cout > 2) yp[2] = acc2 + bias[2];
-    if (Cout > 3) yp[3] = acc3 + bias[3];
+    T* yp = y + (((size_t)b * H + oy) * W + ox) * Cout;
+    yp[0] = from_f32<T>(acc0 + to_f32(bias[0]));
+    if (Cout > 1) yp[1] = from_f32<T>(acc1 + to_f32(bias[1]));
+    if (Cout > 2) yp[2] = from_f32<T>(acc2 + to_f32(bias[2]));
+    if (Cout > 3) yp[3] = from_f32<T>(acc3 + to_f32(bias[3]));
   }
+}
+
+template <typename T>
+cudaError_t fwd(const void* x, const void* w, const void* bias, void* y,
+                int B, int H, int W, int Cin, int Cout, int reflect,
+                cudaStream_t stream) {
+  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
+  conv7_kernel<T><<<grid, dim3(kTW, kTH), 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(bias), static_cast<T*>(y), H, W, Cin, Cout,
+      reflect);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (B, H, W, Cin) fp32; w: HWIO (7, 7, Cin, Cout) fp32, Cout <= 4;
-// bias: (Cout,); y: (B, H, W, Cout). Reflect needs H, W >= 4.
-extern "C" cudaError_t uig_conv7_fwd(const float* x, const float* w,
-                                     const float* bias, float* y, int B,
-                                     int H, int W, int Cin, int Cout,
-                                     int reflect, cudaStream_t stream) {
-  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-  conv7_kernel<<<grid, dim3(kTW, kTH), 0, stream>>>(x, w, bias, y, H, W, Cin,
-                                                    Cout, reflect);
-  return cudaGetLastError();
+// x: (B, H, W, Cin); w: HWIO (7, 7, Cin, Cout), Cout <= 4; bias: (Cout,);
+// y: (B, H, W, Cout); all fp32, or all bf16 when is_bf16. Reflect needs
+// H, W >= 4.
+extern "C" cudaError_t uig_conv7_fwd(const void* x, const void* w,
+                                     const void* bias, void* y, int B, int H,
+                                     int W, int Cin, int Cout, int reflect,
+                                     int is_bf16, cudaStream_t stream) {
+  return is_bf16
+             ? fwd<bf16>(x, w, bias, y, B, H, W, Cin, Cout, reflect, stream)
+             : fwd<float>(x, w, bias, y, B, H, W, Cin, Cout, reflect, stream);
 }

@@ -1,5 +1,5 @@
 // Backward of the 7x7 stride-1 pad-3 conv (reflect or zeros) over NHWC fp32
-// for few output channels (the generator head, Cin 64 -> Cout 3):
+// or bf16 for few output channels (the generator head, Cin 64 -> Cout 3):
 //   dgrad: dy (B, H, W, Cout), w (7, 7, Cin, Cout) -> dx (B, H, W, Cin)
 //   wgrad: x (B, H, W, Cin), dy (B, H, W, Cout) -> dw (7, 7, Cin, Cout)
 //
@@ -13,6 +13,10 @@
 // * Cout FLOP, the forward's count: 9.87 GFLOP at B = 8 and 256^2, about
 // 0.147 ms at the H100 SXM data-sheet 67 TFLOP/s fp32 (700 W). The dgrad's
 // dx write (134 MB at B = 8) takes ~0.040 ms at 3.35 TB/s.
+//
+// bf16: dy, w, x in bf16, every sum (the reflect fold included) in fp32 in
+// the fp32 kernels' order, dx rounded once; dw rounded once to bf16 (the
+// cotangent of JAX's weight cast), which the wrapper's caller widens.
 //
 // dgrad design: one thread per dx pixel and 32 input channels (32 sums in
 // registers); a 32 x 8 block stages the dy tile plus a 3-pixel halo in
@@ -34,6 +38,8 @@
 // sums the partials in block order. No atomics: repeat runs are bit-equal.
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
 
 constexpr int kR = 3;  // halo of a 7x7 window
@@ -42,12 +48,13 @@ __device__ __forceinline__ int mirror(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-__device__ __forceinline__ float4 pick(const float* p, int cout) {
+template <typename T>
+__device__ __forceinline__ float4 pick(const T* p, int cout) {
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  v.x = p[0];
-  if (cout > 1) v.y = p[1];
-  if (cout > 2) v.z = p[2];
-  if (cout > 3) v.w = p[3];
+  v.x = to_f32(p[0]);
+  if (cout > 1) v.y = to_f32(p[1]);
+  if (cout > 2) v.z = to_f32(p[2]);
+  if (cout > 3) v.w = to_f32(p[3]);
   return v;
 }
 
@@ -84,10 +91,10 @@ __device__ __forceinline__ int ring_sources(int i, int n, int* out) {
 }
 
 // grid (ceil(W / kDW), ceil(H / kDH), B * ceil(Cin / kDC)), block (kDW, kDH).
-template <int CO>
+template <typename T, int CO>
 __global__ void __launch_bounds__(kDW * kDH)
-    conv7_dgrad_kernel(const float* __restrict__ dy,
-                       const float* __restrict__ w, float* __restrict__ dx,
+    conv7_dgrad_kernel(const T* __restrict__ dy,
+                       const T* __restrict__ w, T* __restrict__ dx,
                        int H, int W, int Cin, int reflect) {
   __shared__ float4 dyt[kDIH][kDIW];
   __shared__ float4 wsm[49][kDC];
@@ -98,7 +105,7 @@ __global__ void __launch_bounds__(kDW * kDH)
   const int b = blockIdx.z / groups;
   const int c0 = (blockIdx.z - b * groups) * kDC;
   const int i0 = blockIdx.y * kDH, j0 = blockIdx.x * kDW;
-  const float* dyb = dy + (size_t)b * H * W * CO;
+  const T* dyb = dy + (size_t)b * H * W * CO;
 
   for (int q = tid; q < kDIH * kDIW; q += kDW * kDH) {
     const int r = q / kDIW, col = q - r * kDIW;
@@ -150,13 +157,12 @@ __global__ void __launch_bounds__(kDW * kDH)
       }
   }
   if (i < H && j < W) {
-    float* o = dx + (((size_t)b * H + i) * W + j) * Cin + c0;
+    T* o = dx + (((size_t)b * H + i) * W + j) * Cin + c0;
     const int n = min(kDC, Cin - c0);  // a multiple of 4
 #pragma unroll
     for (int c = 0; c < kDC; c += 4)
       if (c < n)
-        *reinterpret_cast<float4*>(o + c) =
-            make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+        store4(o + c, make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]));
   }
 }
 
@@ -170,10 +176,10 @@ constexpr int kWIW = kWW + 2 * kR;
 // grid (chunks, ceil(Cin / kWC)), block (kWC, 7). Block `chunk` walks tiles
 // [chunk * tiles_per_chunk, ...) of the (B, ceil(H / kWH), ceil(W / kWW))
 // tile grid and writes part[chunk] as (49, Cin, CO).
-template <int CO>
+template <typename T, int CO>
 __global__ void __launch_bounds__(kWC * 7)
-    conv7_wgrad_kernel(const float* __restrict__ x,
-                       const float* __restrict__ dy, float* __restrict__ part,
+    conv7_wgrad_kernel(const T* __restrict__ x,
+                       const T* __restrict__ dy, float* __restrict__ part,
                        int B, int H, int W, int Cin, int reflect,
                        int tiles_per_chunk) {
   __shared__ float xs[kWIH][kWIW][kWC];
@@ -200,7 +206,7 @@ __global__ void __launch_bounds__(kWC * 7)
     const int rem = t - b * tiles_y * tiles_x;
     const int py0 = (rem / tiles_x) * kWH;
     const int px0 = (rem % tiles_x) * kWW;
-    const float* xb = x + (size_t)b * H * W * Cin;
+    const T* xb = x + (size_t)b * H * W * Cin;
     __syncthreads();  // the previous tile's reads are done
     for (int q = tid; q < kWIH * kWIW * kWC; q += nthreads) {
       const int c = q % kWC;
@@ -215,7 +221,7 @@ __global__ void __launch_bounds__(kWC * 7)
       // past the far edge of a ragged tile even a mirrored index can fall
       // outside; those cells meet only dy = 0
       if (c0 + c < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = xb[((size_t)gy * W + gx) * Cin + c0 + c];
+        v = to_f32(xb[((size_t)gy * W + gx) * Cin + c0 + c]);
       xs[r][col][c] = v;
     }
     for (int q = tid; q < kWH * kWW; q += nthreads) {
@@ -254,76 +260,101 @@ __global__ void __launch_bounds__(kWC * 7)
   }
 }
 
-// dw[e] = sum over chunks, in order, of part[chunk][e].
+// dw[e] = sum over chunks, in order, of part[chunk][e], rounded once to T.
+template <typename T>
 __global__ void conv7_wgrad_reduce_kernel(const float* __restrict__ part,
-                                          float* __restrict__ dw, int n,
+                                          T* __restrict__ dw, int n,
                                           int chunks) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   float s = 0.f;
   for (int k = 0; k < chunks; ++k) s += part[(size_t)k * n + e];
-  dw[e] = s;
+  dw[e] = from_f32<T>(s);
 }
 
-template <int CO>
-cudaError_t dgrad(const float* dy, const float* w, float* dx, int B, int H,
+template <typename T, int CO>
+cudaError_t dgrad(const void* dy, const void* w, void* dx, int B, int H,
                   int W, int Cin, int reflect, cudaStream_t stream) {
   const int groups = (Cin + kDC - 1) / kDC;
   const dim3 grid((W + kDW - 1) / kDW, (H + kDH - 1) / kDH, B * groups);
-  conv7_dgrad_kernel<CO><<<grid, dim3(kDW, kDH), 0, stream>>>(dy, w, dx, H, W,
-                                                              Cin, reflect);
+  conv7_dgrad_kernel<T, CO><<<grid, dim3(kDW, kDH), 0, stream>>>(
+      static_cast<const T*>(dy), static_cast<const T*>(w),
+      static_cast<T*>(dx), H, W, Cin, reflect);
   return cudaGetLastError();
 }
 
-template <int CO>
-cudaError_t wgrad(const float* x, const float* dy, float* part, float* dw,
+template <typename T, int CO>
+cudaError_t wgrad(const void* x, const void* dy, float* part, void* dw,
                   int B, int H, int W, int Cin, int reflect, int chunks,
                   int tiles_per_chunk, cudaStream_t stream) {
   const dim3 grid(chunks, (Cin + kWC - 1) / kWC);
-  conv7_wgrad_kernel<CO><<<grid, dim3(kWC, 7), 0, stream>>>(
-      x, dy, part, B, H, W, Cin, reflect, tiles_per_chunk);
+  conv7_wgrad_kernel<T, CO><<<grid, dim3(kWC, 7), 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), part, B, H, W, Cin,
+      reflect, tiles_per_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = 49 * Cin * CO;
-  conv7_wgrad_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(part, dw, n,
-                                                                 chunks);
+  conv7_wgrad_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
+      part, static_cast<T*>(dw), n, chunks);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dgrad_co(const void* dy, const void* w, void* dx, int B, int H,
+                     int W, int Cin, int Cout, int reflect,
+                     cudaStream_t stream) {
+  switch (Cout) {
+    case 1: return dgrad<T, 1>(dy, w, dx, B, H, W, Cin, reflect, stream);
+    case 2: return dgrad<T, 2>(dy, w, dx, B, H, W, Cin, reflect, stream);
+    case 3: return dgrad<T, 3>(dy, w, dx, B, H, W, Cin, reflect, stream);
+    case 4: return dgrad<T, 4>(dy, w, dx, B, H, W, Cin, reflect, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t wgrad_co(const void* x, const void* dy, float* part, void* dw,
+                     int B, int H, int W, int Cin, int Cout, int reflect,
+                     int chunks, int tiles_per_chunk, cudaStream_t stream) {
+  switch (Cout) {
+    case 1: return wgrad<T, 1>(x, dy, part, dw, B, H, W, Cin, reflect, chunks,
+                               tiles_per_chunk, stream);
+    case 2: return wgrad<T, 2>(x, dy, part, dw, B, H, W, Cin, reflect, chunks,
+                               tiles_per_chunk, stream);
+    case 3: return wgrad<T, 3>(x, dy, part, dw, B, H, W, Cin, reflect, chunks,
+                               tiles_per_chunk, stream);
+    case 4: return wgrad<T, 4>(x, dy, part, dw, B, H, W, Cin, reflect, chunks,
+                               tiles_per_chunk, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dy: (B, H, W, Cout) fp32, w: HWIO (7, 7, Cin, Cout), dx: (B, H, W, Cin);
-// 1 <= Cout <= 4, Cin % 4 == 0, reflect needs H, W >= 4.
-extern "C" cudaError_t uig_conv7_dgrad(const float* dy, const float* w,
-                                       float* dx, int B, int H, int W,
+// dy: (B, H, W, Cout), w: HWIO (7, 7, Cin, Cout), dx: (B, H, W, Cin); all
+// fp32, or all bf16 when is_bf16. 1 <= Cout <= 4, Cin % 4 == 0, reflect
+// needs H, W >= 4.
+extern "C" cudaError_t uig_conv7_dgrad(const void* dy, const void* w,
+                                       void* dx, int B, int H, int W,
                                        int Cin, int Cout, int reflect,
-                                       cudaStream_t stream) {
-  switch (Cout) {
-    case 1: return dgrad<1>(dy, w, dx, B, H, W, Cin, reflect, stream);
-    case 2: return dgrad<2>(dy, w, dx, B, H, W, Cin, reflect, stream);
-    case 3: return dgrad<3>(dy, w, dx, B, H, W, Cin, reflect, stream);
-    case 4: return dgrad<4>(dy, w, dx, B, H, W, Cin, reflect, stream);
-    default: return cudaErrorInvalidValue;
-  }
+                                       int is_bf16, cudaStream_t stream) {
+  return is_bf16 ? dgrad_co<bf16>(dy, w, dx, B, H, W, Cin, Cout, reflect,
+                                  stream)
+                 : dgrad_co<float>(dy, w, dx, B, H, W, Cin, Cout, reflect,
+                                   stream);
 }
 
-// x: (B, H, W, Cin) fp32, dy: (B, H, W, Cout), dw: (7, 7, Cin, Cout);
-// part: (chunks, 49, Cin, Cout) scratch, chunks * tiles_per_chunk >= the
-// number of 8 x 16 tiles, B * ceil(H / 8) * ceil(W / 16).
-extern "C" cudaError_t uig_conv7_wgrad(const float* x, const float* dy,
-                                       float* part, float* dw, int B, int H,
+// x: (B, H, W, Cin), dy: (B, H, W, Cout), dw: (7, 7, Cin, Cout); all fp32,
+// or all bf16 when is_bf16. part: (chunks, 49, Cin, Cout) fp32 scratch,
+// chunks * tiles_per_chunk >= the number of 8 x 16 tiles,
+// B * ceil(H / 8) * ceil(W / 16).
+extern "C" cudaError_t uig_conv7_wgrad(const void* x, const void* dy,
+                                       float* part, void* dw, int B, int H,
                                        int W, int Cin, int Cout, int reflect,
                                        int chunks, int tiles_per_chunk,
-                                       cudaStream_t stream) {
-  switch (Cout) {
-    case 1: return wgrad<1>(x, dy, part, dw, B, H, W, Cin, reflect, chunks,
-                            tiles_per_chunk, stream);
-    case 2: return wgrad<2>(x, dy, part, dw, B, H, W, Cin, reflect, chunks,
-                            tiles_per_chunk, stream);
-    case 3: return wgrad<3>(x, dy, part, dw, B, H, W, Cin, reflect, chunks,
-                            tiles_per_chunk, stream);
-    case 4: return wgrad<4>(x, dy, part, dw, B, H, W, Cin, reflect, chunks,
-                            tiles_per_chunk, stream);
-    default: return cudaErrorInvalidValue;
-  }
+                                       int is_bf16, cudaStream_t stream) {
+  return is_bf16 ? wgrad_co<bf16>(x, dy, part, dw, B, H, W, Cin, Cout,
+                                  reflect, chunks, tiles_per_chunk, stream)
+                 : wgrad_co<float>(x, dy, part, dw, B, H, W, Cin, Cout,
+                                   reflect, chunks, tiles_per_chunk, stream);
 }

@@ -5,20 +5,26 @@
 // pass over x) and by conv3_in.cu (moments from the conv epilogue). All write
 // their partial sums as a (2, B, chunks, C) fp32 buffer: plane 0 holds
 // sum(x), plane 1 sum(x^2).
+// Activations are T (float or bf16, dtype.cuh); moments, scale, shift and
+// every sum are fp32, computed from the stored T values, as the JAX
+// InstanceNorm takes fp32 statistics of its bf16 input.
 // No float atomics anywhere: every sum runs in one fixed order, so two runs
 // on the same inputs give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 constexpr int kCT = 32;    // channels per block (threadIdx.x)
 constexpr int kRows = 8;   // pixel lanes per block (threadIdx.y)
 
 // Per-chunk channel moments of x: blocks over (HW chunk, 32-channel tile, b)
 // sum x and x^2 in fp32 and write one (2, B, chunks, C) partial each. A
-// warp reads 32 neighbouring channels of one pixel (128 coalesced bytes).
+// warp reads 32 neighbouring channels of one pixel (coalesced).
+template <typename T>
 static __global__ void __launch_bounds__(kCT * kRows)
-    in_partials_kernel(const float* __restrict__ x, float* __restrict__ part,
+    in_partials_kernel(const T* __restrict__ x, float* __restrict__ part,
                        int B, int HW, int C, int chunks, int rows_per_chunk) {
   const int c = blockIdx.y * kCT + threadIdx.x;
   const int b = blockIdx.z;
@@ -27,9 +33,9 @@ static __global__ void __launch_bounds__(kCT * kRows)
   const int p1 = min(p0 + rows_per_chunk, HW);
   float s1 = 0.f, s2 = 0.f;
   if (c < C) {
-    const float* xb = x + (size_t)b * HW * C + c;
+    const T* xb = x + (size_t)b * HW * C + c;
     for (int p = p0 + threadIdx.y; p < p1; p += kRows) {
-      const float v = xb[(size_t)p * C];
+      const float v = to_f32(xb[(size_t)p * C]);
       s1 += v;
       s2 += v * v;
     }
@@ -84,23 +90,25 @@ static __global__ void in_finalize_kernel(const float* __restrict__ part,
   shift[i] = beta[c] - m * sc;
 }
 
-// y = x * scale[b, c] + shift[b, c] (+ReLU), float4 along C (C % 4 == 0).
-// grid (x: blocks over one image's H*W*C/4 vectors, y: batch index b).
-static __global__ void in_apply_kernel(const float4* __restrict__ x,
+// y = x * scale[b, c] + shift[b, c] (+ReLU), four channels at a time
+// (C % 4 == 0), rounded once to T. grid (x: blocks over one image's
+// H*W*C/4 groups, y: batch index b).
+template <typename T>
+static __global__ void in_apply_kernel(const T* __restrict__ x,
                                        const float* __restrict__ scale,
                                        const float* __restrict__ shift,
-                                       float4* __restrict__ y, int hwc4,
-                                       int C, int relu) {
+                                       T* __restrict__ y, int hwc4, int C,
+                                       int relu) {
   const int b = blockIdx.y;
   const int c4n = C >> 2;
-  const float4* xb = x + (size_t)b * hwc4;
-  float4* yb = y + (size_t)b * hwc4;
+  const T* xb = x + (size_t)b * hwc4 * 4;
+  T* yb = y + (size_t)b * hwc4 * 4;
   const float* sc = scale + (size_t)b * C;
   const float* sh = shift + (size_t)b * C;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < hwc4;
        i += gridDim.x * blockDim.x) {
     const int c = (i % c4n) * 4;
-    float4 v = xb[i];
+    float4 v = load4(xb + (size_t)i * 4);
     v.x = v.x * sc[c + 0] + sh[c + 0];
     v.y = v.y * sc[c + 1] + sh[c + 1];
     v.z = v.z * sc[c + 2] + sh[c + 2];
@@ -111,16 +119,17 @@ static __global__ void in_apply_kernel(const float4* __restrict__ x,
       v.z = fmaxf(v.z, 0.f);
       v.w = fmaxf(v.w, 0.f);
     }
-    yb[i] = v;
+    store4(yb + (size_t)i * 4, v);
   }
 }
 
 // Finalize the moments in `part` into `ss` (plane 0 scale, plane 1 shift,
 // each (B, C)) and apply them to x -> y. Returns the first launch error.
+template <typename T>
 static cudaError_t in_finalize_apply(const float* part, const float* gamma,
-                                     const float* beta, float* ss,
-                                     const float* x, float* y, int B, int HW,
-                                     int C, int chunks, float eps, int relu,
+                                     const float* beta, float* ss, const T* x,
+                                     T* y, int B, int HW, int C, int chunks,
+                                     float eps, int relu,
                                      cudaStream_t stream) {
   float* scale = ss;
   float* shift = ss + (size_t)B * C;
@@ -132,8 +141,7 @@ static cudaError_t in_finalize_apply(const float* part, const float* gamma,
   const int hwc4 = HW * (C / 4);
   int gx = (hwc4 + 255) / 256;
   if (gx > 1024) gx = 1024;
-  in_apply_kernel<<<dim3(gx, B), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(x), scale, shift,
-      reinterpret_cast<float4*>(y), hwc4, C, relu);
+  in_apply_kernel<T><<<dim3(gx, B), 256, 0, stream>>>(x, scale, shift, y,
+                                                      hwc4, C, relu);
   return cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Instance norm backward over NHWC fp32, with the optional fused ReLU:
+// Instance norm backward over NHWC fp32 or bf16, with the optional fused
+// ReLU:
 // given x, gamma, beta and dy, write
 //   dx = r * (gamma * dy' - mean(gamma * dy') - xhat * mean(gamma * dy' * xhat))
 //   dgamma = sum over (b, h, w) of dy' * xhat,  dbeta = sum of dy'
@@ -7,11 +8,13 @@
 //
 // Replaces: src/uig/kernels/norm_pallas.py, _bwd_impl -> _in_bwd_kernel (the
 // TPU kernel keeps one example's plane and its gradient in VMEM and
-// accumulates dgamma/dbeta across the sequential batch grid).
+// accumulates dgamma/dbeta across the sequential batch grid). In bf16, x, dy
+// and dx are bf16 and every statistic, sum, dgamma and dbeta fp32, as there.
 //
 // Bound on this card: bytes. It must read x and dy once and write dx once:
 // at (16, 256, 256, 64) fp32 that is 3 x 268 MB, ~0.24 ms at the H100 SXM
-// data-sheet 3.35 TB/s (700 W); a few operations per byte.
+// data-sheet 3.35 TB/s (700 W), half that in bf16; a few operations per
+// byte.
 //
 // Design: a plane does not fit a block, and blocks run in no order, so the
 // batch-sequential accumulation becomes fixed-order passes with no atomics:
@@ -22,7 +25,7 @@
 //   4. one thread per (b, c) reduces those in chunk order;
 //   5. one thread per c sums the per-example results over b in order into
 //      dgamma and dbeta;
-//   6. a float4 elementwise pass writes dx.
+//   6. a 4-wide elementwise pass writes dx, rounded once to its type.
 // x is read three times and dy twice; the repeats partly hit the 50 MB L2.
 // Repeat runs give the same bits.
 #include <cuda_runtime.h>
@@ -63,9 +66,10 @@ __device__ __forceinline__ float masked_dy(float dy, float xh, float g,
 
 // grid (chunks, ceil(C / kCT), B), block (kCT, kRows): per-chunk sums of dy'
 // and dy' * xhat into part (2, B, chunks, C).
+template <typename T>
 __global__ void __launch_bounds__(kCT * kRows)
-    in_bwd_partials_kernel(const float* __restrict__ x,
-                           const float* __restrict__ dy,
+    in_bwd_partials_kernel(const T* __restrict__ x,
+                           const T* __restrict__ dy,
                            const float* __restrict__ gamma,
                            const float* __restrict__ beta,
                            const float* __restrict__ ws,
@@ -85,8 +89,8 @@ __global__ void __launch_bounds__(kCT * kRows)
     const size_t base = (size_t)b * HW * C + c;
     for (int p = p0 + threadIdx.y; p < p1; p += kRows) {
       const size_t o = base + (size_t)p * C;
-      const float xh = (x[o] - m) * r;
-      const float d = masked_dy(dy[o], xh, g, be, relu);
+      const float xh = (to_f32(x[o]) - m) * r;
+      const float d = masked_dy(to_f32(dy[o]), xh, g, be, relu);
       sa += d;
       sb += d * xh;
     }
@@ -147,13 +151,14 @@ __global__ void in_bwd_params_kernel(const float* __restrict__ ws,
   dbeta[c] = sa;
 }
 
-// grid (x: blocks over one image's H*W*C/4 vectors, y: b).
-__global__ void in_bwd_apply_kernel(const float4* __restrict__ x,
-                                    const float4* __restrict__ dy,
+// grid (x: blocks over one image's H*W*C/4 groups, y: b).
+template <typename T>
+__global__ void in_bwd_apply_kernel(const T* __restrict__ x,
+                                    const T* __restrict__ dy,
                                     const float* __restrict__ gamma,
                                     const float* __restrict__ beta,
                                     const float* __restrict__ ws,
-                                    float4* __restrict__ dx, int B, int hwc4,
+                                    T* __restrict__ dx, int B, int hwc4,
                                     int C, int relu) {
   const int b = blockIdx.y;
   const int c4n = C >> 2;
@@ -162,14 +167,14 @@ __global__ void in_bwd_apply_kernel(const float4* __restrict__ x,
   const float* rstd = ws + kRstd * bc + (size_t)b * C;
   const float* k1 = ws + kK1 * bc + (size_t)b * C;
   const float* k2 = ws + kK2 * bc + (size_t)b * C;
-  const float4* xb = x + (size_t)b * hwc4;
-  const float4* db = dy + (size_t)b * hwc4;
-  float4* ob = dx + (size_t)b * hwc4;
+  const T* xb = x + (size_t)b * hwc4 * 4;
+  const T* db = dy + (size_t)b * hwc4 * 4;
+  T* ob = dx + (size_t)b * hwc4 * 4;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < hwc4;
        i += gridDim.x * blockDim.x) {
     const int c = (i % c4n) * 4;
-    const float4 xv = xb[i];
-    const float4 dv = db[i];
+    const float4 xv = load4(xb + (size_t)i * 4);
+    const float4 dv = load4(db + (size_t)i * 4);
     const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
     const float ds[4] = {dv.x, dv.y, dv.z, dv.w};
     float out[4];
@@ -182,32 +187,27 @@ __global__ void in_bwd_apply_kernel(const float4* __restrict__ x,
       const float d = masked_dy(ds[q], xh, g, beta[cc], relu);
       out[q] = r * (g * d - k1[cc] - xh * k2[cc]);
     }
-    ob[i] = make_float4(out[0], out[1], out[2], out[3]);
+    store4(ob + (size_t)i * 4, make_float4(out[0], out[1], out[2], out[3]));
   }
 }
 
-}  // namespace
-
-// x, dy, dx: (B, HW, C) fp32, C % 4 == 0. gamma, beta, dgamma, dbeta: (C,).
-// part: (2, B, chunks, C) scratch; ws: (6, B, C) scratch.
-// chunks * rows_per_chunk >= HW.
-extern "C" cudaError_t uig_instance_norm_bwd(
-    const float* x, const float* gamma, const float* beta, const float* dy,
-    float* dx, float* dgamma, float* dbeta, float* part, float* ws, int B,
-    int HW, int C, int chunks, int rows_per_chunk, float eps, int relu,
-    cudaStream_t stream) {
+template <typename T>
+cudaError_t bwd(const T* x, const float* gamma, const float* beta, const T* dy,
+                T* dx, float* dgamma, float* dbeta, float* part, float* ws,
+                int B, int HW, int C, int chunks, int rows_per_chunk,
+                float eps, int relu, cudaStream_t stream) {
   const dim3 grid(chunks, (C + kCT - 1) / kCT, B);
   const dim3 block(kCT, kRows);
   const int bc = B * C;
   const float n = (float)HW;
-  in_partials_kernel<<<grid, block, 0, stream>>>(x, part, B, HW, C, chunks,
-                                                 rows_per_chunk);
+  in_partials_kernel<T><<<grid, block, 0, stream>>>(x, part, B, HW, C, chunks,
+                                                    rows_per_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   in_bwd_stats_kernel<<<(bc + 255) / 256, 256, 0, stream>>>(part, ws, B, C,
                                                             chunks, n, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  in_bwd_partials_kernel<<<grid, block, 0, stream>>>(
+  in_bwd_partials_kernel<T><<<grid, block, 0, stream>>>(
       x, dy, gamma, beta, ws, part, B, HW, C, chunks, rows_per_chunk, relu);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   in_bwd_reduce_kernel<<<(bc + 255) / 256, 256, 0, stream>>>(part, gamma, ws,
@@ -219,8 +219,28 @@ extern "C" cudaError_t uig_instance_norm_bwd(
   const int hwc4 = HW * (C / 4);
   int gx = (hwc4 + 255) / 256;
   if (gx > 1024) gx = 1024;
-  in_bwd_apply_kernel<<<dim3(gx, B), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(dy),
-      gamma, beta, ws, reinterpret_cast<float4*>(dx), B, hwc4, C, relu);
+  in_bwd_apply_kernel<T><<<dim3(gx, B), 256, 0, stream>>>(
+      x, dy, gamma, beta, ws, dx, B, hwc4, C, relu);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, dy, dx: (B, HW, C) fp32, or bf16 when is_bf16; C % 4 == 0. gamma,
+// beta, dgamma, dbeta: (C,) fp32. part: (2, B, chunks, C) fp32 scratch;
+// ws: (6, B, C) fp32 scratch. chunks * rows_per_chunk >= HW.
+extern "C" cudaError_t uig_instance_norm_bwd(
+    const void* x, const float* gamma, const float* beta, const void* dy,
+    void* dx, float* dgamma, float* dbeta, float* part, float* ws, int B,
+    int HW, int C, int chunks, int rows_per_chunk, float eps, int relu,
+    int is_bf16, cudaStream_t stream) {
+  if (is_bf16)
+    return bwd<bf16>(static_cast<const bf16*>(x), gamma, beta,
+                     static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
+                     dgamma, dbeta, part, ws, B, HW, C, chunks,
+                     rows_per_chunk, eps, relu, stream);
+  return bwd<float>(static_cast<const float*>(x), gamma, beta,
+                    static_cast<const float*>(dy), static_cast<float*>(dx),
+                    dgamma, dbeta, part, ws, B, HW, C, chunks, rows_per_chunk,
+                    eps, relu, stream);
 }

@@ -33,18 +33,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures: every entry point ends with the stream and returns cudaError_t.
+# C signatures: every entry point ends with the stream and returns
+# cudaError_t; the int before the stream is is_bf16 (the storage type).
 SIGNATURES = {
     "uig_instance_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                              _I, _P],
+                              _I, _I, _P],
     "uig_conv3_in_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _F, _P],
-    "uig_conv7_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "uig_augment": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _F, _I, _P],
+    "uig_conv7_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "uig_augment": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "uig_instance_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _F, _I, _P],
-    "uig_conv7_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "uig_conv7_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _F, _I, _I, _P],
+    "uig_conv7_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "uig_conv7_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
+    "uig_conv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "uig_conv_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "uig_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _P],
     "uig_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "uig_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _F, _P],
@@ -135,12 +141,14 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` on the current CUDA stream. Tensors pass
-    as device pointers; the caller has checked their device, type, shape
-    and contiguity."""
+    as device pointers and None as a null pointer; the caller has checked
+    their device, type, shape and contiguity."""
     lib = library()
     conv = []
     for a in args:
-        if isinstance(a, torch.Tensor):
+        if a is None:
+            conv.append(ctypes.c_void_p(None))
+        elif isinstance(a, torch.Tensor):
             conv.append(ctypes.c_void_p(a.data_ptr()))
         elif isinstance(a, bool):
             conv.append(ctypes.c_int(int(a)))

@@ -6,7 +6,9 @@ in plain PyTorch: the JAX package runs it in XLA, not Pallas.
 
 The training half, ``augment_batch``, is the random crop + flip + normalize
 of ``augment_batch_pallas`` (``kernels/augment_pallas.py``): the CUDA kernel
-in ``csrc/augment.cu`` with its plain PyTorch version. The offsets and flips
+in ``csrc/augment.cu`` with its plain PyTorch version, writing fp32 or bf16
+(the compute dtype: ``x * 2/255 - 1`` in fp32, rounded once, as JAX's
+``out_dtype``). The offsets and flips
 are given, not drawn inside the kernel; ``draw_augment`` draws them from a
 ``torch.Generator`` with the JAX function's ranges.
 """
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from uig_torch.kernels import _build
-from uig_torch.kernels._check import on_cpu
+from uig_torch.kernels._check import FLOAT_TYPES, on_cpu
 
 
 def _normalize(x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
@@ -52,8 +54,8 @@ def draw_augment(gen: torch.Generator, batch: int, height: int, width: int,
 
 
 def augment_batch_reference(images: torch.Tensor, oy: torch.Tensor,
-                            ox: torch.Tensor, flip: torch.Tensor,
-                            crop: int) -> torch.Tensor:
+                            ox: torch.Tensor, flip: torch.Tensor, crop: int,
+                            out_dtype=torch.float32) -> torch.Tensor:
     b = images.shape[0]
     ar = torch.arange(crop, device=images.device)
     rows = oy.to(images.device).long()[:, None] + ar            # (B, crop)
@@ -61,20 +63,25 @@ def augment_batch_reference(images: torch.Tensor, oy: torch.Tensor,
     cols = ox.to(images.device).long()[:, None] + j             # (B, crop)
     bidx = torch.arange(b, device=images.device)[:, None, None]
     patch = images[bidx, rows[:, :, None], cols[:, None, :]]    # (B, c, c, C)
-    return _normalize(patch)
+    return _normalize(patch, out_dtype)
 
 
 def augment_batch(images: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
-                  flip: torch.Tensor, crop: int) -> torch.Tensor:
-    """uint8 (B, H, W, C) -> fp32 (B, crop, crop, C) in [-1, 1]: example
-    ``b`` is the crop at rows ``oy[b]:``, columns ``ox[b]:``, mirrored left
-    to right where ``flip[b]``, then ``x * 2/255 - 1``."""
+                  flip: torch.Tensor, crop: int,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """uint8 (B, H, W, C) -> ``out_dtype`` (fp32 or bf16) (B, crop, crop,
+    C) in [-1, 1]: example ``b`` is the crop at rows ``oy[b]:``, columns
+    ``ox[b]:``, mirrored left to right where ``flip[b]``, then
+    ``x * 2/255 - 1``."""
     if images.dim() != 4 or images.dtype != torch.uint8:
         raise ValueError(f"augment_batch: images must be uint8 (B, H, W, C), "
                          f"got {images.dtype} {tuple(images.shape)}")
     b, h, w, c = images.shape
     if h < crop or w < crop:
         raise ValueError(f"augment_batch: crop {crop} exceeds input {h}x{w}")
+    if out_dtype not in FLOAT_TYPES:
+        raise TypeError(f"augment_batch: out_dtype must be float32 or "
+                        f"bfloat16, got {out_dtype}")
     for name, t in (("oy", oy), ("ox", ox), ("flip", flip)):
         if tuple(t.shape) != (b,):
             raise ValueError(f"augment_batch: {name} must have shape ({b},)")
@@ -83,15 +90,15 @@ def augment_batch(images: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
              | (ox_h > w - crop)).any()):
         raise ValueError("augment_batch: crop offset out of range")
     if on_cpu("augment_batch", images):
-        return augment_batch_reference(images, oy, ox, flip, crop)
+        return augment_batch_reference(images, oy, ox, flip, crop, out_dtype)
     if not images.is_contiguous():
         raise ValueError("augment_batch: images must be contiguous (NHWC)")
     meta = torch.stack([oy_h.to(torch.int32), ox_h.to(torch.int32),
                         flip.cpu().to(torch.int32)], 1).to(images.device)
-    y = torch.empty((b, crop, crop, c), device=images.device,
-                    dtype=torch.float32)
+    y = torch.empty((b, crop, crop, c), device=images.device, dtype=out_dtype)
     with torch.cuda.device(images.device):
-        _build.launch("uig_augment", images, meta, y, b, h, w, c, crop)
+        _build.launch("uig_augment", images, meta, y, b, h, w, c, crop,
+                      out_dtype == torch.bfloat16)
     augment_batch.launches += 1
     return y
 

@@ -7,7 +7,10 @@ Replaces the JAX package's ``kernels/conv_pallas.py`` ``conv7_s2d`` (through
 ``conv_core5`` -> ``_conv5_impl`` -> ``_conv5_kernel``; the backward's
 ``_conv5_impl`` with ``fold=True`` and ``_wgrad5_impl``). Same linear map;
 the TPU's space-to-depth view is a lane trick and is not carried over. x is
-NHWC, w is HWIO (7, 7, Cin, Cout) with Cout <= 4.
+NHWC, w is HWIO (7, 7, Cin, Cout) with Cout <= 4. x, w, the bias and dy are
+fp32 or all bf16 (the bias already rounded to bf16, as JAX's PadConv casts
+it); every sum is fp32 and each output is rounded once to that type. The
+plain versions compute in fp32 from the widened inputs and round once.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from uig_torch.kernels import _build
-from uig_torch.kernels._check import cuda_operand, on_cpu
+from uig_torch.kernels._check import cuda_operand, on_cpu, storage_type
 from uig_torch.kernels.reflect import reflect_fold
 
 MAX_COUT = 4
@@ -24,18 +27,23 @@ _WGRAD_BLOCKS = 528  # wgrad blocks in flight: 4 per SM on 132 SMs
 _WTILE = (8, 16)     # wgrad pixel tile (csrc/conv7_bwd.cu kWH, kWW)
 
 
+def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
+    return None if t is None else t.to(torch.float32)
+
+
 def conv7_reference(x: torch.Tensor, w: torch.Tensor,
                     bias: torch.Tensor | None,
                     pad_mode: str = "reflect") -> torch.Tensor:
-    xn = x.permute(0, 3, 1, 2)
-    wt = w.permute(3, 2, 0, 1)
+    xn = _f32(x).permute(0, 3, 1, 2)
+    wt = _f32(w).permute(3, 2, 0, 1)
+    bias = _f32(bias)
     if pad_mode == "reflect":
         y = F.conv2d(F.pad(xn, (3, 3, 3, 3), mode="reflect"), wt, bias)
     elif pad_mode == "zeros":
         y = F.conv2d(xn, wt, bias, padding=3)
     else:
         raise ValueError(f"unsupported pad_mode {pad_mode!r}")
-    return y.permute(0, 2, 3, 1).contiguous()
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
 def _check_pad_mode(pad_mode: str) -> None:
@@ -53,24 +61,25 @@ def _check_card(name: str, h: int, wd: int, cout: int, pad_mode: str) -> None:
 def conv7(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
           pad_mode: str = "reflect") -> torch.Tensor:
     """pad-3 7x7 stride-1 conv + bias. x: (B, H, W, Cin); w: (7, 7, Cin,
-    Cout), Cout <= 4. Output (B, H, W, Cout)."""
+    Cout), Cout <= 4; bias (Cout,) or None; one type, fp32 or bf16. Output
+    (B, H, W, Cout) in that type."""
     if x.dim() != 4 or tuple(w.shape[:2]) != (7, 7) or w.shape[2] != x.shape[3]:
         raise ValueError(f"conv7: bad shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
     cout = w.shape[3]
     if bias is None:
-        bias = torch.zeros((cout,), device=x.device, dtype=torch.float32)
+        bias = torch.zeros((cout,), device=x.device, dtype=x.dtype)
     if on_cpu("conv7", x, w, bias):
         return conv7_reference(x, w, bias, pad_mode)
     _check_pad_mode(pad_mode)
     nb, h, wd, cin = x.shape
     _check_card("conv7", h, wd, cout, pad_mode)
-    cuda_operand("conv7", "x", x)
-    cuda_operand("conv7", "w", w)
-    cuda_operand("conv7", "bias", bias, (cout,))
-    y = torch.empty((nb, h, wd, cout), device=x.device, dtype=torch.float32)
+    t = storage_type("conv7", "x", x)
+    cuda_operand("conv7", "w", w, dtypes=(t,))
+    cuda_operand("conv7", "bias", bias, (cout,), dtypes=(t,))
+    y = torch.empty((nb, h, wd, cout), device=x.device, dtype=t)
     with torch.cuda.device(x.device):
         _build.launch("uig_conv7_fwd", x, w, bias, y, nb, h, wd, cin, cout,
-                      pad_mode == "reflect")
+                      pad_mode == "reflect", t == torch.bfloat16)
     conv7.launches += 1
     return y
 
@@ -82,20 +91,23 @@ def conv7_dgrad_reference(dy: torch.Tensor, w: torch.Tensor,
                           pad_mode: str = "reflect") -> torch.Tensor:
     nb, h, wd, _ = dy.shape
     cin = w.shape[2]
-    wt = w.permute(3, 2, 0, 1)
-    dyn = dy.permute(0, 3, 1, 2)
+    wt = _f32(w).permute(3, 2, 0, 1)
+    dyn = _f32(dy).permute(0, 3, 1, 2)
     if pad_mode == "reflect":
         dxp = torch.nn.grad.conv2d_input((nb, cin, h + 6, wd + 6), wt, dyn)
-        return reflect_fold(dxp.permute(0, 2, 3, 1), 3).contiguous()
-    _check_pad_mode(pad_mode)
-    dx = torch.nn.grad.conv2d_input((nb, cin, h, wd), wt, dyn, padding=3)
-    return dx.permute(0, 2, 3, 1).contiguous()
+        dx = reflect_fold(dxp.permute(0, 2, 3, 1), 3)
+    else:
+        _check_pad_mode(pad_mode)
+        dx = torch.nn.grad.conv2d_input((nb, cin, h, wd), wt, dyn,
+                                        padding=3).permute(0, 2, 3, 1)
+    return dx.to(dy.dtype).contiguous()
 
 
 def conv7_dgrad(dy: torch.Tensor, w: torch.Tensor,
                 pad_mode: str = "reflect") -> torch.Tensor:
     """Input gradient of ``conv7``: dy (B, H, W, Cout), w (7, 7, Cin, Cout)
-    -> dx (B, H, W, Cin), the reflect ring folded onto its sources."""
+    -> dx (B, H, W, Cin), the reflect ring folded onto its sources (in
+    fp32, rounded once)."""
     if dy.dim() != 4 or tuple(w.shape[:2]) != (7, 7) or w.shape[3] != dy.shape[3]:
         raise ValueError(f"conv7_dgrad: bad shapes dy {tuple(dy.shape)}, "
                          f"w {tuple(w.shape)}")
@@ -107,12 +119,12 @@ def conv7_dgrad(dy: torch.Tensor, w: torch.Tensor,
     _check_card("conv7_dgrad", h, wd, cout, pad_mode)
     if cin % 4:
         raise ValueError(f"conv7_dgrad: Cin={cin} must be a multiple of 4")
-    cuda_operand("conv7_dgrad", "dy", dy)
-    cuda_operand("conv7_dgrad", "w", w)
-    dx = torch.empty((nb, h, wd, cin), device=dy.device, dtype=torch.float32)
+    t = storage_type("conv7_dgrad", "dy", dy)
+    cuda_operand("conv7_dgrad", "w", w, dtypes=(t,))
+    dx = torch.empty((nb, h, wd, cin), device=dy.device, dtype=t)
     with torch.cuda.device(dy.device):
         _build.launch("uig_conv7_dgrad", dy, w, dx, nb, h, wd, cin, cout,
-                      pad_mode == "reflect")
+                      pad_mode == "reflect", t == torch.bfloat16)
     conv7_dgrad.launches += 1
     return dx
 
@@ -122,8 +134,8 @@ conv7_dgrad.launches = 0
 
 def conv7_wgrad_reference(x: torch.Tensor, dy: torch.Tensor,
                           pad_mode: str = "reflect") -> torch.Tensor:
-    xn = x.permute(0, 3, 1, 2)
-    dyn = dy.permute(0, 3, 1, 2)
+    xn = _f32(x).permute(0, 3, 1, 2)
+    dyn = _f32(dy).permute(0, 3, 1, 2)
     shape = (dy.shape[3], x.shape[3], 7, 7)
     if pad_mode == "reflect":
         dw = torch.nn.grad.conv2d_weight(
@@ -131,7 +143,7 @@ def conv7_wgrad_reference(x: torch.Tensor, dy: torch.Tensor,
     else:
         _check_pad_mode(pad_mode)
         dw = torch.nn.grad.conv2d_weight(xn, shape, dyn, padding=3)
-    return dw.permute(2, 3, 1, 0).contiguous()
+    return dw.permute(2, 3, 1, 0).to(x.dtype).contiguous()
 
 
 def _wgrad_chunks(tiles: int, groups: int) -> tuple[int, int]:
@@ -144,7 +156,8 @@ def _wgrad_chunks(tiles: int, groups: int) -> tuple[int, int]:
 def conv7_wgrad(x: torch.Tensor, dy: torch.Tensor,
                 pad_mode: str = "reflect") -> torch.Tensor:
     """Weight gradient of ``conv7``: x (B, H, W, Cin), dy (B, H, W, Cout)
-    -> dw (7, 7, Cin, Cout), against the padded plane the forward read."""
+    -> dw (7, 7, Cin, Cout) in x's type, against the padded plane the
+    forward read (summed in fp32, rounded once)."""
     if x.dim() != 4 or dy.dim() != 4 or x.shape[:3] != dy.shape[:3]:
         raise ValueError(f"conv7_wgrad: bad shapes x {tuple(x.shape)}, "
                          f"dy {tuple(dy.shape)}")
@@ -154,16 +167,16 @@ def conv7_wgrad(x: torch.Tensor, dy: torch.Tensor,
     nb, h, wd, cin = x.shape
     cout = dy.shape[3]
     _check_card("conv7_wgrad", h, wd, cout, pad_mode)
-    cuda_operand("conv7_wgrad", "x", x)
-    cuda_operand("conv7_wgrad", "dy", dy)
+    t = storage_type("conv7_wgrad", "x", x)
+    cuda_operand("conv7_wgrad", "dy", dy, dtypes=(t,))
     tiles = nb * -(-h // _WTILE[0]) * -(-wd // _WTILE[1])
     chunks, per = _wgrad_chunks(tiles, -(-cin // 32))
     part = torch.empty((chunks, 7, 7, cin, cout), device=x.device,
                        dtype=torch.float32)
-    dw = torch.empty((7, 7, cin, cout), device=x.device, dtype=torch.float32)
+    dw = torch.empty((7, 7, cin, cout), device=x.device, dtype=t)
     with torch.cuda.device(x.device):
         _build.launch("uig_conv7_wgrad", x, dy, part, dw, nb, h, wd, cin, cout,
-                      pad_mode == "reflect", chunks, per)
+                      pad_mode == "reflect", chunks, per, t == torch.bfloat16)
     conv7_wgrad.launches += 1
     return dw
 
@@ -176,7 +189,7 @@ class _Conv7(torch.autograd.Function):
     def forward(ctx, x, w, bias, pad_mode):
         ctx.save_for_backward(x, w)
         ctx.pad_mode = pad_mode
-        ctx.has_bias = bias is not None
+        ctx.bias_dtype = None if bias is None else bias.dtype
         return conv7(x, w, bias, pad_mode)
 
     @staticmethod
@@ -186,7 +199,8 @@ class _Conv7(torch.autograd.Function):
         need = ctx.needs_input_grad
         dx = conv7_dgrad(dy, w, ctx.pad_mode) if need[0] else None
         dw = conv7_wgrad(x, dy, ctx.pad_mode) if need[1] else None
-        db = dy.sum(dim=(0, 1, 2)) if ctx.has_bias and need[2] else None
+        db = (dy.to(torch.float32).sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
+              if ctx.bias_dtype is not None and need[2] else None)
         return dx, dw, db, None
 
 

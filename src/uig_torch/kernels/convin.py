@@ -6,7 +6,10 @@ Replaces the JAX package's ``kernels/convin_pallas.py`` forward
 (reflect or zeros) + bias, fp32 channel moments of the conv output, then
 normalize + affine (+ReLU). Same signature as the JAX ``conv3_in_act``;
 x is NHWC and w is HWIO (3, 3, C, F), which the kernel reads as the (9C, F)
-matrix of an implicit GEMM.
+matrix of an implicit GEMM. x and w are fp32 or bf16 (one type); b, g and
+be fp32. In bf16 the conv sums in fp32, ``acc + b`` is rounded once to bf16
+for the conv output, and the moments come from those rounded values, as in
+the Pallas kernel.
 
 The backward is the composition of ``convin_pallas.py``'s ``bwd``, which is
 XLA in JAX and no Pallas kernel: the instance norm backward (K2b,
@@ -14,6 +17,8 @@ XLA in JAX and no Pallas kernel: the instance norm backward (K2b,
 bias gradient is that gradient's sum, and the conv's weight and input
 gradients are library convs (cuDNN on the card) against the padded plane
 the forward read, with the reflect ring folded by ``kernels/reflect.py``.
+In bf16 the norm backward's gradient is rounded to bf16 before them, and
+they run in bf16, as JAX transposes its bf16 conv.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from uig_torch.kernels import _build
-from uig_torch.kernels._check import cuda_operand, on_cpu
+from uig_torch.kernels._check import cuda_operand, on_cpu, storage_type
 from uig_torch.kernels.norm import instance_norm_bwd, instance_norm_reference
 from uig_torch.kernels.reflect import reflect_fold
 
@@ -36,14 +41,16 @@ def _check_pad_mode(pad_mode: str) -> None:
 
 def conv3_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     pad_mode: str) -> torch.Tensor:
-    """The conv half alone: NHWC x, HWIO w, pad 1, stride 1, + bias."""
-    xn = x.permute(0, 3, 1, 2)
-    wt = w.permute(3, 2, 0, 1)
+    """The conv half alone: NHWC x, HWIO w, pad 1, stride 1, + bias, in
+    fp32 from the widened inputs, rounded once to x's type."""
+    xn = x.to(torch.float32).permute(0, 3, 1, 2)
+    wt = w.to(torch.float32).permute(3, 2, 0, 1)
+    b = b.to(torch.float32)
     if pad_mode == "reflect":
         y = F.conv2d(F.pad(xn, (1, 1, 1, 1), mode="reflect"), wt, b)
     else:
         y = F.conv2d(xn, wt, b, padding=1)
-    return y.permute(0, 2, 3, 1).contiguous()
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
 def conv3_in_act_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -67,19 +74,19 @@ def _conv3_in_fwd(x, w, b, g, be, relu, eps, pad_mode):
     if pad_mode == "reflect" and (h < 2 or wd < 2):
         raise ValueError("conv3_in_act: reflect padding needs H, W >= 2")
     name = "conv3_in_act"
-    cuda_operand(name, "x", x)
-    cuda_operand(name, "w", w)
+    dt = storage_type(name, "x", x)
+    cuda_operand(name, "w", w, dtypes=(dt,))
     for what, t in (("b", b), ("g", g), ("be", be)):
         cuda_operand(name, what, t, (f,))
     tiles = -(-(h * wd) // _BM)
-    yconv = torch.empty((nb, h, wd, f), device=x.device, dtype=torch.float32)
+    yconv = torch.empty((nb, h, wd, f), device=x.device, dtype=dt)
     y = torch.empty_like(yconv)
     part = torch.empty((2, nb, tiles, f), device=x.device, dtype=torch.float32)
     ss = torch.empty((2, nb, f), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         _build.launch("uig_conv3_in_fwd", x, w, b, g, be, yconv, y, part, ss,
                       nb, h, wd, c, f, pad_mode == "reflect", bool(relu),
-                      float(eps))
+                      float(eps), dt == torch.bfloat16)
     conv3_in_act.launches += 1
     return y, yconv
 
@@ -128,7 +135,7 @@ class _Conv3InAct(torch.autograd.Function):
         x, w, g, be, yconv = ctx.saved_tensors
         dyc, dg, dbe = instance_norm_bwd(yconv, g, be, dy.contiguous(),
                                          ctx.eps, ctx.relu)
-        db = dyc.sum(dim=(0, 1, 2))
+        db = dyc.to(torch.float32).sum(dim=(0, 1, 2))
         need = ctx.needs_input_grad
         dx = conv3_dgrad(dyc, w, ctx.pad_mode) if need[0] else None
         dw = conv3_wgrad(x, dyc, ctx.pad_mode) if need[1] else None
@@ -139,8 +146,8 @@ def conv3_in_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  g: torch.Tensor, be: torch.Tensor, *, relu: bool,
                  eps: float = 1e-5, pad_mode: str = "reflect") -> torch.Tensor:
     """Pad-1 3x3 stride-1 conv + bias + InstanceNorm(scale=g, bias=be)
-    (+ReLU), with a gradient. x: (B, H, W, C); w: (3, 3, C, F). Output
-    (B, H, W, F)."""
+    (+ReLU), with a gradient. x: (B, H, W, C); w: (3, 3, C, F), both fp32
+    or both bf16; b, g, be: (F,) fp32. Output (B, H, W, F) in x's type."""
     _check_pad_mode(pad_mode)
     if x.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3) \
             or w.shape[2] != x.shape[3]:

@@ -7,7 +7,9 @@ Replaces the JAX package's ``kernels/norm_pallas.py`` (``_fwd_impl`` ->
 JAX InstanceNorm: fp32 one-pass moments E[x], E[x^2] over (H, W), variance
 clamped at 0, eps inside the square root, affine, optional fused ReLU. The
 backward recomputes the moments from x with the same formulas, and with
-ReLU masks dy by the recomputed pre-activation. x is NHWC.
+ReLU masks dy by the recomputed pre-activation. x is NHWC, fp32 or bf16:
+in bf16 the statistics are fp32 from the bf16 values and y (dx) is rounded
+once; gamma, beta, dgamma and dbeta are fp32.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from uig_torch.kernels import _build
-from uig_torch.kernels._check import cuda_operand, on_cpu
+from uig_torch.kernels._check import cuda_operand, on_cpu, storage_type
 
 _TARGET_BLOCKS = 1024  # enough blocks in flight to fill 132 SMs several times
 _MIN_ROWS = 64         # pixels per chunk, at least
@@ -58,7 +60,7 @@ def instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     b, h, w, c = x.shape
     if c % 4:
         raise ValueError(f"instance_norm: C={c} must be a multiple of 4")
-    cuda_operand("instance_norm", "x", x)
+    t = storage_type("instance_norm", "x", x)
     cuda_operand("instance_norm", "gamma", gamma, (c,))
     cuda_operand("instance_norm", "beta", beta, (c,))
     hw = h * w
@@ -68,7 +70,8 @@ def instance_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     ss = torch.empty((2, b, c), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         _build.launch("uig_instance_norm_fwd", x, gamma, beta, y, part, ss,
-                      b, hw, c, chunks, rows, float(eps), bool(relu))
+                      b, hw, c, chunks, rows, float(eps), bool(relu),
+                      t == torch.bfloat16)
     instance_norm.launches += 1
     return y
 
@@ -108,8 +111,8 @@ def instance_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if c % 4:
         raise ValueError(f"instance_norm_bwd: C={c} must be a multiple of 4")
     name = "instance_norm_bwd"
-    cuda_operand(name, "x", x)
-    cuda_operand(name, "dy", dy)
+    t = storage_type(name, "x", x)
+    cuda_operand(name, "dy", dy, dtypes=(t,))
     cuda_operand(name, "gamma", gamma, (c,))
     cuda_operand(name, "beta", beta, (c,))
     hw = h * w
@@ -122,7 +125,7 @@ def instance_norm_bwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     with torch.cuda.device(x.device):
         _build.launch("uig_instance_norm_bwd", x, gamma, beta, dy, dx, dgamma,
                       dbeta, part, ws, b, hw, c, chunks, rows, float(eps),
-                      bool(relu))
+                      bool(relu), t == torch.bfloat16)
     instance_norm_bwd.launches += 1
     return dx, dgamma, dbeta
 

@@ -1,3 +1,5 @@
+import torch
+
 from uig_torch.config.config import remat_mode
 from uig_torch.models.layers import (InstanceNorm, PadConv, ResnetBlock,
                                      UpsampleConv)
@@ -6,28 +8,42 @@ from uig_torch.models.resnet_gen import ResNetGenerator
 from uig_torch.models.vqgan import VQGANGenerator
 
 
-def check_float32(model_cfg, dtype_field: str) -> None:
-    """Raise unless ``model_cfg.<dtype_field>`` (``eval_dtype`` for serving,
-    ``compute_dtype`` for training) is float32: bf16 is on the ROADMAP."""
-    dtype = getattr(model_cfg, dtype_field)
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"model.{dtype_field}={dtype!r}: the port runs float32 only "
-            f"(bf16 is on the ROADMAP); pass model.{dtype_field}=float32")
+def model_dtype(model_cfg, dtype_field: str) -> torch.dtype:
+    """The torch dtype of ``model_cfg.<dtype_field>`` (``eval_dtype`` for
+    serving, ``compute_dtype`` for training). float32 always; bfloat16 for
+    training the ResNet (CycleGAN) family. bf16 serving and VQGAN in bf16
+    raise: both are on the ROADMAP."""
+    name = getattr(model_cfg, dtype_field)
+    if name == "float32":
+        return torch.float32
+    if name == "bfloat16" and dtype_field == "compute_dtype" \
+            and model_cfg.kind == "cyclegan":
+        return torch.bfloat16
+    if name == "bfloat16" and dtype_field == "eval_dtype":
+        why = "bf16 serving is not ported yet (ROADMAP: bf16 serving)"
+    elif name == "bfloat16":
+        why = (f"kind={model_cfg.kind!r} trains in float32 only (ROADMAP: "
+               f"{model_cfg.kind} in bf16)")
+    else:
+        why = "the port runs float32 and, for training CycleGAN, bfloat16"
+    raise NotImplementedError(
+        f"model.{dtype_field}={name!r}: {why}; pass "
+        f"model.{dtype_field}=float32")
 
 
 def generator_from_config(model_cfg, dtype_field: str = "eval_dtype"):
-    """The fp32 generator of a ``ModelConfig``, by ``model.kind``: the
-    ResNet generator for ``cyclegan``, ``VQGANGenerator`` for ``vqgan``.
-    Serving checks ``model.eval_dtype``, training ``model.compute_dtype``."""
-    check_float32(model_cfg, dtype_field)
+    """The generator of a ``ModelConfig``, by ``model.kind``: the ResNet
+    generator for ``cyclegan``, ``VQGANGenerator`` for ``vqgan``, in the
+    dtype of ``model.<dtype_field>`` (``model_dtype``): serving reads
+    ``model.eval_dtype``, training ``model.compute_dtype``."""
+    dtype = model_dtype(model_cfg, dtype_field)
     m = model_cfg
     if m.kind == "cyclegan":
         return ResNetGenerator(
             out_channels=m.out_channels, base_features=m.g_base_features,
             n_res_blocks=m.n_res_blocks, norm=m.norm, pad_mode=m.padding,
             upsample=m.upsample, resample=m.resample,
-            in_channels=m.in_channels)
+            in_channels=m.in_channels, dtype=dtype)
     if m.kind == "vqgan":
         if remat_mode(m.remat) != "none":
             raise NotImplementedError(
@@ -51,6 +67,6 @@ __all__ = [
     "ResnetBlock",
     "UpsampleConv",
     "VQGANGenerator",
-    "check_float32",
     "generator_from_config",
+    "model_dtype",
 ]

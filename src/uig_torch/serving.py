@@ -46,6 +46,22 @@ def exact_fp32():
         torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
+@contextlib.contextmanager
+def exact_bf16():
+    """The bf16 training step's precision: everything of ``exact_fp32``
+    (the step's fp32 parts stay exact, cuDNN deterministic and without
+    autotuning), and cuBLAS bf16 products reduce in fp32, as XLA
+    accumulates them. No autocast: the layers cast explicitly."""
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        with exact_fp32():
+            yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
 class Translator:
     """``y_u8 = translator(x_u8)`` for the generator of ``config`` (CycleGAN
     or VQGAN).

@@ -26,11 +26,17 @@ consumes its state and updates it in place (JAX donates it); clone a state
 to keep it. The per-step draws (crop offsets, flips, pool slots and coins)
 come from a generator seeded by (seed, step), or are passed in.
 
-On the card the step runs fp32 without TF32 and with deterministic cuDNN
-algorithms (``serving.exact_fp32``); the CUDA kernels sum in a fixed order,
-so a step repeats bit for bit. Not ported yet, and refused: bf16 compute,
+``model.compute_dtype`` is float32 or bfloat16 (every preset's default).
+In bf16 the models compute with JAX's explicit casts (``models/layers.py``):
+the augmented batches, activations and replay pools are bf16; parameters,
+their gradients, Adam, the EMA, instance-norm statistics and the losses are
+fp32. On the card the step runs without TF32 and with deterministic cuDNN
+algorithms (``serving.exact_fp32``; in bf16 ``serving.exact_bf16``, which
+also keeps cuBLAS's bf16 reductions in fp32); the CUDA kernels sum in a
+fixed order, so a step repeats bit for bit. Not ported yet, and refused:
 R1, ADA, gradient accumulation, a perceptual (LPIPS) loss, gradient
-clipping, weight decay and SGD.
+clipping, weight decay, SGD, and translating in bf16
+(``model.eval_dtype=bfloat16``).
 """
 
 from __future__ import annotations
@@ -41,11 +47,11 @@ from torch.func import functional_call
 
 from uig_torch.kernels.augment import (augment_batch, center_crop_normalize,
                                        draw_augment)
-from uig_torch.models import (PatchDiscriminator, check_float32,
-                              generator_from_config)
+from uig_torch.models import (PatchDiscriminator, generator_from_config,
+                              model_dtype)
 from uig_torch.runtime import resolve_device
 from uig_torch.runtime.prng import step_generator
-from uig_torch.serving import exact_fp32
+from uig_torch.serving import exact_bf16, exact_fp32
 from uig_torch.train import losses as L
 from uig_torch.train.ema import ema_update
 from uig_torch.train.pool import ImagePool
@@ -86,12 +92,19 @@ class CycleGANTrainer:
         _refuse_unported(cfg)
         self.cfg = cfg
         m = cfg.model
+        self.dtype = model_dtype(m, "compute_dtype")
+        self._precision = (exact_fp32 if self.dtype == torch.float32
+                           else exact_bf16)
         self.generator = generator_from_config(
             m, "compute_dtype").to(self.device)
+        # translate's generator, in model.eval_dtype (the same parameters)
+        self.eval_generator = (
+            self.generator if model_dtype(m, "eval_dtype") == self.dtype
+            else generator_from_config(m, "eval_dtype").to(self.device))
         self.discriminator = PatchDiscriminator(
             base_features=m.d_base_features, n_layers=m.d_layers, norm=m.norm,
-            in_channels=m.out_channels).to(self.device)
-        for mod in (self.generator, self.discriminator):
+            in_channels=m.out_channels, dtype=self.dtype).to(self.device)
+        for mod in (self.generator, self.eval_generator, self.discriminator):
             mod.requires_grad_(False)
         self.g_tx = Adam(cfg.opt)
         self.d_tx = Adam(cfg.opt, lr_scale=cfg.opt.d_lr_ratio)
@@ -115,7 +128,8 @@ class CycleGANTrainer:
             g_params=g_params, d_params=d_params,
             g_opt=self.g_tx.init(g_params), d_opt=self.d_tx.init(d_params),
             ema=tree_map(torch.clone, g_params),
-            pool_a=self.pool.init(img, dev), pool_b=self.pool.init(img, dev),
+            pool_a=self.pool.init(img, dev, self.dtype),
+            pool_b=self.pool.init(img, dev, self.dtype),
             step=0, seed=int(seed))
 
     # ----------------------------------------------------------------- draws
@@ -142,13 +156,14 @@ class CycleGANTrainer:
     def _input(self, batch, aug) -> torch.Tensor:
         x = torch.as_tensor(batch).to(self.device)
         if x.dtype != torch.uint8:  # pre-augmented floats, as in JAX
-            return x.to(torch.float32)
+            return x.to(self.dtype)
         crop = self.cfg.model.image_size
         if self.cfg.data.augment == "none":
-            return center_crop_normalize(x, crop)
+            return center_crop_normalize(x, crop, self.dtype)
         oy, ox, flip = aug
         return augment_batch(x.contiguous(), torch.as_tensor(oy),
-                             torch.as_tensor(ox), torch.as_tensor(flip), crop)
+                             torch.as_tensor(ox), torch.as_tensor(flip), crop,
+                             self.dtype)
 
     def _g_loss(self, gp: dict, dp: dict, real_a, real_b):
         loss = self.cfg.loss
@@ -220,7 +235,7 @@ class CycleGANTrainer:
         loss, not the updated generators, so every gradient of the step can
         be taken before any update."""
         a_in, b_in = batch
-        with exact_fp32():
+        with self._precision():
             real_a = self._input(a_in, draws["aug_a"])
             real_b = self._input(b_in, draws["aug_b"])
 
@@ -274,8 +289,7 @@ class CycleGANTrainer:
         (``model.eval_dtype`` float32, no gradient)."""
         if direction not in ("a2b", "b2a"):
             raise ValueError(f"direction must be a2b or b2a, got {direction!r}")
-        check_float32(self.cfg.model, "eval_dtype")
         with torch.inference_mode(), exact_fp32():
-            return functional_call(self.generator, ema[direction],
+            return functional_call(self.eval_generator, ema[direction],
                                    (x.to(self.device, torch.float32),))
 

@@ -42,8 +42,8 @@ from torch.func import functional_call
 from uig_torch.convert import generator_state_from_flax, seeded_vqgan_flax
 from uig_torch.kernels.augment import (augment_batch, center_crop_normalize,
                                        draw_augment)
-from uig_torch.models import (PatchDiscriminator, check_float32,
-                              generator_from_config)
+from uig_torch.models import (PatchDiscriminator, generator_from_config,
+                              model_dtype)
 from uig_torch.runtime import resolve_device
 from uig_torch.runtime.prng import step_generator
 from uig_torch.serving import exact_fp32
@@ -235,14 +235,14 @@ class VQGANTrainer:
         (``model.eval_dtype`` float32, no gradient)."""
         if direction != "a2b":
             raise ValueError(f"VQGAN has one direction, a2b; got {direction!r}")
-        check_float32(self.cfg.model, "eval_dtype")
+        model_dtype(self.cfg.model, "eval_dtype")
         with torch.inference_mode(), exact_fp32():
             return functional_call(self.generator, ema["a2b"],
                                    (x.to(self.device, torch.float32),))[0]
 
     def decode_codes(self, ema: dict, codes: torch.Tensor) -> torch.Tensor:
         """codes (B, h, w) -> the EMA decoder's images of those codewords."""
-        check_float32(self.cfg.model, "eval_dtype")
+        model_dtype(self.cfg.model, "eval_dtype")
         p = ema["a2b"]
         dec = {k[len("decoder."):]: t for k, t in p.items()
                if k.startswith("decoder.")}

@@ -18,21 +18,33 @@ fused ReLU, the norm backward is compared where the recomputed
 pre-activation is at least 1e-4 from 0: at the kink either side is right.
 Attention: the output and dq/dk/dv within 1e-5 of their largest value (fp32
 softmax sums over at most 300 keys in another order), the log-sum-exp
-within 1e-5.
+within 1e-5. K4s (the 3x3 stride-2 conv and the VALID conv): within 1e-5 of
+the largest value (sums over at most 9 * 36 terms, or the batch's pixels).
+
+bf16: every kernel against its plain version in bf16 (both sum in fp32
+from the same bf16 values and round once, in another order) within 1 bf16
+ulp of the plain output's largest magnitude, 2^(floor(log2 M) - 7); the
+fused conv3+IN within 2, since it rounds twice in series; the norm
+backward's dgamma/dbeta (fp32) within 1e-4 relative.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from uig_torch import kernels as K
 from uig_torch.kernels import (attention, attention_bwd,
                                attention_bwd_reference, attention_fwd,
                                attention_reference, augment_batch,
                                augment_batch_reference,
-                               conv3_in_act, conv3_in_act_reference, conv7,
+                               conv3_in_act, conv3_in_act_reference, conv3s2,
+                               conv3s2_act, conv3s2_dgrad,
+                               conv3s2_dgrad_reference, conv3s2_reference,
+                               conv3s2_wgrad, conv3s2_wgrad_reference, conv7,
                                conv7_act, conv7_dgrad, conv7_dgrad_reference,
                                conv7_reference, conv7_wgrad,
-                               conv7_wgrad_reference, instance_norm,
+                               conv7_wgrad_reference, conv_core,
+                               conv_core_reference, instance_norm,
                                instance_norm_act, instance_norm_bwd,
                                instance_norm_bwd_reference,
                                instance_norm_reference)
@@ -314,3 +326,171 @@ def test_attention_refuses_what_it_cannot_take(dev):
     x = _randn(dev, 1, 8, 8)
     with pytest.raises(ValueError, match="contiguous"):
         attention_fwd(x.transpose(1, 2), x.transpose(1, 2), x.transpose(1, 2))
+
+
+# ----------------------------------------------------------------- K4s --
+
+_S2_SHAPES = [((2, 18, 30, 8), 12), ((1, 4, 4, 4), 4), ((3, 34, 10, 36), 68),
+              ((1, 16, 16, 132), 8)]
+
+
+@pytest.mark.parametrize("shape,cout", _S2_SHAPES)
+def test_conv3s2_kernels(dev, shape, cout):
+    """Ragged tiles on both GEMM sides, N at most 64 and above, the four
+    parity classes of the dgrad; repeats are bit-equal."""
+    cin = shape[-1]
+    x = _randn(dev, *shape)
+    w = _randn(dev, 3, 3, cin, cout, scale=0.1, seed=1)
+    b = _randn(dev, cout, scale=0.1, seed=2)
+    dy = _randn(dev, shape[0], shape[1] // 2, shape[2] // 2, cout, seed=3)
+    before = (conv3s2.launches, conv3s2_dgrad.launches, conv3s2_wgrad.launches)
+    y = conv3s2(x, w, b)
+    dx = conv3s2_dgrad(dy, w)
+    dw = conv3s2_wgrad(x, dy)
+    assert (conv3s2.launches, conv3s2_dgrad.launches,
+            conv3s2_wgrad.launches) == tuple(n + 1 for n in before)
+    _rel_close(y, conv3s2_reference(x, w, b), rel=1e-5)
+    _rel_close(conv3s2(x, w, None), conv3s2_reference(x, w, None), rel=1e-5)
+    _rel_close(dx, conv3s2_dgrad_reference(dy, w), rel=1e-5)
+    _rel_close(dw, conv3s2_wgrad_reference(x, dy), rel=1e-5)
+    assert torch.equal(dw, conv3s2_wgrad(x, dy))
+    assert torch.equal(dx, conv3s2_dgrad(dy, w))
+
+
+def test_conv3s2_function(dev):
+    x = _randn(dev, 2, 12, 20, 16)
+    w = _randn(dev, 3, 3, 16, 8, scale=0.1, seed=1)
+    b = _randn(dev, 8, scale=0.1, seed=2)
+    ct = _randn(dev, 2, 6, 10, 8, seed=3)
+    got = _grads(conv3s2_act, (x, w, b), ct)
+    want = _grads(conv3s2_reference, (x, w, b), ct)
+    for u, v in zip(got, want):
+        _rel_close(u, v, rel=1e-5)
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_conv_core(dev, k):
+    xp = _randn(dev, 2, 11, 13, 8)
+    wf = _randn(dev, k * k * 8, 12, scale=0.1, seed=1)
+    ct = _randn(dev, 2, 12 - k, 14 - k, 12, seed=2)
+    before = conv_core.launches
+    got = _grads(lambda a, b: conv_core(a, b, k, k), (xp, wf), ct)
+    assert conv_core.launches == before + 3
+    want = _grads(lambda a, b: conv_core_reference(a, b, k, k), (xp, wf), ct)
+    for u, v in zip(got, want):
+        _rel_close(u, v, rel=1e-5)
+
+
+def test_generator_launches_per_apply(dev):
+    """The routing of a small generator on the card: per apply 5 norms, 2
+    conv3+IN per block, the head, and the two downsamples on K4s."""
+    from uig_torch.models import ResNetGenerator
+
+    for dt in (torch.float32, torch.bfloat16):
+        gen = ResNetGenerator(base_features=8, n_res_blocks=2,
+                              dtype=dt).to(dev)
+        K.reset_launch_counts()
+        with torch.no_grad():
+            y = gen(_randn(dev, 2, 32, 32, 3))
+        torch.cuda.synchronize()
+        assert y.dtype == dt and y.shape == (2, 32, 32, 3)
+        counts = {k: v for k, v in K.launch_counts().items() if v}
+        assert counts == {"instance_norm": 5, "conv3_in_act": 4, "conv7": 1,
+                          "conv3s2": 2}, counts
+
+
+# ---------------------------------------------------------------- bf16 --
+
+BF = torch.bfloat16
+
+
+def _ulps_close(kernel_out, plain_out, ulps=1.0):
+    torch.cuda.synchronize()
+    assert kernel_out.dtype == plain_out.dtype == BF
+    m = plain_out.float().abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(max(m, 1e-30))) - 7)
+    err = (kernel_out.float() - plain_out.float()).abs().max().item()
+    assert err <= ulps * ulp, (err, ulp)
+
+
+def test_augment_bf16(dev):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(0, 256, (3, 37, 41, 3),
+                                      dtype=np.uint8)).to(dev)
+    oy, ox = torch.tensor([0, 5, 2]), torch.tensor([9, 0, 4])
+    flip = torch.tensor([True, False, True])
+    y = augment_batch(x, oy, ox, flip, 32, BF)
+    assert torch.equal(y, augment_batch_reference(x, oy, ox, flip, 32, BF))
+
+
+@pytest.mark.parametrize("shape", [(3, 13, 17, 36), (2, 64, 64, 64)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_instance_norm_bf16(dev, shape, relu):
+    c = shape[-1]
+    x = _randn(dev, *shape, scale=2.0, shift=0.5).to(BF)
+    g = _randn(dev, c, scale=0.2, shift=1.0, seed=1)
+    b = _randn(dev, c, scale=0.2, seed=2)
+    dy = _randn(dev, *shape, seed=3).to(BF)
+    _ulps_close(instance_norm(x, g, b, relu=relu),
+                instance_norm_reference(x, g, b, relu=relu))
+    dx, dg, db = instance_norm_bwd(x, g, b, dy, relu=relu)
+    rdx, rdg, rdb = instance_norm_bwd_reference(x, g, b, dy, relu=relu)
+    keep = torch.ones_like(x, dtype=torch.bool)
+    if relu:
+        xn = instance_norm_reference(x.float(), torch.ones_like(g),
+                                     torch.zeros_like(b))
+        keep = (xn * g + b).abs() >= 1e-4
+    _ulps_close(torch.where(keep, dx, 0.0), torch.where(keep, rdx, 0.0))
+    assert dg.dtype == db.dtype == torch.float32
+    _rel_close(dg, rdg)
+    _rel_close(db, rdb)
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_conv3_in_act_bf16(dev, pad_mode):
+    x = _randn(dev, 2, 11, 13, 20).to(BF)
+    w = _randn(dev, 3, 3, 20, 12, scale=0.1, seed=1).to(BF)
+    b, g, be = (_randn(dev, 12, scale=0.1, seed=2),
+                _randn(dev, 12, scale=0.2, shift=1.0, seed=3),
+                _randn(dev, 12, scale=0.2, seed=4))
+    _ulps_close(conv3_in_act(x, w, b, g, be, relu=True, pad_mode=pad_mode),
+                conv3_in_act_reference(x, w, b, g, be, relu=True,
+                                       pad_mode=pad_mode), ulps=2)
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_conv7_bf16(dev, pad_mode):
+    x = _randn(dev, 2, 37, 45, 24).to(BF)
+    w = _randn(dev, 7, 7, 24, 3, scale=0.05, seed=1).to(BF)
+    b = _randn(dev, 3, scale=0.1, seed=2).to(BF)
+    dy = _randn(dev, 2, 37, 45, 3, seed=3).to(BF)
+    _ulps_close(conv7(x, w, b, pad_mode), conv7_reference(x, w, b, pad_mode))
+    _ulps_close(conv7_dgrad(dy, w, pad_mode),
+                conv7_dgrad_reference(dy, w, pad_mode))
+    _ulps_close(conv7_wgrad(x, dy, pad_mode),
+                conv7_wgrad_reference(x, dy, pad_mode))
+
+
+@pytest.mark.parametrize("shape,cout", _S2_SHAPES)
+def test_conv3s2_bf16(dev, shape, cout):
+    cin = shape[-1]
+    x = _randn(dev, *shape).to(BF)
+    w = _randn(dev, 3, 3, cin, cout, scale=0.1, seed=1).to(BF)
+    b = _randn(dev, cout, scale=0.1, seed=2).to(BF)
+    dy = _randn(dev, shape[0], shape[1] // 2, shape[2] // 2, cout,
+                seed=3).to(BF)
+    _ulps_close(conv3s2(x, w, b), conv3s2_reference(x, w, b))
+    _ulps_close(conv3s2_dgrad(dy, w), conv3s2_dgrad_reference(dy, w))
+    _ulps_close(conv3s2_wgrad(x, dy), conv3s2_wgrad_reference(x, dy))
+
+
+def test_bf16_operands_are_checked(dev):
+    x = _randn(dev, 1, 8, 8, 8)
+    w = _randn(dev, 3, 3, 8, 8)
+    with pytest.raises(TypeError, match="w must be bfloat16"):
+        conv3s2(x.to(BF), w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv3s2(x.half(), w.half())
+    g = torch.ones(8, device=dev)
+    with pytest.raises(TypeError, match="gamma must be float32"):
+        instance_norm(x.to(BF), g.to(BF), g.to(BF))
