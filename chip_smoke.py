@@ -63,7 +63,9 @@ one CycleGAN training step and translate apply, or one VQGAN training step
 and reconstruct apply for the attention kernels; its error, and its times
 and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
-``train_bf16`` step), the nvidia-smi line, and, last,
+``train_bf16`` step, with the design each dtype launched: "wgmma" on the
+tensor cores, or "fma", read from the functions that the dtype's
+profiled training step launched), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -75,6 +77,7 @@ import http.client
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -98,7 +101,8 @@ BATCH = 8
 SEED = 0
 # H100 SXM data-sheet peaks (at 700 W): fp32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3. A bf16 case's bound counts the tensor-core
-# rate, although the kernels compute in fp32 FMAs.
+# rate, which only the kernels of design "wgmma" use; the others compute in
+# fp32 FMAs.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -169,6 +173,38 @@ SOURCES = {
     "attention_fwd": "src/uig_torch/csrc/attention.cu",
     "attention_bwd": "src/uig_torch/csrc/attention.cu",
 }
+# The kernels with more than one design: the CUDA function that launches
+# each design, and its source. Which design a dtype ran is read from the
+# functions its profiled training step launched (``designs_run``); every
+# other kernel has one design, "fma", in SOURCES.
+DESIGNS = {
+    "conv3s2": {
+        "fma": ("conv_fwd_kernel", "src/uig_torch/csrc/conv3s2.cu"),
+        "wgmma": ("conv_fwd_wgmma_kernel", "src/uig_torch/csrc/conv3s2_tc.cu")},
+    "conv3s2_wgrad": {
+        "fma": ("conv_wgrad_kernel", "src/uig_torch/csrc/conv3s2.cu"),
+        "wgmma": ("conv_wgrad_wgmma_kernel",
+                  "src/uig_torch/csrc/conv3s2_tc.cu")},
+}
+
+
+def designs_run(calls: dict, phase: str) -> dict:
+    """{kernel: design} of the kernels in DESIGNS from one profiled training
+    step's launches by CUDA function (``calls``): the design whose function
+    launched PER_STEP[kernel] times, while every other design's launched
+    none. Raises otherwise."""
+    out = {}
+    for name, by_design in DESIGNS.items():
+        seen = {d: calls.get(fn, 0) for d, (fn, _) in by_design.items()}
+        ran = [d for d, n in seen.items() if n]
+        if len(ran) != 1 or seen[ran[0]] != PER_STEP[name]:
+            raise AssertionError(
+                f"{phase}: {name} launched {seen} by design in one step, "
+                f"want one design {PER_STEP[name]} times")
+        out[name] = ran[0]
+    return out
+
+
 PER_APPLY = {"augment_batch": 0, "instance_norm": 5, "instance_norm_bwd": 0,
              "conv3_in_act": 18, "conv7": 1, "conv7_dgrad": 0,
              "conv7_wgrad": 0, "conv3s2": 2, "conv3s2_dgrad": 0,
@@ -964,7 +1000,8 @@ def phase_train(dev, overrides=TRAIN_OVERRIDES, phase: str = "train",
     """The CycleGAN training step of ``PRESET`` with ``overrides``: the
     main path's launches, 3 steps twice byte-identical, the batch-1
     card-vs-CPU check of its dtype, ``steps`` steps finite with a falling
-    cycle loss and timed, and a profiled step."""
+    cycle loss and timed, and a profiled step. Returns the step's launches
+    and the design each kernel of DESIGNS ran (``designs_run``)."""
     import torch
 
     from uig_torch import kernels as K
@@ -1049,11 +1086,17 @@ def phase_train(dev, overrides=TRAIN_OVERRIDES, phase: str = "train",
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
             nvidia_smi=nvidia_smi())
         emit(out)
-        emit(profile_call(lambda: tr.train_step(st, (a, b)),
-                          f"{phase}_profile"))
+        prof = profile_call(lambda: tr.train_step(st, (a, b)),
+                            f"{phase}_profile", calls=True)
+        calls = prof.pop("calls")
+        prof["designs"] = designs_run(calls, phase)
+        prof["design_calls"] = {fn: calls.get(fn, 0)
+                                for by in DESIGNS.values()
+                                for fn, _ in by.values()}
+        emit(prof)
     finally:
         torch.use_deterministic_algorithms(False)
-    return launches
+    return launches, prof["designs"]
 
 
 # ---------------------------------------------------------------------------
@@ -1149,9 +1192,10 @@ def phase_slice(weights: str):
     return tr, launches
 
 
-def profile_call(fn, phase: str) -> dict:
+def profile_call(fn, phase: str, calls: bool = False) -> dict:
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    and the share of the call's wall time that the card was busy."""
+    and the share of the call's wall time that the card was busy; with
+    ``calls``, also the launches by CUDA function name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1167,12 +1211,29 @@ def profile_call(fn, phase: str) -> dict:
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"phase": phase, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms if by_name else "not measured",
-            "device_busy_share": busy_ms / wall_ms if by_name else "not measured",
-            "device_kernels": sum(n for n, _ in by_name.values()),
-            "top": [{"kernel": k[:70], "calls": n, "ms": us / 1e3}
-                    for k, (n, us) in top]}
+    out = {"phase": phase, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms if by_name else "not measured",
+           "device_busy_share": (busy_ms / wall_ms if by_name
+                                 else "not measured"),
+           "device_kernels": sum(n for n, _ in by_name.values()),
+           "top": [{"kernel": k[:70], "calls": n, "ms": us / 1e3}
+                   for k, (n, us) in top]}
+    if calls:
+        out["calls"] = launches_by_function(
+            {k: n for k, (n, _) in by_name.items()})
+    return out
+
+
+def launches_by_function(by_name: dict) -> dict:
+    """{CUDA function: launches} from the profiler's {kernel name:
+    launches}: a name such as ``void (anonymous namespace)::f<16, 0>(...)``
+    counts for ``f``; a name with no argument list counts as itself."""
+    out: dict = {}
+    for k, n in by_name.items():
+        m = re.search(r"(\w+)[<(]", k)
+        fn = m.group(1) if m else k
+        out[fn] = out.get(fn, 0) + n
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1470,18 +1531,27 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in open(_build.build_info["log"])
-             if "registers" in ln or "spill" in ln] \
+    log = open(_build.build_info["log"]).read().split("\n== ") \
         if "log" in _build.build_info else []
+    ptxas = [ln.strip() for sec in log for ln in sec.splitlines()
+             if "registers" in ln or "spill" in ln]
+    # the wgmma kernels' entry points with their registers and spills
+    ptxas_wgmma = [ln.strip() for sec in log
+                   if sec.lstrip("= ").startswith("conv3s2_tc.cu")
+                   for ln in sec.splitlines()
+                   if "entry function" in ln or "registers" in ln
+                   or "spill" in ln]
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_seconds": build_s, "build_cached": _build.build_info["cached"],
-          "ptxas": ptxas[:12]})
+          "ptxas": ptxas[:12], "ptxas_wgmma": ptxas_wgmma})
     dev = torch.device("cuda", 0)
     totals = phase_kernels(dev)
-    step_launches = phase_train(dev, steps=FP32_TRAIN_STEPS)
+    step_launches, designs = phase_train(dev, steps=FP32_TRAIN_STEPS)
     torch.cuda.empty_cache()
-    bf16_launches = phase_train(dev, TRAIN_OVERRIDES_BF16, "train_bf16")
+    bf16_launches, bf16_designs = phase_train(dev, TRAIN_OVERRIDES_BF16,
+                                              "train_bf16")
+    designs = {"float32": designs, "bfloat16": bf16_designs}
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "g_a2b.npz")
@@ -1517,11 +1587,17 @@ def main() -> int:
             if step_l[dtype][name] < 1:
                 raise AssertionError(f"{name} never launched on the "
                                      f"{dtype} main path")
-            per_dtype[dtype] = {"launches": step_l[dtype][name],
+            kind = designs[dtype].get(name, "fma")
+            per_dtype[dtype] = {"design": kind,
+                                "source": (DESIGNS[name][kind][1]
+                                           if name in DESIGNS
+                                           else SOURCES[name]),
+                                "launches": step_l[dtype][name],
                                 "max_abs_err": t["max_abs_err"], **t["step"],
                                 "bound_by": t["bound_by"]}
         t = totals[(name, "float32")]
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                 "design": per_dtype["float32"]["design"],
                  "replaces": REPLACES[name],
                  "launches": step_l["float32"][name],
                  "launches_per_translate_apply": apply_l[name],

@@ -15,23 +15,28 @@
 // lanes fill; here the stride is index arithmetic in the loaders, and no
 // padded or space-to-depth tensor is ever materialized.
 //
-// Bound on this card: operations. d128 and d256 at batch 16 are each
+// Bound on this card: fp32 operations. d128 and d256 at batch 16 are each
 // 2 * 16 * 128^2 * 128 * 9 * 64 = 3.87e10 FLOP (dgrad and wgrad the same):
-// 0.58 ms at the H100 SXM data-sheet 67 TFLOP/s fp32 FMA rate (700 W). In
-// bf16 the same count takes 0.039 ms at the 989 TFLOP/s tensor-core rate,
-// about the time to read x once (134 MB at d128, fp32); these kernels use
-// fp32 FMAs in both types, so a bf16 row reads low against that bound.
+// 0.58 ms at the H100 SXM data-sheet 67 TFLOP/s fp32 FMA rate (700 W).
 //
-// Design: one implicit GEMM core, K3's (csrc/conv3_in.cu): a block computes
-// a 128 x BN tile (BN 128, or 64 when the N side is at most 64), 8 x 8
+// Two designs. In bf16 the forward and the weight gradient run on the
+// tensor cores (wgmma, fp32 accumulators): csrc/conv3s2_tc.cu, launched
+// from the entry points below, holds them with their bound and design. This
+// file holds the FMA core: the fp32 forward and weight gradient, and the
+// input gradient in fp32 and bf16. In bf16 the same FLOPs take 0.039 ms at
+// the 989 TFLOP/s tensor-core rate, so the bf16 dgrad, on fp32 FMAs here,
+// reads low against its bound.
+//
+// FMA core: K3's implicit GEMM (csrc/conv3_in.cu): a block computes a
+// 128 x BN tile (BN 128, or 64 when the N side is at most 64), 8 x 8
 // outputs a thread in registers, stepping K by 8 through two fp32 shared
 // tiles. Loads widen T to fp32 four values at a time (C % 4 == 0 and
 // F % 4 == 0, so a run of four never crosses a tap); every sum is an fp32
 // FMA in a fixed order; each output is rounded once to T.
-//   fwd: M = output pixels of one image, N = F, K = (tap, c), read straight
-//        from the HWIO weights as a (k k C, F) row-major matrix; the A loader
-//        gathers the strided window with zero padding as a masked load; the
-//        bias is added in fp32 before the one rounding.
+//   fwd (fp32): M = output pixels of one image, N = F, K = (tap, c), read
+//        straight from the HWIO weights as a (k k C, F) row-major matrix;
+//        the A loader gathers the strided window with zero padding as a
+//        masked load; the bias is added before the store.
 //   dgrad: the adjoint. A dx pixel (i, j) receives the outputs whose window
 //        holds it: the taps di with stride | (i + pad - di), which depend
 //        only on (i mod stride, j mod stride). A block owns one such parity
@@ -40,11 +45,11 @@
 //        stride-2 pad-1 conv the classes have 1 x 1, 1 x 2, 2 x 1 and 2 x 2
 //        taps: a gather in a fixed order, with no atomics and no
 //        zero-stuffed dy, and no multiply by a structural zero.
-//   wgrad: M = (tap, c) (k k C rows), N = F, K = pixels of the whole batch.
-//        The pixels are cut into chunks; each block sums its chunk in order
-//        into a partial (chunks, k k C, F) in fp32, and a second pass sums
-//        the partials in chunk order and rounds once, as K4w does. Repeat
-//        runs give the same bits.
+//   wgrad (fp32): M = (tap, c) (k k C rows), N = F, K = pixels of the
+//        whole batch. The pixels are cut into chunks; each block sums its
+//        chunk in order into a partial (chunks, k k C, F) in fp32, and a
+//        second pass (also the bf16 wgrad's) sums the partials in chunk
+//        order and rounds once, as K4w does. Repeat runs give the same bits.
 #include <cuda_runtime.h>
 
 #include "dtype.cuh"
@@ -97,13 +102,13 @@ __device__ __forceinline__ void put_a(float (*As)[kBM], int k, int row,
 }
 
 // ------------------------------------------------------------------ fwd --
-// grid (ceil(Ho Wo / kBM), ceil(F / BN), B), block 2 BN.
-template <typename T, int BN>
+// fp32. grid (ceil(Ho Wo / kBM), ceil(F / BN), B), block 2 BN.
+template <int BN>
 __global__ void __launch_bounds__(2 * BN)
-    conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const T* __restrict__ bias, T* __restrict__ y, int H,
-                    int W, int C, int F, int Ho, int Wo, int k, int stride,
-                    int pad) {
+    conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, float* __restrict__ y,
+                    int H, int W, int C, int F, int Ho, int Wo, int k,
+                    int stride, int pad) {
   constexpr int kThreads = 2 * BN;
   constexpr int kALoads = kBM * kBK / 4 / kThreads;
   __shared__ __align__(16) float As[kBK][kBM];
@@ -115,7 +120,7 @@ __global__ void __launch_bounds__(2 * BN)
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * BN;
   const int K = k * k * C;
-  const T* xb = x + (size_t)b * H * W * C;
+  const float* xb = x + (size_t)b * H * W * C;
 
   // A loader: kALoads (output pixel, run of 4 K entries) a thread
   int a_row[kALoads], a_k[kALoads], a_iy[kALoads], a_ix[kALoads];
@@ -297,12 +302,13 @@ __global__ void __launch_bounds__(2 * BN)
 }
 
 // ---------------------------------------------------------------- wgrad --
-// grid (ceil(k k C / kBM), ceil(F / BN), chunks), block 2 BN. Block z sums
-// pixels [z per_chunk, (z + 1) per_chunk) of the batch's B Ho Wo outputs
-// and writes part[z] as (k k C, F).
-template <typename T, int BN>
+// fp32. grid (ceil(k k C / kBM), ceil(F / BN), chunks), block 2 BN. Block
+// z sums pixels [z per_chunk, (z + 1) per_chunk) of the batch's B Ho Wo
+// outputs and writes part[z] as (k k C, F).
+template <int BN>
 __global__ void __launch_bounds__(2 * BN)
-    conv_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+    conv_wgrad_kernel(const float* __restrict__ x,
+                      const float* __restrict__ dy,
                       float* __restrict__ part, int B, int H, int W, int C,
                       int F, int Ho, int Wo, int k, int stride, int pad,
                       int per_chunk) {
@@ -394,17 +400,17 @@ bool bad_shape(int C, int F, int k, int stride, int pad) {
   return C % 4 || F % 4 || k < 1 || k > 7 || stride < 1 || pad < 0;
 }
 
-template <typename T, int BN>
+template <int BN>
 cudaError_t fwd(const void* x, const void* w, const void* bias, void* y,
                 int B, int H, int W, int C, int F, int k, int stride, int pad,
                 cudaStream_t stream) {
   const int Ho = (H + 2 * pad - k) / stride + 1;
   const int Wo = (W + 2 * pad - k) / stride + 1;
   const dim3 grid((Ho * Wo + kBM - 1) / kBM, (F + BN - 1) / BN, B);
-  conv_fwd_kernel<T, BN><<<grid, 2 * BN, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(bias), static_cast<T*>(y), H, W, C, F, Ho, Wo, k,
-      stride, pad);
+  conv_fwd_kernel<BN><<<grid, 2 * BN, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(y), H, W, C, F, Ho,
+      Wo, k, stride, pad);
   return cudaGetLastError();
 }
 
@@ -423,20 +429,23 @@ cudaError_t dgrad(const void* dy, const void* wt, void* dx, int B, int H,
   return cudaGetLastError();
 }
 
-template <typename T, int BN>
-cudaError_t wgrad(const void* x, const void* dy, float* part, void* dw, int B,
-                  int H, int W, int C, int F, int k, int stride, int pad,
-                  int chunks, int per_chunk, cudaStream_t stream) {
+template <int BN>
+cudaError_t wgrad_partials(const void* x, const void* dy, float* part, int B,
+                           int H, int W, int C, int F, int k, int stride,
+                           int pad, int chunks, int per_chunk,
+                           cudaStream_t stream) {
   const int Ho = (H + 2 * pad - k) / stride + 1;
   const int Wo = (W + 2 * pad - k) / stride + 1;
-  const int M = k * k * C;
-  const dim3 grid((M + kBM - 1) / kBM, (F + BN - 1) / BN, chunks);
-  conv_wgrad_kernel<T, BN><<<grid, 2 * BN, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), part, B, H, W, C,
-      F, Ho, Wo, k, stride, pad, per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = M * F;
+  const dim3 grid((k * k * C + kBM - 1) / kBM, (F + BN - 1) / BN, chunks);
+  conv_wgrad_kernel<BN><<<grid, 2 * BN, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), part, B, H,
+      W, C, F, Ho, Wo, k, stride, pad, per_chunk);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t wgrad_reduce(const float* part, void* dw, int n, int chunks,
+                         cudaStream_t stream) {
   conv_wgrad_reduce_kernel<T><<<(n + 255) / 256, 256, 0, stream>>>(
       part, static_cast<T*>(dw), n, chunks);
   return cudaGetLastError();
@@ -444,9 +453,19 @@ cudaError_t wgrad(const void* x, const void* dy, float* part, void* dw, int B,
 
 }  // namespace
 
+// The tensor-core kernels of csrc/conv3s2_tc.cu.
+cudaError_t conv_fwd_bf16_wgmma(const void* x, const void* w,
+                                const void* bias, void* y, int B, int H,
+                                int W, int C, int F, int k, int stride,
+                                int pad, cudaStream_t stream);
+cudaError_t conv_wgrad_bf16_wgmma(const void* x, const void* dy, float* part,
+                                  int B, int H, int W, int C, int F, int k,
+                                  int stride, int pad, int chunks,
+                                  int per_chunk, cudaStream_t stream);
+
 // x: (B, H, W, C); w: HWIO (k, k, C, F) = a (k k C, F) matrix; bias: (F,)
-// or null; y: (B, Ho, Wo, F); all fp32, or all bf16 when is_bf16.
-// C % 4 == 0, F % 4 == 0, k <= 7.
+// or null; y: (B, Ho, Wo, F); all fp32 (FMA core), or all bf16 when
+// is_bf16 (wgmma). C % 4 == 0, F % 4 == 0, k <= 7.
 extern "C" cudaError_t uig_conv_fwd(const void* x, const void* w,
                                     const void* bias, void* y, int B, int H,
                                     int W, int C, int F, int k, int stride,
@@ -454,14 +473,12 @@ extern "C" cudaError_t uig_conv_fwd(const void* x, const void* w,
                                     cudaStream_t stream) {
   if (bad_shape(C, F, k, stride, pad)) return cudaErrorInvalidValue;
   if (is_bf16)
-    return F <= 64 ? fwd<bf16, 64>(x, w, bias, y, B, H, W, C, F, k, stride,
-                                   pad, stream)
-                   : fwd<bf16, 128>(x, w, bias, y, B, H, W, C, F, k, stride,
-                                    pad, stream);
-  return F <= 64 ? fwd<float, 64>(x, w, bias, y, B, H, W, C, F, k, stride,
-                                  pad, stream)
-                 : fwd<float, 128>(x, w, bias, y, B, H, W, C, F, k, stride,
-                                   pad, stream);
+    return conv_fwd_bf16_wgmma(x, w, bias, y, B, H, W, C, F, k, stride, pad,
+                               stream);
+  return F <= 64 ? fwd<64>(x, w, bias, y, B, H, W, C, F, k, stride, pad,
+                           stream)
+                 : fwd<128>(x, w, bias, y, B, H, W, C, F, k, stride, pad,
+                            stream);
 }
 
 // dy: (B, Ho, Wo, F); wt: (k, k, F, C), the forward's w with its last two
@@ -482,22 +499,27 @@ extern "C" cudaError_t uig_conv_dgrad(const void* dy, const void* wt,
                                      pad, stream);
 }
 
-// x: (B, H, W, C), dy: (B, Ho, Wo, F), dw: (k, k, C, F); all fp32, or all
-// bf16 when is_bf16. part: (chunks, k k C, F) fp32 scratch with
-// chunks * per_chunk >= B Ho Wo.
+// x: (B, H, W, C), dy: (B, Ho, Wo, F), dw: (k, k, C, F); all fp32 (FMA
+// core), or all bf16 (wgmma). part: (chunks, k k C, F) fp32 scratch with
+// chunks * per_chunk >= B Ho Wo, the chunking of conv_s2._wgrad_chunks for
+// the type's tiles.
 extern "C" cudaError_t uig_conv_wgrad(const void* x, const void* dy,
                                       float* part, void* dw, int B, int H,
                                       int W, int C, int F, int k, int stride,
                                       int pad, int chunks, int per_chunk,
                                       int is_bf16, cudaStream_t stream) {
   if (bad_shape(C, F, k, stride, pad)) return cudaErrorInvalidValue;
+  cudaError_t err;
   if (is_bf16)
-    return F <= 64 ? wgrad<bf16, 64>(x, dy, part, dw, B, H, W, C, F, k,
-                                     stride, pad, chunks, per_chunk, stream)
-                   : wgrad<bf16, 128>(x, dy, part, dw, B, H, W, C, F, k,
-                                      stride, pad, chunks, per_chunk, stream);
-  return F <= 64 ? wgrad<float, 64>(x, dy, part, dw, B, H, W, C, F, k, stride,
-                                    pad, chunks, per_chunk, stream)
-                 : wgrad<float, 128>(x, dy, part, dw, B, H, W, C, F, k,
-                                     stride, pad, chunks, per_chunk, stream);
+    err = conv_wgrad_bf16_wgmma(x, dy, part, B, H, W, C, F, k, stride, pad,
+                                chunks, per_chunk, stream);
+  else
+    err = F <= 64 ? wgrad_partials<64>(x, dy, part, B, H, W, C, F, k, stride,
+                                       pad, chunks, per_chunk, stream)
+                  : wgrad_partials<128>(x, dy, part, B, H, W, C, F, k, stride,
+                                        pad, chunks, per_chunk, stream);
+  if (err != cudaSuccess) return err;
+  const int n = k * k * C * F;
+  return is_bf16 ? wgrad_reduce<bf16>(part, dw, n, chunks, stream)
+                 : wgrad_reduce<float>(part, dw, n, chunks, stream);
 }

@@ -1,7 +1,7 @@
 """The generator's 3x3 stride-2 pad-1 downsample conv (d128, d256) and the
 generic VALID conv, with their gradients: the CUDA kernels in
-``csrc/conv3s2.cu``, their plain PyTorch versions, and the autograd
-functions that pair them.
+``csrc/conv3s2.cu`` and ``csrc/conv3s2_tc.cu``, their plain PyTorch
+versions, and the autograd functions that pair them.
 
 Replaces the JAX package's ``kernels/conv_pallas.py`` ``conv3s2_s2d`` and
 ``conv_core`` (both through ``conv_core5`` -> ``_conv5_impl``; the backward
@@ -19,6 +19,11 @@ fp32 from the widened inputs and round once):
   * ``conv3s2_wgrad(x, dy)``: its weight gradient, (3, 3, Cin, Cout) in x's
     type.
 
+Two designs: in bf16 the forward and the weight gradient run on the
+tensor cores (``wgmma``, fp32 accumulators, ``csrc/conv3s2_tc.cu``); the
+fp32 launches and the bf16 input gradient run fp32 FMAs
+(``csrc/conv3s2.cu``).
+
 ``conv_core(xp, w_flat, kh, kw)`` is JAX's generic square VALID stride-1
 conv with flat (kh kw Cin, Cout) weights, differentiable, through the same
 kernels with stride 1 and no padding; no model routes it (as in JAX). Its
@@ -34,8 +39,16 @@ import torch.nn.functional as F
 from uig_torch.kernels import _build
 from uig_torch.kernels._check import cuda_operand, on_cpu, storage_type
 
-_WGRAD_BLOCKS = 528  # wgrad blocks in flight: 4 per SM on 132 SMs
-_BM, _BK = 128, 8    # GEMM tile rows and K step (csrc/conv3s2.cu)
+# wgrad blocks in all. FMA core (fp32, csrc/conv3s2.cu): 4 per SM on 132
+# SMs, tiles of _BM (k k C) rows x 64 or 128 of F, K stepped by _BK pixels.
+# wgmma (bf16, csrc/conv3s2_tc.cu): the 2 blocks an SM holds at once (97 KB
+# of shared memory each), one wave; a block owns two slices of _TC_SLICE
+# channels of one tap x _TC_BN of F, and sums its chunk _TC_BK pixels a
+# stage.
+_WGRAD_BLOCKS = 528
+_BM, _BK = 128, 8
+_TC_WGRAD_BLOCKS = 264
+_TC_SLICE, _TC_BN, _TC_BK = 64, 128, 64
 MAX_K = 7
 
 
@@ -130,11 +143,23 @@ def _dgrad(name, dy, w, size, stride: int, pad: int) -> torch.Tensor:
     return dx
 
 
-def _wgrad_chunks(m: int, n: int, pixels: int) -> tuple[int, int]:
-    """(chunks, pixels per chunk) for about _WGRAD_BLOCKS blocks in all."""
-    tiles = -(-m // _BM) * -(-n // (64 if n <= 64 else 128))
-    chunks = max(1, min(-(-pixels // _BK), -(-_WGRAD_BLOCKS // tiles)))
-    per = -(-pixels // chunks)
+def _wgrad_chunks(k: int, cin: int, cout: int, pixels: int,
+                  bf16: bool) -> tuple[int, int]:
+    """(chunks, pixels per chunk) of the weight gradient's ordered pixel
+    chunks: chunk z sums pixels [z per, min((z + 1) per, pixels)). About
+    _WGRAD_BLOCKS blocks in all on the FMA core (fp32), _TC_WGRAD_BLOCKS on
+    wgmma (bf16), whose chunks are whole stages of _TC_BK pixels."""
+    if bf16:
+        slices = k * k * -(-cin // _TC_SLICE)
+        tiles = -(-slices // 2) * -(-cout // _TC_BN)
+        stages = -(-pixels // _TC_BK)
+        chunks = max(1, min(stages, -(-_TC_WGRAD_BLOCKS // tiles)))
+        per = _TC_BK * -(-stages // chunks)
+    else:
+        tiles = -(-(k * k * cin) // _BM) * -(-cout // (64 if cout <= 64
+                                                       else 128))
+        chunks = max(1, min(-(-pixels // _BK), -(-_WGRAD_BLOCKS // tiles)))
+        per = -(-pixels // chunks)
     return -(-pixels // per), per
 
 
@@ -145,7 +170,8 @@ def _wgrad(name, x, dy, k: int, stride: int, pad: int) -> torch.Tensor:
     t = storage_type(name, "x", x)
     cuda_operand(name, "dy", dy, dtypes=(t,))
     m = k * k * cin
-    chunks, per = _wgrad_chunks(m, cout, nb * dy.shape[1] * dy.shape[2])
+    chunks, per = _wgrad_chunks(k, cin, cout, nb * dy.shape[1] * dy.shape[2],
+                                t == torch.bfloat16)
     part = torch.empty((chunks, m, cout), device=x.device, dtype=torch.float32)
     dw = torch.empty((k, k, cin, cout), device=x.device, dtype=t)
     with torch.cuda.device(x.device):

@@ -151,3 +151,25 @@ def test_padconv_downsample_runs_conv3s2(monkeypatch):
         assert y.dtype == dt and seen[-1] == (dt, dt, dt)
         torch.testing.assert_close(y, ref.permute(0, 2, 3, 1).to(dt),
                                    rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fma", "wgmma"])
+@pytest.mark.parametrize("k,cin,cout,pixels", [
+    (3, 64, 128, 16 * 128 * 128), (3, 128, 256, 16 * 64 * 64),
+    (3, 64, 128, 2 * 128 * 128), (3, 8, 12, 2 * 9 * 15), (3, 4, 4, 4),
+    (3, 36, 68, 3 * 17 * 5), (3, 132, 8, 64), (5, 8, 12, 2 * 8 * 10)])
+def test_wgrad_chunks_cover_every_pixel_once_in_order(bf16, k, cin, cout,
+                                                      pixels):
+    """The weight gradient's pixel chunks, as ``_wgrad`` hands them to the
+    kernel: chunk z sums [z per, min((z + 1) per, pixels)); together they
+    are 0 .. pixels - 1, each once and in order, none empty; on wgmma each
+    chunk but the last is whole stages of 64 pixels."""
+    from uig_torch.kernels.conv_s2 import _TC_BK, _wgrad_chunks
+
+    chunks, per = _wgrad_chunks(k, cin, cout, pixels, bf16)
+    spans = [range(z * per, min((z + 1) * per, pixels))
+             for z in range(chunks)]
+    assert all(len(s) for s in spans)
+    assert [p for s in spans for p in s] == list(range(pixels))
+    if bf16:
+        assert per % _TC_BK == 0

@@ -368,17 +368,26 @@ def test_conv3s2_function(dev):
         _rel_close(u, v, rel=1e-5)
 
 
-@pytest.mark.parametrize("k", [2, 3, 5])
-def test_conv_core(dev, k):
-    xp = _randn(dev, 2, 11, 13, 8)
-    wf = _randn(dev, k * k * 8, 12, scale=0.1, seed=1)
-    ct = _randn(dev, 2, 12 - k, 14 - k, 12, seed=2)
+@pytest.mark.parametrize("k,dtype", [
+    *(pytest.param(k, torch.float32, id=str(k)) for k in (2, 3, 5)),
+    *(pytest.param(k, torch.bfloat16, id=f"{k}-bf16") for k in (2, 3, 5))])
+def test_conv_core(dev, k, dtype):
+    """The VALID stride-1 conv, its output and gradients against autograd
+    of the plain version: within 1e-5 relative in fp32, 1 bf16 ulp in bf16
+    (forward and weight gradient on wgmma, input gradient on the FMA
+    core)."""
+    xp = _randn(dev, 2, 11, 13, 8).to(dtype)
+    wf = _randn(dev, k * k * 8, 12, scale=0.1, seed=1).to(dtype)
+    ct = _randn(dev, 2, 12 - k, 14 - k, 12, seed=2).to(dtype)
     before = conv_core.launches
     got = _grads(lambda a, b: conv_core(a, b, k, k), (xp, wf), ct)
     assert conv_core.launches == before + 3
     want = _grads(lambda a, b: conv_core_reference(a, b, k, k), (xp, wf), ct)
     for u, v in zip(got, want):
-        _rel_close(u, v, rel=1e-5)
+        if dtype == torch.float32:
+            _rel_close(u, v, rel=1e-5)
+        else:
+            _ulps_close(u, v)
 
 
 def test_generator_launches_per_apply(dev):
@@ -471,7 +480,14 @@ def test_conv7_bf16(dev, pad_mode):
                 conv7_wgrad_reference(x, dy, pad_mode))
 
 
-@pytest.mark.parametrize("shape,cout", _S2_SHAPES)
+# In bf16 the forward and weight gradient run on the tensor cores (wgmma):
+# the ragged shapes (C % 8 == 4 takes 8-byte A pieces; F = 4, 12 and 68 take
+# B by cp.async, the others by TMA) and both path shapes at batch 2, d128
+# and d256, where the 128-pixel M tiles cross image boundaries and the
+# 3-stage ring wraps over all 9 and 18 K chunks. The dgrad stays on the FMA
+# core.
+@pytest.mark.parametrize("shape,cout", _S2_SHAPES + [
+    ((2, 256, 256, 64), 128), ((2, 128, 128, 128), 256)])
 def test_conv3s2_bf16(dev, shape, cout):
     cin = shape[-1]
     x = _randn(dev, *shape).to(BF)
@@ -479,9 +495,18 @@ def test_conv3s2_bf16(dev, shape, cout):
     b = _randn(dev, cout, scale=0.1, seed=2).to(BF)
     dy = _randn(dev, shape[0], shape[1] // 2, shape[2] // 2, cout,
                 seed=3).to(BF)
-    _ulps_close(conv3s2(x, w, b), conv3s2_reference(x, w, b))
-    _ulps_close(conv3s2_dgrad(dy, w), conv3s2_dgrad_reference(dy, w))
-    _ulps_close(conv3s2_wgrad(x, dy), conv3s2_wgrad_reference(x, dy))
+    before = (conv3s2.launches, conv3s2_dgrad.launches, conv3s2_wgrad.launches)
+    y = conv3s2(x, w, b)
+    dx = conv3s2_dgrad(dy, w)
+    dw = conv3s2_wgrad(x, dy)
+    assert (conv3s2.launches, conv3s2_dgrad.launches,
+            conv3s2_wgrad.launches) == tuple(n + 1 for n in before)
+    _ulps_close(y, conv3s2_reference(x, w, b))
+    _ulps_close(conv3s2(x, w, None), conv3s2_reference(x, w, None))
+    _ulps_close(dx, conv3s2_dgrad_reference(dy, w))
+    _ulps_close(dw, conv3s2_wgrad_reference(x, dy))
+    assert torch.equal(y, conv3s2(x, w, b))
+    assert torch.equal(dw, conv3s2_wgrad(x, dy))
 
 
 def test_bf16_operands_are_checked(dev):

@@ -2,9 +2,14 @@
 ``CycleGANTrainer`` in bf16 (``model.compute_dtype=bfloat16``, every
 preset's default), from one carried state, with the same draws.
 
-One JAX state (``make_mesh(1)``) crosses into the port through
-``uig_torch.convert``: JAX's bf16 replay pools are widened to fp32 numpy
-arrays (exact) and held as bf16 by the port. Both packages take ``STEPS``
+One state, drawn by the port's ``init_state`` and placed into JAX's
+``CycleGANState`` as ``tests/test_torch_cyclegan_step.py`` does (JAX's own
+eager init costs about a minute of compiles on one core), crosses from JAX
+(``make_mesh(1)``) into the port through ``uig_torch.convert``: JAX's bf16
+replay pools are widened to fp32 numpy arrays (exact) and held as bf16 by
+the port. JAX's step keeps XLA's default compile options: with backend
+optimization off its bf16 results move (the port's bf16 gap to it grew
+from 0.205 to 0.216 of the G gradient). Both packages take ``STEPS``
 steps on the same uint8 batches with the JAX step's crop offsets, flips,
 pool slots and coins. The port also takes the same steps in fp32 from the
 same state, the yardstick for what bf16 itself moves. The port runs on the
@@ -98,19 +103,36 @@ def jax_draws(state, step: int, batch: int, load: int, crop: int,
     return out
 
 
+def jax_state_from_port(jtr, port_state, key):
+    """The port's state as JAX's ``CycleGANState`` on ``jtr``'s mesh: the
+    structure and dtypes (bf16 pools) from ``jax.eval_shape`` of JAX's init
+    (a trace, no compile), the values from ``jax_flat_from_state``, the key
+    ``key``."""
+    abstract = jax.eval_shape(jtr._abstract_state, key)
+    flat = jax_flat_from_state(port_state)
+    flat["rng"] = np.asarray(key)
+    flat["ada_p"] = np.float32(jtr.cfg.loss.ada_p_init)
+    tree = serialization.from_state_dict(abstract, traverse_util.unflatten_dict(
+        flat, sep="/"))
+    tree = jax.tree_util.tree_map(lambda a, v: np.asarray(v, a.dtype),
+                                  abstract, tree)
+    return jax.device_put(tree, jtr.state_shardings())
+
+
 @pytest.fixture(scope="module")
 def runs():
     jcfg = jax_apply_overrides(jax_get_preset("cyclegan256_dp"), OVERRIDES)
     jtr = JaxTrainer(jcfg, make_mesh(1))
-    jstate = jtr.init_state(jax.random.PRNGKey(0))
-    rng = np.random.default_rng(DATA_SEED)
-    batches = [tuple(rng.integers(0, 256, (2, 36, 36, 3), dtype=np.uint8)
-                     for _ in range(2)) for _ in range(STEPS)]
-    flat0 = _flat(jstate)
     cfg = apply_overrides(get_preset("cyclegan256_dp"), OVERRIDES)
     port = {"bf16": CycleGANTrainer(cfg, device="cpu"),
             "fp32": CycleGANTrainer(apply_overrides(
                 cfg, ["model.compute_dtype=float32"]), device="cpu")}
+    jstate = jax_state_from_port(jtr, port["bf16"].init_state(0),
+                                 jax.random.PRNGKey(0))
+    rng = np.random.default_rng(DATA_SEED)
+    batches = [tuple(rng.integers(0, 256, (2, 36, 36, 3), dtype=np.uint8)
+                     for _ in range(2)) for _ in range(STEPS)]
+    flat0 = _flat(jstate)
     states = {"bf16": state_from_jax_flat(flat0, pool_dtype=torch.bfloat16),
               "fp32": state_from_jax_flat(flat0)}
     out = {"jax": [], "jax_metrics": [],

@@ -1,7 +1,9 @@
 """The port's CycleGAN training step against the JAX ``CycleGANTrainer``.
 
-One JAX state (``make_mesh(1)``, fp32 compute) is carried into the port
-through ``uig_torch.convert``; both packages then take 3 steps on the same
+One state, drawn by the port's ``init_state`` and placed into the structure
+of JAX's ``CycleGANState`` (``jax_state_from_port``), is carried back into
+the port through ``uig_torch.convert`` from JAX's own arrays (``make_mesh(1)``,
+fp32 compute); both packages then take 3 steps on the same
 uint8 batches with the same draws: the port is given the crop offsets,
 flips, pool slots and coins that the JAX step derives from its key. The
 small configuration crosses the pool's warmup boundary (pool 3, batch 2)
@@ -32,6 +34,13 @@ about a million such elements. The batches come from ``DATA_SEED``, for
 which no such element is hit in these three steps (of seeds 0-11, seven
 run clean); the comparison of the PyTorch side is single-threaded, so that
 its rounding does not vary from run to run.
+
+The state is drawn by the port rather than by JAX's ``init_state``, as
+``tests/test_torch_vqgan_step.py`` does: that runs flax's initializers
+eagerly, one XLA compile per op and parameter shape (about a minute on one
+core), and the step's comparison needs only one state that both packages
+hold. JAX's step is compiled once with XLA's backend optimization off, as
+there: about half its compile time.
 """
 
 import jax
@@ -94,20 +103,41 @@ def jax_draws(state, step: int, batch: int, load: int, crop: int,
     return out
 
 
+def jax_state_from_port(jtr, port_state, key):
+    """The port's state as JAX's ``CycleGANState`` on ``jtr``'s mesh: the
+    structure and dtypes from ``jax.eval_shape`` of JAX's init (a trace, no
+    compile), the values from ``jax_flat_from_state``, the key ``key``."""
+    abstract = jax.eval_shape(jtr._abstract_state, key)
+    flat = jax_flat_from_state(port_state)
+    flat["rng"] = np.asarray(key)
+    flat["ada_p"] = np.float32(jtr.cfg.loss.ada_p_init)
+    tree = serialization.from_state_dict(abstract, traverse_util.unflatten_dict(
+        flat, sep="/"))
+    tree = jax.tree_util.tree_map(lambda a, v: np.asarray(v, a.dtype),
+                                  abstract, tree)
+    return jax.device_put(tree, jtr.state_shardings())
+
+
 @pytest.fixture(scope="module")
 def runs():
     jcfg = jax_apply_overrides(jax_get_preset("cyclegan256_dp"), OVERRIDES)
     jtr = JaxTrainer(jcfg, make_mesh(1))
-    jstate = jtr.init_state(jax.random.PRNGKey(0))
+    ptr = CycleGANTrainer(apply_overrides(get_preset("cyclegan256_dp"),
+                                          OVERRIDES), device="cpu")
+    jstate = jax_state_from_port(jtr, ptr.init_state(0),
+                                 jax.random.PRNGKey(0))
     rng = np.random.default_rng(DATA_SEED)
     batches = [tuple(rng.integers(0, 256, (2, 36, 36, 3), dtype=np.uint8)
                      for _ in range(2)) for _ in range(STEPS)]
     flat0 = _flat(jstate)
 
-    ptr = CycleGANTrainer(apply_overrides(get_preset("cyclegan256_dp"),
-                                          OVERRIDES), device="cpu")
     pstate = state_from_jax_flat(flat0, seed=0)
     jax_flats, port_flats, jm, pm, pgrads = [], [], [], [], []
+    # the trainer's jitted step, compiled once with XLA's backend
+    # optimization off, as tests/test_torch_vqgan_step.py does: the same
+    # program, less compile time
+    jax_step = jtr._train_step.lower(jstate, *batches[0]).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
     threads = torch.get_num_threads()
     # one thread: PyTorch's multi-threaded CPU conv backward does not sum
     # in a fixed order, so its rounding would vary from process to process
@@ -118,7 +148,7 @@ def runs():
             draws = jax_draws(jstate, step, 2, 36, 32, counts)
             if step == 0:
                 draws0 = draws
-            jstate, metrics = jtr.train_step(jstate, batches[step])
+            jstate, metrics = jax_step(jstate, *batches[step])
             jm.append({k: float(v) for k, v in metrics.items()})
             jax_flats.append(_flat(jstate))
             # train_step's two halves, so that the gradients can be read

@@ -26,7 +26,8 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tools").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_uig_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
@@ -67,3 +68,40 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_counts_launches_by_function():
+    cs = _chip_smoke()
+    calls = cs.launches_by_function({
+        "void (anonymous namespace)::conv_fwd_wgmma_kernel<16, 0>"
+        "(__nv_bfloat16 const*, int)": 3,
+        "void (anonymous namespace)::conv_fwd_wgmma_kernel<8, 8>"
+        "(__nv_bfloat16 const*, int)": 2,
+        "void (anonymous namespace)::conv_fwd_kernel<128>(float const*)": 1,
+        "sm90_xmma_gemm_bf16bf16_bf16f32": 4})
+    assert calls == {"conv_fwd_wgmma_kernel": 5, "conv_fwd_kernel": 1,
+                     "sm90_xmma_gemm_bf16bf16_bf16f32": 4}
+
+
+@pytest.mark.parametrize("ran", ["fma", "wgmma"])
+def test_chip_smoke_reads_the_design_that_ran(ran):
+    cs = _chip_smoke()
+    calls = {by[ran][0]: cs.PER_STEP[name]
+             for name, by in cs.DESIGNS.items()}
+    assert cs.designs_run(calls, "train") == {n: ran for n in cs.DESIGNS}
+    other = "fma" if ran == "wgmma" else "wgmma"
+    for name, by in cs.DESIGNS.items():
+        for bad in ({**calls, by[other][0]: 1},
+                    {**calls, by[ran][0]: cs.PER_STEP[name] - 1}):
+            with pytest.raises(AssertionError, match=name):
+                cs.designs_run(bad, "train")
