@@ -9,7 +9,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
 1. env: the card's name and power limit (nvidia-smi), torch/CUDA versions,
    and the time to build the CUDA kernels from ``src/uig_torch/csrc``.
 2. kernels: each CUDA kernel at the shapes the training step and the
-   generator give it, held against its plain PyTorch version on the card
+   generator give it (the norm cases' inputs drawn on the card), held
+   against its plain PyTorch version on the card
    (fp32, TF32 off) within a stated tolerance, and timed with CUDA events
    beside the plain version, one PyTorch library call computing the same
    function (a yardstick the port never calls), and the least time the card
@@ -94,8 +95,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PRESET = "cyclegan256_dp"
 TRAIN_OVERRIDES = ["model.compute_dtype=float32", "loss.lambda_lpips=0"]
-# cyclegan256_dp as published (bf16 compute), LPIPS off: its VGG/LPIPS
-# weights are not in the repository
+# cyclegan256_dp as published (bf16 compute), LPIPS off: the port has no
+# LPIPS yet (ROADMAP section 1, item 2)
 TRAIN_OVERRIDES_BF16 = ["loss.lambda_lpips=0"]
 BATCH = 8
 SEED = 0
@@ -178,9 +179,17 @@ SOURCES = {
 # functions its profiled training step launched (``designs_run``); every
 # other kernel has one design, "fma", in SOURCES.
 DESIGNS = {
+    "conv3_in_act": {
+        "fma": ("conv3_gemm_kernel", "src/uig_torch/csrc/conv3_in.cu"),
+        "wgmma": ("conv3_in_wgmma_kernel",
+                  "src/uig_torch/csrc/conv3_in_tc.cu")},
     "conv3s2": {
         "fma": ("conv_fwd_kernel", "src/uig_torch/csrc/conv3s2.cu"),
         "wgmma": ("conv_fwd_wgmma_kernel", "src/uig_torch/csrc/conv3s2_tc.cu")},
+    "conv3s2_dgrad": {
+        "fma": ("conv_dgrad_kernel", "src/uig_torch/csrc/conv3s2.cu"),
+        "wgmma": ("conv_dgrad_wgmma_kernel",
+                  "src/uig_torch/csrc/conv3s2_tc.cu")},
     "conv3s2_wgrad": {
         "fma": ("conv_wgrad_kernel", "src/uig_torch/csrc/conv3s2.cu"),
         "wgmma": ("conv_wgrad_wgmma_kernel",
@@ -319,20 +328,29 @@ def _ulp_check(out, ref):
     return err, err / bf16_ulp(ref.abs().max().item()), {}
 
 
-def _norm_bwd_check(x, g, b, relu):
-    """dx where the recomputed pre-activation is >= 1e-4 from 0 (at the ReLU
-    kink either side is right), dgamma and dbeta relative to their max. In
-    bf16, dx in ulps of its largest magnitude and dgamma/dbeta (fp32) as the
-    fraction of their fp32 tolerance, so that 1 is the limit of each."""
+def _norm_bwd_check(x, g, b, dy, relu):
+    """The norm backward's three outputs against the plain version's. With
+    a fused ReLU, an element whose recomputed pre-activation lies within
+    1e-4 of 0 sits at the kink, where either side is right: dx is compared
+    elsewhere, and dgamma/dbeta are held per channel to the tolerance plus
+    what those elements can move them by, sum |dy x_hat| and sum |dy| over
+    them. dgamma and dbeta relative to their max; in bf16, dx in ulps of its
+    largest magnitude and dgamma/dbeta (fp32) as the fraction of their fp32
+    tolerance, so that 1 is the limit of each."""
     import torch
 
     from uig_torch.kernels import instance_norm_reference
 
-    keep = None
+    keep, slack_g, slack_b = None, 0.0, 0.0
     if relu:
         xn = instance_norm_reference(x.float(), torch.ones_like(g),
                                      torch.zeros_like(b))
-        keep = (xn * g + b).abs() >= 1e-4
+        kink = (xn * g + b).abs() < 1e-4
+        keep = ~kink
+        dyk = torch.where(kink, dy.float(), 0.0)
+        slack_b = dyk.abs().sum(dim=(0, 1, 2))
+        slack_g = (dyk * xn).abs().sum(dim=(0, 1, 2))
+        del xn, dyk
     bf16 = x.dtype == torch.bfloat16
 
     def check(out, ref):
@@ -342,16 +360,23 @@ def _norm_bwd_check(x, g, b, relu):
             dx, rdx = dx[keep], rdx[keep]
         ex = max_err(dx, rdx)
         eg, eb = max_err(dg, rdg), max_err(db, rdb)
-        rg = eg / max(rdg.abs().max().item(), 1e-30)
-        rb = eb / max(rdb.abs().max().item(), 1e-30)
+        sg = max(rdg.abs().max().item(), 1e-30)
+        sb = max(rdb.abs().max().item(), 1e-30)
+        rg = ((dg - rdg).abs() - slack_g).clamp(min=0).max().item() / sg
+        rb = ((db - rdb).abs() - slack_b).clamp(min=0).max().item() / sb
         if bf16:
             tol = TOL["instance_norm_bwd"]
             checked = max(ex / bf16_ulp(rdx.abs().max().item()), rg / tol,
                           rb / tol)
         else:
             checked = max(ex, rg, rb)
-        skipped = 0 if keep is None else int((~keep).sum().item())
-        return max(ex, eg, eb), checked, {"dx_elements_at_relu_kink": skipped}
+        extra = {"dx_elements_at_relu_kink": (
+            0 if keep is None else int((~keep).sum().item()))}
+        if keep is not None:
+            extra["kink_slack_rel"] = {
+                "dgamma": float(slack_g.max()) / sg,
+                "dbeta": float(slack_b.max()) / sb}
+        return max(ex, eg, eb), checked, extra
     return check
 
 
@@ -403,9 +428,15 @@ def kernel_cases(dev, dtype: str = "float32"):
     dt = getattr(torch, dtype)
     isz = 4.0 if dtype == "float32" else 2.0
     g = torch.Generator(device="cpu").manual_seed(SEED)
+    g_dev = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape, scale=1.0, shift=0.0, t=dt):
         return (torch.randn(*shape, generator=g) * scale + shift).to(dev, t)
+
+    def randn_dev(*shape, scale=1.0, shift=0.0, t=dt):
+        """Drawn on the card (the norm cases' large planes)."""
+        return (torch.randn(*shape, generator=g_dev, device=dev) * scale
+                + shift).to(t)
 
     def case(*args, **kw):
         return _case(*args, dtype=dtype, **kw)
@@ -442,9 +473,9 @@ def kernel_cases(dev, dtype: str = "float32"):
              ((31, 512), False, 0, 2, 0)]
     for nb in (2 * BATCH, BATCH):
         for (h, c), relu, per_apply, per_step, conv_bwd in norms:
-            x = randn(nb, h, h, c, scale=2.0, shift=0.5)
-            ga = randn(c, scale=0.1, shift=1.0, t=torch.float32)
-            be = randn(c, scale=0.1, t=torch.float32)
+            x = randn_dev(nb, h, h, c, scale=2.0, shift=0.5)
+            ga = randn_dev(c, scale=0.1, shift=1.0, t=torch.float32)
+            be = randn_dev(c, scale=0.1, t=torch.float32)
             n = x.numel()
             label = f"({nb},{h},{h},{c}) relu={relu}"
             if per_step:
@@ -458,7 +489,7 @@ def kernel_cases(dev, dtype: str = "float32"):
                     lambda x=x, ga=ga, be=be: F.instance_norm(
                         x.permute(0, 3, 1, 2), weight=ga, bias=be, eps=1e-5),
                     2 * isz * n, 6.0 * n)
-            dy = randn(nb, h, h, c)
+            dy = randn_dev(nb, h, h, c)
             xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
             gl = ga.detach().requires_grad_(True)
             bl = be.detach().requires_grad_(True)
@@ -474,7 +505,8 @@ def kernel_cases(dev, dtype: str = "float32"):
                 instance_norm_bwd_reference(x, ga, be, dy, relu=r),
                 lambda yl=yl, xl=xl, gl=gl, bl=bl, dyl=dyl: torch.autograd.grad(
                     yl, (xl, gl, bl), dyl, retain_graph=True),
-                3 * isz * n, 14.0 * n, check=_norm_bwd_check(x, ga, be, relu))
+                3 * isz * n, 14.0 * n,
+                check=_norm_bwd_check(x, ga, be, dy, relu))
             del x, dy, xl, yl
     # conv3 + IN forward: the 18 trunk pairs of each apply, half with ReLU
     h, c = 64, 256
@@ -1194,24 +1226,35 @@ def phase_slice(weights: str):
 
 def profile_call(fn, phase: str, calls: bool = False) -> dict:
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    and the share of the call's wall time that the card was busy; with
-    ``calls``, also the launches by CUDA function name."""
+    and the share of the call's wall time that the card was busy; the
+    host's issue time (until ``fn`` returns, before the synchronize) and
+    the host time spent in the runtime's launch calls, both with the
+    profiler on; with ``calls``, also the launches by CUDA function
+    name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict = {}
+    launch_api = [0, 0.0]
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        elif e.name.startswith(("cudaLaunch", "cuLaunch")):
+            launch_api[0] += 1
+            launch_api[1] += e.time_range.elapsed_us()
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    out = {"phase": phase, "wall_ms": wall_ms,
+    out = {"phase": phase, "wall_ms": wall_ms, "host_issue_ms": host_ms,
+           "launch_api_calls": launch_api[0],
+           "launch_api_ms": (launch_api[1] / 1e3 if launch_api[0]
+                             else "not measured"),
            "device_busy_ms": busy_ms if by_name else "not measured",
            "device_busy_share": (busy_ms / wall_ms if by_name
                                  else "not measured"),
@@ -1221,6 +1264,22 @@ def profile_call(fn, phase: str, calls: bool = False) -> dict:
     if calls:
         out["calls"] = launches_by_function(
             {k: n for k, (n, _) in by_name.items()})
+    return out
+
+
+def wgmma_ptxas(log: list) -> list:
+    """The wgmma kernels' entry points (a name holding "wgmma") with the
+    registers and spills that ptxas reported for each, from the build
+    log's per-source sections."""
+    out, keep = [], False
+    for sec in log:
+        for ln in sec.splitlines():
+            if "entry function" in ln:
+                keep = "wgmma" in ln
+            if keep and ("entry function" in ln or "registers" in ln
+                         or "spill" in ln):
+                out.append(ln.strip())
+        keep = False
     return out
 
 
@@ -1535,12 +1594,7 @@ def main() -> int:
         if "log" in _build.build_info else []
     ptxas = [ln.strip() for sec in log for ln in sec.splitlines()
              if "registers" in ln or "spill" in ln]
-    # the wgmma kernels' entry points with their registers and spills
-    ptxas_wgmma = [ln.strip() for sec in log
-                   if sec.lstrip("= ").startswith("conv3s2_tc.cu")
-                   for ln in sec.splitlines()
-                   if "entry function" in ln or "registers" in ln
-                   or "spill" in ln]
+    ptxas_wgmma = wgmma_ptxas(log)
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_seconds": build_s, "build_cached": _build.build_info["cached"],

@@ -10,26 +10,30 @@
 //
 // Bound on this card: operations. At (8, 64, 64, 256) -> 256 the conv is
 // 38.7 GFLOP: about 0.58 ms at the H100 SXM data-sheet 67 TFLOP/s fp32
-// (700 W), while its ~70 MB of reads and writes take about 20 us. The serving
-// path is fp32 at "highest" precision, so this kernel uses fp32 FMAs and not
-// the TF32 tensor cores (TF32 would break parity with the JAX reference).
-// The bf16 variant runs the same fp32 FMAs on widened values; its bound at
-// the data-sheet's 989 TFLOP/s bf16 tensor-core rate is ~0.04 ms, which this
-// design does not approach (a later redesign's work).
+// (700 W), while its ~70 MB of reads and writes take about 20 us.
 //
-// Design: an implicit GEMM. Output pixels of one image are the M dimension,
-// output channels N, and the (3, 3, C) window K = 9C, read straight from the
-// HWIO weights as a (9C, F) row-major matrix. Each 256-thread block computes
-// a 128-pixel x 128-channel tile, 8 x 8 outputs per thread, stepping K by 8
-// through two small shared-memory tiles. The A loader gathers the window
-// with reflect padding as index mirroring (row -1 -> row 1, row H -> H-2), or
-// a masked zero load, so no padded tensor is ever materialized. A 4-channel
-// run never crosses a tap because C % 4 == 0, so it is one 4-wide load.
-// The epilogue adds the bias, rounds to the storage type, writes y_conv,
-// and sums the rounded y and y^2 per channel
-// over the tile's pixels in a fixed order into a (2, B, tiles, F) scratch:
-// deterministic, no float atomics. in_common.cuh then reduces those partials
-// and normalizes y_conv into the output, as the instance norm kernel does.
+// Two designs, chosen by the storage type. fp32 (this file): the serving
+// path is fp32 at "highest" precision, so the conv runs fp32 FMAs and not
+// the TF32 tensor cores (TF32 would break parity with the JAX reference).
+// bf16 (csrc/conv3_in_tc.cu, launched from the entry point below): the
+// same FLOPs take ~0.04 ms at the data-sheet's 989 TFLOP/s bf16 tensor-core
+// rate, so the conv issues wgmma on the ring of csrc/wgmma.cuh, with the
+// same partials and the same finalize; that file states its bound and
+// design.
+//
+// FMA design (fp32): an implicit GEMM. Output pixels of one image are the M
+// dimension, output channels N, and the (3, 3, C) window K = 9C, read
+// straight from the HWIO weights as a (9C, F) row-major matrix. Each
+// 256-thread block computes a 128-pixel x 128-channel tile, 8 x 8 outputs
+// per thread, stepping K by 8 through two small shared-memory tiles. The A
+// loader gathers the window with reflect padding as index mirroring (row
+// -1 -> row 1, row H -> H-2), or a masked zero load, so no padded tensor is
+// ever materialized. A 4-channel run never crosses a tap because
+// C % 4 == 0, so it is one 4-wide load. The epilogue adds the bias, writes
+// y_conv, and sums y and y^2 per channel over the tile's pixels in a fixed
+// order into a (2, B, tiles, F) scratch: deterministic, no float atomics.
+// in_common.cuh then reduces those partials and normalizes y_conv into the
+// output, as the instance norm kernel does.
 #include <cuda_runtime.h>
 
 #include "dtype.cuh"
@@ -203,8 +207,17 @@ cudaError_t fwd(const T* x, const T* w, const float* bias, const float* gamma,
 
 }  // namespace
 
+// The tensor-core conv of csrc/conv3_in_tc.cu, with its finalize.
+cudaError_t conv3_in_fwd_bf16_wgmma(const void* x, const void* w,
+                                    const float* bias, const float* gamma,
+                                    const float* beta, void* yconv, void* y,
+                                    float* part, float* ss, int B, int H,
+                                    int W, int C, int F, int reflect,
+                                    int relu, float eps, cudaStream_t stream);
+
 // x: (B, H, W, C), w: (9C, F) from HWIO (3, 3, C, F), yconv, y: (B, H, W,
-// F), all fp32, or all bf16 when is_bf16. bias/gamma/beta (F,) fp32.
+// F), all fp32 (FMA design), or all bf16 when is_bf16 (wgmma). bias/gamma/
+// beta (F,) fp32.
 // part: (2, B, tiles, F) fp32 with tiles = ceil(H*W / 128); ss: (2, B, F)
 // fp32. C % 4 == 0, F % 4 == 0.
 extern "C" cudaError_t uig_conv3_in_fwd(const void* x, const void* w,
@@ -215,10 +228,9 @@ extern "C" cudaError_t uig_conv3_in_fwd(const void* x, const void* w,
                                         int reflect, int relu, float eps,
                                         int is_bf16, cudaStream_t stream) {
   if (is_bf16)
-    return fwd<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                     bias, gamma, beta, static_cast<bf16*>(yconv),
-                     static_cast<bf16*>(y), part, ss, B, H, W, C, F, reflect,
-                     relu, eps, stream);
+    return conv3_in_fwd_bf16_wgmma(x, w, bias, gamma, beta, yconv, y, part,
+                                   ss, B, H, W, C, F, reflect, relu, eps,
+                                   stream);
   return fwd<float>(static_cast<const float*>(x), static_cast<const float*>(w),
                     bias, gamma, beta, static_cast<float*>(yconv),
                     static_cast<float*>(y), part, ss, B, H, W, C, F, reflect,

@@ -19,13 +19,14 @@
 // 2 * 16 * 128^2 * 128 * 9 * 64 = 3.87e10 FLOP (dgrad and wgrad the same):
 // 0.58 ms at the H100 SXM data-sheet 67 TFLOP/s fp32 FMA rate (700 W).
 //
-// Two designs. In bf16 the forward and the weight gradient run on the
-// tensor cores (wgmma, fp32 accumulators): csrc/conv3s2_tc.cu, launched
-// from the entry points below, holds them with their bound and design. This
-// file holds the FMA core: the fp32 forward and weight gradient, and the
-// input gradient in fp32 and bf16. In bf16 the same FLOPs take 0.039 ms at
-// the 989 TFLOP/s tensor-core rate, so the bf16 dgrad, on fp32 FMAs here,
-// reads low against its bound.
+// Two designs, chosen by the storage type. In bf16 all three run on the
+// tensor cores (wgmma, fp32 accumulators; bound 0.039 ms a path shape at
+// batch 16 at the 989 TFLOP/s bf16 rate): csrc/conv3s2_tc.cu, launched from
+// the entry points below, holds them with their bound and design; its
+// dgrad keeps this file's gather by stride-parity class. This file holds
+// the FMA core, which runs the fp32 forward, input gradient and weight
+// gradient (the serving path is fp32 with TF32 off), and the reduce pass
+// of both weight gradients.
 //
 // FMA core: K3's implicit GEMM (csrc/conv3_in.cu): a block computes a
 // 128 x BN tile (BN 128, or 64 when the N side is at most 64), 8 x 8
@@ -37,14 +38,14 @@
 //        straight from the HWIO weights as a (k k C, F) row-major matrix;
 //        the A loader gathers the strided window with zero padding as a
 //        masked load; the bias is added before the store.
-//   dgrad: the adjoint. A dx pixel (i, j) receives the outputs whose window
-//        holds it: the taps di with stride | (i + pad - di), which depend
-//        only on (i mod stride, j mod stride). A block owns one such parity
-//        class (stride^2 classes, 1 for stride 1): M = the class's pixels,
-//        N = C, K = (tap of the class, o), B the rows of wt. For the 3x3
-//        stride-2 pad-1 conv the classes have 1 x 1, 1 x 2, 2 x 1 and 2 x 2
-//        taps: a gather in a fixed order, with no atomics and no
-//        zero-stuffed dy, and no multiply by a structural zero.
+//   dgrad (fp32): the adjoint. A dx pixel (i, j) receives the outputs
+//        whose window holds it: the taps di with stride | (i + pad - di),
+//        which depend only on (i mod stride, j mod stride). A block owns
+//        one such parity class (stride^2 classes, 1 for stride 1): M = the
+//        class's pixels, N = C, K = (tap of the class, o), B the rows of
+//        wt. For the 3x3 stride-2 pad-1 conv the classes have 1 x 1, 1 x 2,
+//        2 x 1 and 2 x 2 taps: a gather in a fixed order, with no atomics
+//        and no zero-stuffed dy, and no multiply by a structural zero.
 //   wgrad (fp32): M = (tap, c) (k k C rows), N = F, K = pixels of the
 //        whole batch. The pixels are cut into chunks; each block sums its
 //        chunk in order into a partial (chunks, k k C, F) in fp32, and a
@@ -462,6 +463,9 @@ cudaError_t conv_wgrad_bf16_wgmma(const void* x, const void* dy, float* part,
                                   int B, int H, int W, int C, int F, int k,
                                   int stride, int pad, int chunks,
                                   int per_chunk, cudaStream_t stream);
+cudaError_t conv_dgrad_bf16_wgmma(const void* dy, const void* wt, void* dx,
+                                  int B, int H, int W, int C, int F, int k,
+                                  int stride, int pad, cudaStream_t stream);
 
 // x: (B, H, W, C); w: HWIO (k, k, C, F) = a (k k C, F) matrix; bias: (F,)
 // or null; y: (B, Ho, Wo, F); all fp32 (FMA core), or all bf16 when
@@ -482,17 +486,16 @@ extern "C" cudaError_t uig_conv_fwd(const void* x, const void* w,
 }
 
 // dy: (B, Ho, Wo, F); wt: (k, k, F, C), the forward's w with its last two
-// axes swapped; dx: (B, H, W, C); all fp32, or all bf16 when is_bf16.
+// axes swapped; dx: (B, H, W, C); all fp32 (FMA core), or all bf16 when
+// is_bf16 (wgmma).
 extern "C" cudaError_t uig_conv_dgrad(const void* dy, const void* wt,
                                       void* dx, int B, int H, int W, int C,
                                       int F, int k, int stride, int pad,
                                       int is_bf16, cudaStream_t stream) {
   if (bad_shape(C, F, k, stride, pad)) return cudaErrorInvalidValue;
   if (is_bf16)
-    return C <= 64 ? dgrad<bf16, 64>(dy, wt, dx, B, H, W, C, F, k, stride,
-                                     pad, stream)
-                   : dgrad<bf16, 128>(dy, wt, dx, B, H, W, C, F, k, stride,
-                                      pad, stream);
+    return conv_dgrad_bf16_wgmma(dy, wt, dx, B, H, W, C, F, k, stride, pad,
+                                 stream);
   return C <= 64 ? dgrad<float, 64>(dy, wt, dx, B, H, W, C, F, k, stride,
                                     pad, stream)
                  : dgrad<float, 128>(dy, wt, dx, B, H, W, C, F, k, stride,

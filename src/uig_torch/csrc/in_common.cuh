@@ -2,7 +2,8 @@
 // reduction in a fixed order, and normalize + affine (+ReLU) elementwise.
 //
 // Used by instance_norm.cu and instance_norm_bwd.cu (moments from a reduction
-// pass over x) and by conv3_in.cu (moments from the conv epilogue). All write
+// pass over x) and by conv3_in.cu and conv3_in_tc.cu (moments from the conv
+// epilogue). All write
 // their partial sums as a (2, B, chunks, C) fp32 buffer: plane 0 holds
 // sum(x), plane 1 sum(x^2).
 // Activations are T (float or bf16, dtype.cuh); moments, scale, shift and

@@ -19,10 +19,9 @@ fp32 from the widened inputs and round once):
   * ``conv3s2_wgrad(x, dy)``: its weight gradient, (3, 3, Cin, Cout) in x's
     type.
 
-Two designs: in bf16 the forward and the weight gradient run on the
-tensor cores (``wgmma``, fp32 accumulators, ``csrc/conv3s2_tc.cu``); the
-fp32 launches and the bf16 input gradient run fp32 FMAs
-(``csrc/conv3s2.cu``).
+Two designs, chosen by the type: in bf16 all three run on the tensor
+cores (``wgmma``, fp32 accumulators, ``csrc/conv3s2_tc.cu``); in fp32 they
+run fp32 FMAs (``csrc/conv3s2.cu``).
 
 ``conv_core(xp, w_flat, kh, kw)`` is JAX's generic square VALID stride-1
 conv with flat (kh kw Cin, Cout) weights, differentiable, through the same

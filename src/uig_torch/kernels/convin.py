@@ -1,5 +1,6 @@
-"""Fused 3x3 conv + bias + instance norm (+ReLU): the CUDA kernel in
-``csrc/conv3_in.cu`` and its plain PyTorch version.
+"""Fused 3x3 conv + bias + instance norm (+ReLU): the CUDA kernels in
+``csrc/conv3_in.cu`` and ``csrc/conv3_in_tc.cu`` and their plain PyTorch
+version.
 
 Replaces the JAX package's ``kernels/convin_pallas.py`` forward
 (``_convin_fwd_impl`` -> ``_convin_kernel``): a pad-1 3x3 stride-1 conv
@@ -9,7 +10,10 @@ x is NHWC and w is HWIO (3, 3, C, F), which the kernel reads as the (9C, F)
 matrix of an implicit GEMM. x and w are fp32 or bf16 (one type); b, g and
 be fp32. In bf16 the conv sums in fp32, ``acc + b`` is rounded once to bf16
 for the conv output, and the moments come from those rounded values, as in
-the Pallas kernel.
+the Pallas kernel. Two designs, chosen by the type: fp32 runs fp32 FMAs
+(``conv3_in.cu``, TF32 stays off); bf16 runs the conv on the tensor cores
+(``wgmma``, exact products into fp32 accumulators, ``conv3_in_tc.cu``).
+Both write the same per-tile moment partials and share the finalize.
 
 The backward is the composition of ``convin_pallas.py``'s ``bwd``, which is
 XLA in JAX and no Pallas kernel: the instance norm backward (K2b,
@@ -31,7 +35,7 @@ from uig_torch.kernels._check import cuda_operand, on_cpu, storage_type
 from uig_torch.kernels.norm import instance_norm_bwd, instance_norm_reference
 from uig_torch.kernels.reflect import reflect_fold
 
-_BM = 128  # output pixels per conv tile (csrc/conv3_in.cu kBM)
+_BM = 128  # output pixels per conv tile, of one image (both designs)
 
 
 def _check_pad_mode(pad_mode: str) -> None:

@@ -67,8 +67,8 @@ def _refuse_unported(cfg) -> None:
         "ADA (loss.ada_target / loss.ada_p_init > 0)":
             loss.ada_target > 0 or loss.ada_p_init > 0,
         "opt.grad_accum > 1": opt.grad_accum > 1,
-        "loss.lambda_lpips > 0 (LPIPS needs pretrained weights the "
-        "repository does not hold)": loss.lambda_lpips > 0,
+        "loss.lambda_lpips > 0 (LPIPS, which needs no weight file: "
+        "ROADMAP section 1, item 2)": loss.lambda_lpips > 0,
     }
     for what, hit in unported.items():
         if hit:

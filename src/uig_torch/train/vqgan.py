@@ -64,8 +64,8 @@ def _refuse_unported(cfg) -> None:
     unported = {
         "model.fused_applies": cfg.model.fused_applies,
         "opt.grad_accum > 1": cfg.opt.grad_accum > 1,
-        "loss.lambda_lpips > 0 (LPIPS needs pretrained weights the "
-        "repository does not hold)": cfg.loss.lambda_lpips > 0,
+        "loss.lambda_lpips > 0 (LPIPS, which needs no weight file: "
+        "ROADMAP section 1, item 2)": cfg.loss.lambda_lpips > 0,
     }
     for what, hit in unported.items():
         if hit:

@@ -374,8 +374,7 @@ def test_conv3s2_function(dev):
 def test_conv_core(dev, k, dtype):
     """The VALID stride-1 conv, its output and gradients against autograd
     of the plain version: within 1e-5 relative in fp32, 1 bf16 ulp in bf16
-    (forward and weight gradient on wgmma, input gradient on the FMA
-    core)."""
+    (all three on wgmma)."""
     xp = _randn(dev, 2, 11, 13, 8).to(dtype)
     wf = _randn(dev, k * k * 8, 12, scale=0.1, seed=1).to(dtype)
     ct = _randn(dev, 2, 12 - k, 14 - k, 12, seed=2).to(dtype)
@@ -455,16 +454,31 @@ def test_instance_norm_bf16(dev, shape, relu):
     _rel_close(db, rdb)
 
 
-@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
-def test_conv3_in_act_bf16(dev, pad_mode):
-    x = _randn(dev, 2, 11, 13, 20).to(BF)
-    w = _randn(dev, 3, 3, 20, 12, scale=0.1, seed=1).to(BF)
-    b, g, be = (_randn(dev, 12, scale=0.1, seed=2),
-                _randn(dev, 12, scale=0.2, shift=1.0, seed=3),
-                _randn(dev, 12, scale=0.2, seed=4))
-    _ulps_close(conv3_in_act(x, w, b, g, be, relu=True, pad_mode=pad_mode),
-                conv3_in_act_reference(x, w, b, g, be, relu=True,
-                                       pad_mode=pad_mode), ulps=2)
+# In bf16 the conv runs on the tensor cores (wgmma): C = 20 takes 8-byte A
+# pieces and F = 12 and 132 B by cp.async; the path shape at batch 2,
+# (2, 64, 64, 256) -> 256, takes 16-byte pieces and B by TMA, and its
+# 36-stage K (9 taps x 4 chunks) wraps the 3-stage ring; C = 8 is one
+# ragged chunk. Repeats are bit-equal (the moments' order is fixed).
+@pytest.mark.parametrize("shape,f,pad_mode,relu", [
+    pytest.param((2, 11, 13, 20), 12, "reflect", True, id="reflect"),
+    pytest.param((2, 11, 13, 20), 12, "zeros", True, id="zeros"),
+    pytest.param((2, 64, 64, 256), 256, "reflect", True, id="path-reflect"),
+    pytest.param((2, 64, 64, 256), 256, "zeros", False, id="path-zeros"),
+    pytest.param((1, 16, 16, 8), 132, "reflect", False, id="c8-f132")])
+def test_conv3_in_act_bf16(dev, shape, f, pad_mode, relu):
+    c = shape[-1]
+    x = _randn(dev, *shape).to(BF)
+    w = _randn(dev, 3, 3, c, f, scale=0.1, seed=1).to(BF)
+    b, g, be = (_randn(dev, f, scale=0.1, seed=2),
+                _randn(dev, f, scale=0.2, shift=1.0, seed=3),
+                _randn(dev, f, scale=0.2, seed=4))
+    before = conv3_in_act.launches
+    y = conv3_in_act(x, w, b, g, be, relu=relu, pad_mode=pad_mode)
+    assert conv3_in_act.launches == before + 1
+    _ulps_close(y, conv3_in_act_reference(x, w, b, g, be, relu=relu,
+                                          pad_mode=pad_mode), ulps=2)
+    assert torch.equal(y, conv3_in_act(x, w, b, g, be, relu=relu,
+                                       pad_mode=pad_mode))
 
 
 @pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
@@ -480,12 +494,14 @@ def test_conv7_bf16(dev, pad_mode):
                 conv7_wgrad_reference(x, dy, pad_mode))
 
 
-# In bf16 the forward and weight gradient run on the tensor cores (wgmma):
-# the ragged shapes (C % 8 == 4 takes 8-byte A pieces; F = 4, 12 and 68 take
-# B by cp.async, the others by TMA) and both path shapes at batch 2, d128
-# and d256, where the 128-pixel M tiles cross image boundaries and the
-# 3-stage ring wraps over all 9 and 18 K chunks. The dgrad stays on the FMA
-# core.
+# In bf16 all three run on the tensor cores (wgmma): the ragged shapes
+# (forward and wgrad: C % 8 == 4 takes 8-byte A pieces, F = 4, 12 and 68 B
+# by cp.async; dgrad, whose A reads F channels and whose B rows are C
+# wide: F % 8 == 4 takes 8-byte pieces, C = 4, 36 and 132 B by cp.async,
+# C <= 64 the 64-wide ring) and both path shapes at batch 2, d128 (dgrad
+# on the 64-wide ring) and d256, where the 128-pixel M tiles cross image
+# boundaries and the 3-stage ring wraps over all 9 and 18 K chunks (the
+# dgrad's classes: 2 to 8 and 4 to 16).
 @pytest.mark.parametrize("shape,cout", _S2_SHAPES + [
     ((2, 256, 256, 64), 128), ((2, 128, 128, 128), 256)])
 def test_conv3s2_bf16(dev, shape, cout):
@@ -506,6 +522,7 @@ def test_conv3s2_bf16(dev, shape, cout):
     _ulps_close(dx, conv3s2_dgrad_reference(dy, w))
     _ulps_close(dw, conv3s2_wgrad_reference(x, dy))
     assert torch.equal(y, conv3s2(x, w, b))
+    assert torch.equal(dx, conv3s2_dgrad(dy, w))
     assert torch.equal(dw, conv3s2_wgrad(x, dy))
 
 

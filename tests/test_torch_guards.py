@@ -1,7 +1,8 @@
 """Guards of the port's boundaries: it imports nothing of JAX or the JAX
 package, it builds no kernel at import, its entry points need the card
 unless asked for the CPU, and chip_smoke.py refuses to report without the
-repository or a card."""
+repository or a card; and chip_smoke.py's own readings and checks on
+small CPU inputs."""
 
 import ast
 import os
@@ -96,6 +97,8 @@ def test_chip_smoke_counts_launches_by_function():
 @pytest.mark.parametrize("ran", ["fma", "wgmma"])
 def test_chip_smoke_reads_the_design_that_ran(ran):
     cs = _chip_smoke()
+    assert set(cs.DESIGNS) == {"conv3_in_act", "conv3s2", "conv3s2_dgrad",
+                               "conv3s2_wgrad"}
     calls = {by[ran][0]: cs.PER_STEP[name]
              for name, by in cs.DESIGNS.items()}
     assert cs.designs_run(calls, "train") == {n: ran for n in cs.DESIGNS}
@@ -105,3 +108,57 @@ def test_chip_smoke_reads_the_design_that_ran(ran):
                     {**calls, by[ran][0]: cs.PER_STEP[name] - 1}):
             with pytest.raises(AssertionError, match=name):
                 cs.designs_run(bad, "train")
+
+
+def test_chip_smoke_lists_the_wgmma_kernels_ptxas():
+    cs = _chip_smoke()
+    log = ["conv3_in.cu\n"
+           "ptxas info : Compiling entry function '_Z17conv3_gemm_kernel'\n"
+           "ptxas info : Used 128 registers\n",
+           "conv3_in_tc.cu\n"
+           "ptxas info : Compiling entry function '_Z21conv3_in_wgmma_kernel'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info : Used 120 registers\n"
+           "ptxas info : Compiling entry function '_Z16in_apply_kernel'\n"
+           "ptxas info : Used 30 registers\n"]
+    assert cs.wgmma_ptxas(log) == [
+        "ptxas info : Compiling entry function '_Z21conv3_in_wgmma_kernel'",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info : Used 120 registers"]
+
+
+@pytest.mark.parametrize("case", ["plain", "kink_flipped", "past_the_bound"])
+def test_chip_smoke_norm_bwd_check_bounds_dgamma_dbeta_by_the_kink(case):
+    """With a fused ReLU, an element whose pre-activation sits at the kink
+    may take either side in a correct kernel, and dgamma/dbeta move by its
+    share: the check passes the plain version's outputs and outputs with
+    the kink element flipped, and fails a dbeta moved past that share."""
+    import torch
+
+    from uig_torch.kernels import (instance_norm_bwd_reference,
+                                   instance_norm_reference)
+
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 5, 3, generator=gen)
+    g = 1.0 + 0.1 * torch.randn(3, generator=gen)
+    dy = torch.randn(2, 4, 5, 3, generator=gen)
+    # channel 1's pre-activation is exactly 0 at pixel (1, 2, 3)
+    xn = instance_norm_reference(x, torch.ones(3), torch.zeros(3))
+    b = 0.1 * torch.randn(3, generator=gen)
+    b[1] = -(xn[1, 2, 3, 1] * g[1])
+    k = (1, 2, 3, 1)
+    assert (xn * g + b)[k] == 0
+    ref = instance_norm_bwd_reference(x, g, b, dy, relu=True)
+    dx, dg, db = (t.clone() for t in ref)
+    tol = cs.TOL["instance_norm_bwd"]
+    if case == "kink_flipped":  # the other side of the kink: +-dy there
+        side = 1.0 if (xn * g + b)[k] > 0 else -1.0
+        db[1] -= side * dy[k]
+        dg[1] -= side * dy[k] * xn[k]
+    elif case == "past_the_bound":
+        db[1] += dy[k].abs() + 2 * tol * ref[2].abs().max()
+    _, checked, extra = cs._norm_bwd_check(x, g, b, dy, relu=True)(
+        (dx, dg, db), ref)
+    assert extra["dx_elements_at_relu_kink"] == 1
+    assert (checked > tol) == (case == "past_the_bound"), checked

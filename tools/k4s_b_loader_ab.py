@@ -3,8 +3,9 @@ dy) loaded by TMA, as built, against B loaded by 16-byte ``cp.async``, on
 one card at the generator's two downsample shapes at batch 16.
 
 The second variant is built from a copy of ``src/uig_torch/csrc`` whose
-``conv3s2_tc.cu`` routes every launch to the cp.async loader in 16-byte
-pieces (valid where F % 8 == 0, as on these shapes). Both variants run on
+``wgmma.cuh`` (the ring every wgmma kernel runs) routes every launch to the
+cp.async loader in 16-byte pieces (valid where F % 8 == 0, as on these
+shapes). Both variants run on
 the same inputs, must give bit-equal outputs, and are timed in turns (TMA,
 cp.async, cp.async, TMA; five rounds of 50 launches each). One JSON line a
 shape, after the card's name and power limit.
@@ -27,10 +28,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# the text of conv3s2_tc.cu that the cp.async variant replaces
+# the text of wgmma.cuh that the cp.async variant replaces
+PATCHED = "wgmma.cuh"
 PATCHES = [
-    ("    load_b_cp_async<8>(sb, b, row, row_end, N, n0, tid);",
-     "    load_b_cp_async<16>(sb, b, row, row_end, N, n0, tid);"),
+    ("    load_b_cp_async<8, BN>(sb, b, row, row_end, N, n0, tid);",
+     "    load_b_cp_async<16, BN>(sb, b, row, row_end, N, n0, tid);"),
     ("    return tma ? launch(va, std::true_type{}) : "
      "launch(va, std::false_type{});",
      "    return launch(va, std::false_type{});"),
@@ -43,11 +45,11 @@ def cp_async_library(tmp: Path) -> ctypes.CDLL:
     from uig_torch.kernels import _build
 
     shutil.copytree(_build.CSRC, tmp / "csrc")
-    src = tmp / "csrc" / "conv3s2_tc.cu"
+    src = tmp / "csrc" / PATCHED
     text = src.read_text()
     for old, new in PATCHES:
         if old not in text:
-            raise SystemExit(f"conv3s2_tc.cu no longer holds {old.strip()!r}")
+            raise SystemExit(f"{PATCHED} no longer holds {old.strip()!r}")
         text = text.replace(old, new)
     src.write_text(text)
     csrc, root = _build.CSRC, _build.BUILD_ROOT
