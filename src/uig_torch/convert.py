@@ -1,6 +1,6 @@
-"""Carry generator weights, and whole CycleGAN and VQGAN train states,
-between the JAX package's layout and the port; and draw VQGAN weights in
-that layout from a seed.
+"""Carry module weights (generators, LPIPS's VGG), and whole CycleGAN and
+VQGAN train states, between the JAX package's layout and the port; and draw
+weights in that layout from a seed by flax's initializers.
 
 The flat flax layout is the one ``scripts/import_cyclegan_torch.py`` writes
 and reads: ``np.savez`` of keys like ``params/layers_0/kernel`` and
@@ -21,7 +21,8 @@ _PREFIX = "params/"
 def generator_state_from_flax(flat: dict[str, np.ndarray],
                               model: nn.Module | None = None
                               ) -> dict[str, torch.Tensor]:
-    """Flat flax keys -> the port's state dict (fp32 CPU tensors). With
+    """Flat flax keys of one module (a generator, or LPIPS's
+    ``VGG16Features``) -> the port's state dict (fp32 CPU tensors). With
     ``model``, raises KeyError on any missing or unused key and ValueError
     on a shape that differs."""
     state = {}
@@ -175,9 +176,10 @@ def jax_flat_from_state(state) -> dict[str, np.ndarray]:
 #   {g,d}_opt/0/1/count       rng, step
 
 
-def seeded_vqgan_flax(model: nn.Module, seed: int) -> dict[str, np.ndarray]:
-    """Flat flax-layout weights for ``model`` (a ``VQGANGenerator``), drawn
-    with numpy from ``seed`` by flax's default initializers: conv kernels
+def seeded_flax(model: nn.Module, seed: int) -> dict[str, np.ndarray]:
+    """Flat flax-layout weights for ``model`` (a ``VQGANGenerator``, or
+    LPIPS's ``VGG16Features``), drawn with numpy from ``seed`` by flax's
+    default initializers: conv kernels
     lecun-normal (a normal truncated at 2 sigma, scaled to variance
     1 / fan_in with fan_in = kh * kw * cin), zero biases, unit GroupNorm
     scales, and the codebook ``variance_scaling(1, "fan_in", "uniform")``,

@@ -14,11 +14,12 @@
 // 0.147 ms at the H100 SXM data-sheet 67 TFLOP/s fp32 (700 W). The dgrad's
 // dx write (134 MB at B = 8) takes ~0.040 ms at 3.35 TB/s.
 //
-// bf16: dy, w, x in bf16, every sum (the reflect fold included) in fp32 in
-// the fp32 kernels' order, dx rounded once; dw rounded once to bf16 (the
+// bf16: the dgrad runs on the tensor cores (csrc/conv7_bwd_tc.cu), which
+// uig_conv7_dgrad launches for bf16; the wgrad takes x and dy in bf16, sums
+// in fp32 in the fp32 kernel's order and rounds dw once to bf16 (the
 // cotangent of JAX's weight cast), which the wrapper's caller widens.
 //
-// dgrad design: one thread per dx pixel and 32 input channels (32 sums in
+// dgrad design (fp32): one thread per dx pixel and 32 input channels (32 sums in
 // registers); a 32 x 8 block stages the dy tile plus a 3-pixel halo in
 // shared memory (Cout padded to a float4, zero outside the image) and the
 // chunk's 7 x 7 x 32 weights as float4 broadcasts. The padded gradient at
@@ -331,15 +332,21 @@ cudaError_t wgrad_co(const void* x, const void* dy, float* part, void* dw,
 
 }  // namespace
 
+// csrc/conv7_bwd_tc.cu
+cudaError_t conv7_dgrad_bf16_wgmma(const void* dy, const void* w, void* dx,
+                                   int B, int H, int W, int Cin, int Cout,
+                                   int reflect, cudaStream_t stream);
+
 // dy: (B, H, W, Cout), w: HWIO (7, 7, Cin, Cout), dx: (B, H, W, Cin); all
-// fp32, or all bf16 when is_bf16. 1 <= Cout <= 4, Cin % 4 == 0, reflect
-// needs H, W >= 4.
+// fp32 (the FMA kernel), or all bf16 when is_bf16 (the wgmma kernel).
+// 1 <= Cout <= 4, Cin % 4 == 0, reflect needs H, W >= 4.
 extern "C" cudaError_t uig_conv7_dgrad(const void* dy, const void* w,
                                        void* dx, int B, int H, int W,
                                        int Cin, int Cout, int reflect,
                                        int is_bf16, cudaStream_t stream) {
-  return is_bf16 ? dgrad_co<bf16>(dy, w, dx, B, H, W, Cin, Cout, reflect,
-                                  stream)
+  if (Cout < 1 || Cout > 4) return cudaErrorInvalidValue;
+  return is_bf16 ? conv7_dgrad_bf16_wgmma(dy, w, dx, B, H, W, Cin, Cout,
+                                          reflect, stream)
                  : dgrad_co<float>(dy, w, dx, B, H, W, Cin, Cout, reflect,
                                    stream);
 }

@@ -8,9 +8,10 @@ The training half, ``augment_batch``, is the random crop + flip + normalize
 of ``augment_batch_pallas`` (``kernels/augment_pallas.py``): the CUDA kernel
 in ``csrc/augment.cu`` with its plain PyTorch version, writing fp32 or bf16
 (the compute dtype: ``x * 2/255 - 1`` in fp32, rounded once, as JAX's
-``out_dtype``). The offsets and flips
-are given, not drawn inside the kernel; ``draw_augment`` draws them from a
-``torch.Generator`` with the JAX function's ranges.
+``out_dtype``). The offsets and flips are given, not drawn inside the
+kernel, and reach it as kernel parameters from host memory, so a launch
+copies nothing to the card and waits for nothing; ``draw_augment`` draws
+them from a ``torch.Generator`` with the JAX function's ranges.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 
 from uig_torch.kernels import _build
 from uig_torch.kernels._check import FLOAT_TYPES, on_cpu
+
+_MAX_BATCH = 64  # examples a launch: csrc/augment.cu refuses more
 
 
 def _normalize(x: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
@@ -85,21 +88,24 @@ def augment_batch(images: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
     for name, t in (("oy", oy), ("ox", ox), ("flip", flip)):
         if tuple(t.shape) != (b,):
             raise ValueError(f"augment_batch: {name} must have shape ({b},)")
-    oy_h, ox_h = oy.cpu(), ox.cpu()
-    if bool(((oy_h < 0) | (oy_h > h - crop) | (ox_h < 0)
-             | (ox_h > w - crop)).any()):
+    ys, xs = [int(v) for v in oy.tolist()], [int(v) for v in ox.tolist()]
+    if b and (min(ys) < 0 or max(ys) > h - crop or min(xs) < 0
+              or max(xs) > w - crop):
         raise ValueError("augment_batch: crop offset out of range")
     if on_cpu("augment_batch", images):
         return augment_batch_reference(images, oy, ox, flip, crop, out_dtype)
     if not images.is_contiguous():
         raise ValueError("augment_batch: images must be contiguous (NHWC)")
-    meta = torch.stack([oy_h.to(torch.int32), ox_h.to(torch.int32),
-                        flip.cpu().to(torch.int32)], 1).to(images.device)
+    flips = [int(bool(v)) for v in flip.tolist()]
     y = torch.empty((b, crop, crop, c), device=images.device, dtype=out_dtype)
     with torch.cuda.device(images.device):
-        _build.launch("uig_augment", images, meta, y, b, h, w, c, crop,
-                      out_dtype == torch.bfloat16)
-    augment_batch.launches += 1
+        for b0 in range(0, b, _MAX_BATCH):
+            s = slice(b0, b0 + _MAX_BATCH)
+            # oy, ox, flip in host memory: the kernel takes them as parameters
+            meta = torch.tensor(ys[s] + xs[s] + flips[s], dtype=torch.int32)
+            _build.launch("uig_augment", images[s], meta, y[s], len(ys[s]),
+                          h, w, c, crop, out_dtype == torch.bfloat16)
+            augment_batch.launches += 1
     return y
 
 

@@ -7,8 +7,9 @@ One ``train_step`` computes what ``_device_step`` computes:
 2. the generator loss: the fake and identity passes of each generator as
    one apply at 2B when ``model.fused_applies``, then the reconstructions;
    LSGAN (or the configured mode) adversarial + lambda * L1 cycle +
-   lambda_id * lambda * L1 identity; its gradient for the generators'
-   parameters only;
+   lambda_id * lambda * L1 identity + lambda_lpips * (LPIPS(real_a, rec_a)
+   + LPIPS(real_b, rec_b)); its gradient for the generators' parameters
+   only;
 3. both replay pools' ``query``;
 4. the discriminator loss on 2B applies of [real, pooled fake] and its
    gradient;
@@ -33,10 +34,15 @@ their gradients, Adam, the EMA, instance-norm statistics and the losses are
 fp32. On the card the step runs without TF32 and with deterministic cuDNN
 algorithms (``serving.exact_fp32``; in bf16 ``serving.exact_bf16``, which
 also keeps cuBLAS's bf16 reductions in fp32); the CUDA kernels sum in a
-fixed order, so a step repeats bit for bit. Not ported yet, and refused:
-R1, ADA, gradient accumulation, a perceptual (LPIPS) loss, gradient
-clipping, weight decay, SGD, and translating in bf16
-(``model.eval_dtype=bfloat16``).
+fixed order, so a step repeats bit for bit.
+
+With ``loss.lambda_lpips > 0`` the trainer builds LPIPS from its config,
+as the JAX package's ``build_trainer`` does (``eval/lpips.py``: the VGG from
+``eval.vgg_weights`` or drawn from seed 0, which needs no file); a caller
+may pass its own ``perceptual_fn`` instead. LPIPS runs in fp32 whatever the
+compute dtype, as in JAX, and is not part of the train state. Not ported
+yet, and refused: R1, ADA, gradient accumulation, gradient clipping, weight
+decay, SGD, and translating in bf16 (``model.eval_dtype=bfloat16``).
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from uig_torch.eval.lpips import trainer_lpips
 from uig_torch.kernels.augment import (augment_batch, center_crop_normalize,
                                        draw_augment)
 from uig_torch.models import (PatchDiscriminator, generator_from_config,
@@ -67,8 +74,6 @@ def _refuse_unported(cfg) -> None:
         "ADA (loss.ada_target / loss.ada_p_init > 0)":
             loss.ada_target > 0 or loss.ada_p_init > 0,
         "opt.grad_accum > 1": opt.grad_accum > 1,
-        "loss.lambda_lpips > 0 (LPIPS, which needs no weight file: "
-        "ROADMAP section 1, item 2)": loss.lambda_lpips > 0,
     }
     for what, hit in unported.items():
         if hit:
@@ -85,12 +90,17 @@ class CycleGANTrainer:
       init_state(seed)                    -> CycleGANState
       train_step(state, (a, b), draws)    -> (state, metrics)
       translate(ema, x, direction)        -> translated images
+
+    ``perceptual_fn(x, y)`` -> 0-dim fp32, the LPIPS term's distance; by
+    default ``make_lpips`` of the config when ``loss.lambda_lpips > 0``.
     """
 
-    def __init__(self, cfg, device: str = "cuda"):
+    def __init__(self, cfg, device: str = "cuda", perceptual_fn=None):
         self.device = resolve_device(device)
         _refuse_unported(cfg)
         self.cfg = cfg
+        self.perceptual_fn = (trainer_lpips(cfg, self.device)
+                              if perceptual_fn is None else perceptual_fn)
         m = cfg.model
         self.dtype = model_dtype(m, "compute_dtype")
         self._precision = (exact_fp32 if self.dtype == torch.float32
@@ -193,8 +203,13 @@ class CycleGANTrainer:
             idt = lam_id * (L.identity_loss(real_b, idt_b)
                             + L.identity_loss(real_a, idt_a))
             total = total + idt
+        lpips = torch.zeros((), device=self.device)
+        if loss.lambda_lpips > 0:
+            lpips = loss.lambda_lpips * (self.perceptual_fn(real_a, rec_a)
+                                         + self.perceptual_fn(real_b, rec_b))
+            total = total + lpips
         return total, {"fake_a": fake_a, "fake_b": fake_b, "g_adv": adv,
-                       "g_cycle": cyc, "g_idt": idt}
+                       "g_cycle": cyc, "g_idt": idt, "g_lpips": lpips}
 
     def _d_loss(self, dp: dict, real_a, fake_a, real_b, fake_b):
         mode = self.cfg.loss.gan_mode
@@ -262,7 +277,8 @@ class CycleGANTrainer:
         metrics = {
             "g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
             "g_adv": aux["g_adv"].detach(), "g_cycle": aux["g_cycle"].detach(),
-            "g_idt": aux["g_idt"].detach(), "g_lpips": zero,
+            "g_idt": aux["g_idt"].detach(),
+            "g_lpips": aux["g_lpips"].detach(),
             "d_a": d_aux["d_a"].detach(), "d_b": d_aux["d_b"].detach(),
             "d_r1": zero,
             "lr": torch.tensor(self.g_tx.lr(state.step), dtype=torch.float32,

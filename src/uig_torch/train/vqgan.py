@@ -7,15 +7,17 @@ domains: each step concatenates the augmented A and B halves. One
 
 1. augment both uint8 batches on the device (the augment kernel), then
    concatenate A and B;
-2. the generator apply; the L1 reconstruction loss and the hinge (or the
-   configured mode) adversarial loss of D on the reconstruction;
+2. the generator apply; the L1 reconstruction loss, with
+   ``loss.lambda_lpips > 0`` the term lambda_lpips * LPIPS(x, recon), and
+   the hinge (or the configured mode) adversarial loss of D on the
+   reconstruction; the NLL is rec + the LPIPS term;
 3. with ``loss.vq_adaptive_weight``, the weight
-   |grad_W rec| / (|grad_W adv| + 1e-4), clipped to [0, 1e4], at the
+   |grad_W nll| / (|grad_W adv| + 1e-4), clipped to [0, 1e4], at the
    decoder's last conv kernel W. JAX takes both gradients with one vjp of a
    separate forward; here both come from the main forward's graph
    (``torch.autograd.grad(..., retain_graph=True)``), the same numbers
    without a second forward, so a step runs each attention forward once;
-4. total = rec + codebook + beta * commitment + adv_w * weight * adv, with
+4. total = nll + codebook + beta * commitment + adv_w * weight * adv, with
    adv_w = ``loss.lambda_vq_adv`` once the step reaches
    ``loss.vq_disc_start`` and 0 before; its gradient for the generator;
 5. Adam on the generator at the schedule's LR, then the EMA;
@@ -28,9 +30,10 @@ As in the CycleGAN trainer, every gradient is taken at the state's
 parameters before any update (``_grads``, then ``_update``), the state is
 updated in place, the draws come from (seed, step) or are passed in, and on
 the card the step runs fp32 without TF32 and with deterministic algorithms.
+LPIPS is built and passed as in the CycleGAN trainer (``perceptual_fn``).
 Not ported yet, and refused: bf16 compute, ``model.fused_applies``,
-``opt.grad_accum > 1``, ``model.remat``, a perceptual (LPIPS) loss, weight
-decay, gradient clipping and SGD.
+``opt.grad_accum > 1``, ``model.remat``, weight decay, gradient clipping
+and SGD.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from uig_torch.convert import generator_state_from_flax, seeded_vqgan_flax
+from uig_torch.convert import generator_state_from_flax, seeded_flax
+from uig_torch.eval.lpips import trainer_lpips
 from uig_torch.kernels.augment import (augment_batch, center_crop_normalize,
                                        draw_augment)
 from uig_torch.models import (PatchDiscriminator, generator_from_config,
@@ -64,8 +68,6 @@ def _refuse_unported(cfg) -> None:
     unported = {
         "model.fused_applies": cfg.model.fused_applies,
         "opt.grad_accum > 1": cfg.opt.grad_accum > 1,
-        "loss.lambda_lpips > 0 (LPIPS, which needs no weight file: "
-        "ROADMAP section 1, item 2)": cfg.loss.lambda_lpips > 0,
     }
     for what, hit in unported.items():
         if hit:
@@ -83,12 +85,16 @@ class VQGANTrainer:
       train_step(state, (a, b), draws) -> (state, metrics)
       translate(ema, x)                -> reconstructions
       decode_codes(ema, codes)         -> images
+
+    ``perceptual_fn`` as in ``CycleGANTrainer``.
     """
 
-    def __init__(self, cfg, device: str = "cuda"):
+    def __init__(self, cfg, device: str = "cuda", perceptual_fn=None):
         self.device = resolve_device(device)
         _refuse_unported(cfg)
         self.cfg = cfg
+        self.perceptual_fn = (trainer_lpips(cfg, self.device)
+                              if perceptual_fn is None else perceptual_fn)
         m = cfg.model
         self.generator = generator_from_config(
             m, "compute_dtype").to(self.device)
@@ -107,11 +113,11 @@ class VQGANTrainer:
     # ------------------------------------------------------------------ init
     def init_state(self, seed: int) -> VQGANState:
         """Generator weights by flax's initializers
-        (``convert.seeded_vqgan_flax``), the discriminator's normal(0.02),
+        (``convert.seeded_flax``), the discriminator's normal(0.02),
         zero moments, the EMA a copy of the generator."""
         dev = self.device
         g_params = tree_map(lambda t: t.to(dev), generator_state_from_flax(
-            seeded_vqgan_flax(self.generator, seed), self.generator))
+            seeded_flax(self.generator, seed), self.generator))
         gen = torch.Generator(device="cpu").manual_seed(int(seed))
         d_params = tree_map(lambda t: t.to(dev),
                             normal_init(self.discriminator, gen))
@@ -177,11 +183,15 @@ class VQGANTrainer:
             gp = tree_map(_with_grad, state.g_params)
             recon, vq = self._G(gp, x)
             rec = L.l1_loss(x, recon)
+            lpips = torch.zeros((), device=dev)
+            if loss.lambda_lpips > 0:
+                lpips = loss.lambda_lpips * self.perceptual_fn(x, recon)
+            nll = rec + lpips
             adv = L.gan_loss_g(self._D(state.d_params, recon), loss.gan_mode)
             lam = torch.ones((), device=dev)
             if loss.vq_adaptive_weight:
                 w = gp[self.last_kernel]
-                g_nll, = torch.autograd.grad(rec, w, retain_graph=True)
+                g_nll, = torch.autograd.grad(nll, w, retain_graph=True)
                 g_adv, = torch.autograd.grad(adv, w, retain_graph=True)
                 lam = torch.clamp(torch.linalg.vector_norm(g_nll) / (
                     torch.linalg.vector_norm(g_adv) + 1e-4), 0.0, 1e4)
@@ -189,6 +199,7 @@ class VQGANTrainer:
             total = rec + codebook
             if on:  # adv_w = 0 before vq_disc_start: the term adds 0
                 total = total + loss.lambda_vq_adv * lam * adv
+            total = total + lpips
             g_grads = tree_unflatten(state.g_params, torch.autograd.grad(
                 total, tree_leaves(gp)))
             del gp
@@ -206,7 +217,7 @@ class VQGANTrainer:
             "g_loss": total.detach(), "d_loss": d_loss.detach(),
             "rec": rec.detach(), "codebook": codebook.detach(),
             "g_adv": adv.detach(), "perplexity": vq.perplexity.detach(),
-            "lpips": torch.zeros((), device=dev),
+            "lpips": lpips.detach(),
             "lambda_adapt": lam.detach(),
             "lr": torch.tensor(self.g_tx.lr(state.step), dtype=torch.float32,
                                device=dev),

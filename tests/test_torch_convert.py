@@ -25,12 +25,15 @@ from uig_torch.models import PatchDiscriminator, ResNetGenerator
 
 
 def _flax_flat(base=8, blocks=2, upsample="conv_transpose", seed=0):
+    """A flax generator's flat parameters: the tree of its ``init``
+    (traced, ``jax.eval_shape``), every leaf drawn with numpy so that a
+    swapped key cannot pass by accident."""
     gen = JaxGenerator(base_features=base, n_res_blocks=blocks,
                        upsample=upsample)
-    params = gen.init(jax.random.PRNGKey(seed), jnp.zeros((1, 16, 16, 3)))
-    # perturb every leaf so that a swapped key cannot pass by accident
+    params = jax.eval_shape(gen.init, jax.random.PRNGKey(seed),
+                            jnp.zeros((1, 16, 16, 3)))
     rng = np.random.default_rng(seed)
-    return {k: np.asarray(v) + rng.standard_normal(v.shape).astype(np.float32)
+    return {k: rng.standard_normal(v.shape).astype(np.float32)
             for k, v in traverse_util.flatten_dict(params, sep="/").items()}
 
 
@@ -108,14 +111,14 @@ def _jax_state_flat(seed=0):
     without a trainer: generator and discriminator trees, two Adam states,
     pools, step, key."""
     rng = np.random.default_rng(seed)
-    g = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(
-        JaxGenerator(base_features=8, n_res_blocks=1).init(
-            jax.random.PRNGKey(seed), jnp.zeros((1, 16, 16, 3))),
-        sep="/").items()}
-    d = {k: np.asarray(v) for k, v in traverse_util.flatten_dict(
-        JaxDisc(base_features=8, n_layers=2).init(
-            jax.random.PRNGKey(seed), jnp.zeros((1, 16, 16, 3))),
-        sep="/").items()}
+    # the trees' leaf shapes, traced (``jax.eval_shape``): every leaf value
+    # below is drawn from ``rng``
+    g = traverse_util.flatten_dict(jax.eval_shape(
+        JaxGenerator(base_features=8, n_res_blocks=1).init,
+        jax.random.PRNGKey(seed), jnp.zeros((1, 16, 16, 3))), sep="/")
+    d = traverse_util.flatten_dict(jax.eval_shape(
+        JaxDisc(base_features=8, n_layers=2).init,
+        jax.random.PRNGKey(seed), jnp.zeros((1, 16, 16, 3))), sep="/")
 
     def rand(shape):
         return rng.standard_normal(shape).astype(np.float32)

@@ -13,7 +13,8 @@ PyTorch is installed:
 Tolerances: fp32 sums taken in another order than the plain version's;
 outputs are O(1) and the longest sum has 49 * 24 terms (1e-4). Sums over a
 whole plane or batch (dgamma, dbeta, dw) hold to 1e-4 relative to their
-largest value. The augment kernel is exact up to 1 ulp (2.4e-7). With a
+largest value. The augment kernel is bit-equal (the same two roundings in
+the same order). With a
 fused ReLU, the norm backward is compared where the recomputed
 pre-activation is at least 1e-4 from 0: at the kink either side is right.
 Attention: the output and dq/dk/dv within 1e-5 of their largest value (fp32
@@ -149,22 +150,36 @@ def _rel_close(kernel_out, plain_out, rel=1e-4, scale=None):
     assert err <= rel * scale, (err, scale)
 
 
-@pytest.mark.parametrize("shape,crop", [((8, 286, 286, 3), 256),
-                                        ((3, 37, 41, 3), 32),
-                                        ((2, 9, 9, 1), 9)])
-def test_augment(dev, shape, crop):
-    rng = np.random.default_rng(0)
+def _augment_case(dev, shape, crop, seed=0):
+    rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
     b, h, w, _ = shape
     oy = torch.from_numpy(rng.integers(0, h - crop + 1, b))
     ox = torch.from_numpy(rng.integers(0, w - crop + 1, b))
-    flip = torch.from_numpy(np.arange(b) % 2 == 0)
+    flip = torch.from_numpy(np.arange(b) % 2 == 0)  # flipped and unflipped
+    return x, oy, ox, flip
+
+
+# The path shape's rows are whole 16-byte pieces; (2, 9, 9, 1) and (3, 37,
+# 41, 3) rows start and end off 16 bytes (scalar ends); 65 examples take two
+# launches of at most 64, and the C entry refuses more than 64 at once.
+@pytest.mark.parametrize("shape,crop", [((8, 286, 286, 3), 256),
+                                        ((3, 37, 41, 3), 32),
+                                        ((2, 9, 9, 1), 9),
+                                        ((65, 12, 14, 3), 8)])
+def test_augment(dev, shape, crop):
+    x, oy, ox, flip = _augment_case(dev, shape, crop)
     before = augment_batch.launches
     y = augment_batch(x, oy, ox, flip, crop)
-    assert augment_batch.launches == before + 1
+    assert augment_batch.launches == before + -(-shape[0] // 64)
     torch.cuda.synchronize()
-    ref = augment_batch_reference(x, oy, ox, flip, crop)
-    assert (y - ref).abs().max().item() <= 2.4e-7
+    assert torch.equal(y, augment_batch_reference(x, oy, ox, flip, crop))
+    assert torch.equal(y, augment_batch(x, oy, ox, flip, crop))
+    if shape[0] > 64:
+        meta = torch.zeros(3 * shape[0], dtype=torch.int32)
+        with pytest.raises(RuntimeError, match="uig_augment failed"):
+            K._build.launch("uig_augment", x, meta, y, shape[0], *shape[1:],
+                            crop, False)
 
 
 @pytest.mark.parametrize("shape", [(3, 13, 17, 36), (1, 1, 5, 4),
@@ -429,6 +444,12 @@ def test_augment_bf16(dev):
     flip = torch.tensor([True, False, True])
     y = augment_batch(x, oy, ox, flip, 32, BF)
     assert torch.equal(y, augment_batch_reference(x, oy, ox, flip, 32, BF))
+    # the path shape, flipped and unflipped rows; (2, 9, 9, 1): scalar ends
+    for shape, crop in (((8, 286, 286, 3), 256), ((2, 9, 9, 1), 9)):
+        x, oy, ox, flip = _augment_case(dev, shape, crop, seed=1)
+        y = augment_batch(x, oy, ox, flip, crop, BF)
+        assert torch.equal(y, augment_batch_reference(x, oy, ox, flip, crop,
+                                                      BF))
 
 
 @pytest.mark.parametrize("shape", [(3, 13, 17, 36), (2, 64, 64, 64)])
@@ -481,15 +502,33 @@ def test_conv3_in_act_bf16(dev, shape, f, pad_mode, relu):
                                        pad_mode=pad_mode))
 
 
-@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
-def test_conv7_bf16(dev, pad_mode):
-    x = _randn(dev, 2, 37, 45, 24).to(BF)
-    w = _randn(dev, 7, 7, 24, 3, scale=0.05, seed=1).to(BF)
-    b = _randn(dev, 3, scale=0.1, seed=2).to(BF)
-    dy = _randn(dev, 2, 37, 45, 3, seed=3).to(BF)
+# In bf16 the dgrad runs on the tensor cores (wgmma) in 4 x 16 patches: the
+# path shape at batch 2 (256^2, 64 -> 3); ragged planes whose ring rows and
+# columns (1-3 and n-4..n-2) fall in partial patches, (1, 9, 33, 16) and
+# (2, 37, 45, 24); a 4 x 4 plane where both rings of a row overlap (every
+# pixel has up to 3 sources a side); Cin = 68 (two 64-wide slices, the
+# second ragged) with Cout = 2. Repeats are bit-equal.
+@pytest.mark.parametrize("shape,cout,pad_mode", [
+    pytest.param((2, 37, 45, 24), 3, "reflect", id="reflect"),
+    pytest.param((2, 37, 45, 24), 3, "zeros", id="zeros"),
+    pytest.param((2, 256, 256, 64), 3, "reflect", id="path-reflect"),
+    pytest.param((2, 256, 256, 64), 3, "zeros", id="path-zeros"),
+    pytest.param((1, 9, 33, 16), 4, "reflect", id="9x33-reflect"),
+    pytest.param((1, 9, 33, 16), 4, "zeros", id="9x33-zeros"),
+    pytest.param((1, 4, 4, 8), 1, "reflect", id="4x4-reflect"),
+    pytest.param((2, 11, 19, 68), 2, "reflect", id="c68-reflect")])
+def test_conv7_bf16(dev, shape, cout, pad_mode):
+    nb, h, wd, cin = shape
+    x = _randn(dev, *shape).to(BF)
+    w = _randn(dev, 7, 7, cin, cout, scale=0.05, seed=1).to(BF)
+    b = _randn(dev, cout, scale=0.1, seed=2).to(BF)
+    dy = _randn(dev, nb, h, wd, cout, seed=3).to(BF)
     _ulps_close(conv7(x, w, b, pad_mode), conv7_reference(x, w, b, pad_mode))
-    _ulps_close(conv7_dgrad(dy, w, pad_mode),
-                conv7_dgrad_reference(dy, w, pad_mode))
+    before = conv7_dgrad.launches
+    dx = conv7_dgrad(dy, w, pad_mode)
+    assert conv7_dgrad.launches == before + 1
+    _ulps_close(dx, conv7_dgrad_reference(dy, w, pad_mode))
+    assert torch.equal(dx, conv7_dgrad(dy, w, pad_mode))
     _ulps_close(conv7_wgrad(x, dy, pad_mode),
                 conv7_wgrad_reference(x, dy, pad_mode))
 

@@ -40,10 +40,16 @@ def _pair(size, layers, norm, seed=0):
                                               (32, 3, "none")])
 def test_forward_and_gradients_match_jax(size, layers, norm):
     jd, jparams, pd, x = _pair(size, layers, norm)
-    want, vjp = jax.vjp(lambda p, t: jd.apply(p, t), jparams, jnp.asarray(x))
-    ct = np.random.default_rng(9).standard_normal(want.shape).astype(
-        np.float32)
-    wp, wx = vjp(jnp.asarray(ct))
+    shape = jax.eval_shape(jd.apply, jparams, jnp.asarray(x)).shape
+    ct = np.random.default_rng(9).standard_normal(shape).astype(np.float32)
+
+    # one compile of the forward and its vjp (op by op, it compiles every op)
+    @jax.jit
+    def fwd_bwd(p, t, ct):
+        y, vjp = jax.vjp(jd.apply, p, t)
+        return y, vjp(ct)
+
+    want, (wp, wx) = fwd_bwd(jparams, jnp.asarray(x), jnp.asarray(ct))
     xt = torch.from_numpy(x).requires_grad_(True)
     params = dict(pd.named_parameters())
     got = pd(xt)

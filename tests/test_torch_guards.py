@@ -39,7 +39,7 @@ def test_import_leaves_jax_out_and_builds_nothing():
     code = ("import sys; import uig_torch.serving, uig_torch.serve, "
             "uig_torch.cli.__main__, uig_torch.train.cyclegan, "
             "uig_torch.models.vqgan, uig_torch.train.vqgan, "
-            "uig_torch.convert, uig_torch.kernels.conv_s2, "
+            "uig_torch.convert, uig_torch.kernels.conv_s2, uig_torch.eval, "
             "uig_torch.kernels._build as b; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'uig' or m.startswith('uig.') for m in sys.modules); "
@@ -97,8 +97,8 @@ def test_chip_smoke_counts_launches_by_function():
 @pytest.mark.parametrize("ran", ["fma", "wgmma"])
 def test_chip_smoke_reads_the_design_that_ran(ran):
     cs = _chip_smoke()
-    assert set(cs.DESIGNS) == {"conv3_in_act", "conv3s2", "conv3s2_dgrad",
-                               "conv3s2_wgrad"}
+    assert set(cs.DESIGNS) == {"conv3_in_act", "conv7_dgrad", "conv3s2",
+                               "conv3s2_dgrad", "conv3s2_wgrad"}
     calls = {by[ran][0]: cs.PER_STEP[name]
              for name, by in cs.DESIGNS.items()}
     assert cs.designs_run(calls, "train") == {n: ran for n in cs.DESIGNS}

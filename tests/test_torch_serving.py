@@ -45,8 +45,8 @@ def run(tmp_path_factory):
     params = traverse_util.unflatten_dict(
         {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
     with jax.default_matmul_precision("highest"):
-        ref = np.asarray(denormalize_to_u8(gen.apply(
-            params, center_crop_normalize(jnp.asarray(raw), 16))))
+        ref = np.asarray(jax.jit(lambda p, r: denormalize_to_u8(gen.apply(
+            p, center_crop_normalize(r, 16))))(params, jnp.asarray(raw)))
     return str(d), raw, ref
 
 

@@ -225,7 +225,7 @@ _SMALL = ["model.image_size=32", "data.load_size=36", "data.batch_size=2",
     ("loss.r1_gamma=1.0", "r1_gamma"),
     ("loss.ada_target=0.6", "ADA"),
     ("opt.grad_accum=2", "grad_accum"),
-    ("loss.lambda_lpips=1.0", "lambda_lpips"),
+    ("opt.weight_decay=0.1", "weight_decay"),
     ("opt.grad_clip=1.0", "grad_clip"),
     ("model.resample=antialias", "antialias"),
 ])

@@ -8,7 +8,7 @@ The small configuration is that of ``tests/integration/test_vqgan.py``:
 attention at 16² (N = 256 tokens, D = 32), fp32. One JAX apply with
 ``capture_intermediates`` gives the output of every module, which is held
 against the same module of the port. The weights are
-``convert.seeded_vqgan_flax`` (flax's initializers), with every bias and
+``convert.seeded_flax`` (flax's initializers), with every bias and
 GroupNorm scale moved by 0.1 N(0, 1) so that they are exercised; the input
 seed gives latents with no near-tie between the two nearest codewords.
 
@@ -35,7 +35,7 @@ from uig.models.vqgan import VectorQuantizer as JaxVQ
 from uig.models.vqgan import VQGANGenerator as JaxGenerator
 from uig_torch.config import apply_overrides, get_preset
 from uig_torch.convert import (flax_from_generator_state,
-                               generator_state_from_flax, seeded_vqgan_flax)
+                               generator_state_from_flax, seeded_flax)
 from uig_torch.models import generator_from_config
 from uig_torch.models.layers import Conv
 from uig_torch.models.vqgan import GN, VectorQuantizer
@@ -83,7 +83,7 @@ def _close(got, want, what, rel=REL):
 @pytest.fixture(scope="module")
 def run():
     model = generator_from_config(_cfg().model)
-    flat = seeded_vqgan_flax(model, 0)
+    flat = seeded_flax(model, 0)
     rng = np.random.default_rng(1)
     for k in flat:
         if k.endswith(("/bias", "/scale")):
@@ -185,7 +185,7 @@ def test_names_mirror_flax_and_round_trip(run):
 
 def test_seeded_weights_follow_flax_initializers():
     model = generator_from_config(get_preset("vqgan512").model)
-    flat = seeded_vqgan_flax(model, 3)
+    flat = seeded_flax(model, 3)
     k = flat["params/encoder/VQResBlock_0/Conv_0/kernel"]  # 3x3x128x128
     assert abs(k.std() * np.sqrt(9 * 128) - 1.0) < 0.02
     assert np.abs(k).max() <= 2.0 / np.sqrt(9 * 128) / 0.87962566103423978

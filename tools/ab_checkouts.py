@@ -1,6 +1,8 @@
 """Hold this checkout against another one (for example the parent commit,
-unpacked with ``git archive``) on one card: K3's and K4s's dgrad fp32
-outputs at the training step's shapes must be bit-identical, and the
+unpacked with ``git archive``) on one card: the fp32 outputs of K3, K4s's
+dgrad and K4d (the 7x7 head's dgrad, at both step batches) and K1's fp32
+and bf16 outputs at the training step's shapes must be bit-identical, and
+the
 ``cyclegan256_dp`` training step is timed in fp32 and in bf16 in turns
 (this, other, other, this), each checkout in its own process with its own
 build.
@@ -8,7 +10,8 @@ build.
     python3 tools/ab_checkouts.py OTHER_CHECKOUT
 
 One JSON line a run, then one with the verdict, after the card's name and
-power limit; exits non-zero if an fp32 output differs.
+power limit; exits non-zero if an output differs. The bf16 step runs with
+LPIPS off, which a checkout from before LPIPS was ported needs.
 """
 
 import argparse
@@ -32,7 +35,8 @@ def worker(out: Path) -> None:
     import torch
 
     from uig_torch.config import apply_overrides, get_preset
-    from uig_torch.kernels import conv3_in_act, conv3s2_dgrad
+    from uig_torch.kernels import (augment_batch, conv3_in_act,
+                                   conv3s2_dgrad, conv7_dgrad)
     from uig_torch.serving import exact_fp32
     from uig_torch.train import CycleGANTrainer
 
@@ -56,6 +60,17 @@ def worker(out: Path) -> None:
             wd = randn(3, 3, cin, cout, scale=0.05)
             outs[f"conv3s2_dgrad {h} {cin}->{cout}"] = conv3s2_dgrad(dy,
                                                                      wd).cpu()
+        w7 = randn(7, 7, 64, 3, scale=0.02)
+        for nb in (2 * BATCH, BATCH):
+            outs[f"conv7_dgrad {nb} reflect"] = conv7_dgrad(
+                randn(nb, 256, 256, 3), w7, "reflect").cpu()
+    u8 = torch.from_numpy(rng.integers(0, 256, (BATCH, 286, 286, 3),
+                                       dtype=np.uint8)).to(dev)
+    oy, ox = (torch.from_numpy(rng.integers(0, 31, BATCH)) for _ in range(2))
+    flip = torch.from_numpy(np.arange(BATCH) % 2 == 0)
+    for dt in (torch.float32, torch.bfloat16):
+        outs[f"augment_batch {dt}"] = augment_batch(u8, oy, ox, flip, 256,
+                                                    dt).cpu()
     torch.save(outs, out)
 
     times = {}
@@ -130,7 +145,7 @@ def main() -> int:
                   flush=True)
     same = {k: torch.equal(v, outputs["other"][k])
             for k, v in outputs["this"].items()}
-    print(json.dumps({"fp32_bit_identical": same}), flush=True)
+    print(json.dumps({"bit_identical": same}), flush=True)
     return 0 if all(same.values()) else 1
 
 
