@@ -17,7 +17,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    could take (bound). Also the library convs of the fused conv3+IN
    backward, timed with their bound.
    Every CycleGAN kernel runs twice: in fp32 and in bf16 (tolerances in
-   bf16 ulps of the output's largest magnitude, ``TOL_BF16``).
+   bf16 ulps of the output's largest magnitude, ``TOL_BF16``). The
+   attention cases (fp32, design "tf32x3") also report the kernel's and the
+   plain version's error against float64 on the card and the CUDA kernels
+   the SDPA yardstick launched.
 3. train: a ``CycleGANTrainer`` for ``cyclegan256_dp`` at full width with
    ``model.compute_dtype=float32`` and ``loss.lambda_lpips=0``, from a
    seeded state, on seeded uint8 (8, 286, 286, 3) batches, under
@@ -70,7 +73,8 @@ and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
 ``train_bf16`` step, with the design each dtype launched: "wgmma" on the
 tensor cores, or "fma", read from the functions that the dtype's
-profiled training step launched), the nvidia-smi line, and, last,
+profiled training step launched; "tf32x3" for the attention kernels, read
+from the VQGAN step's profile), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -106,11 +110,14 @@ LPIPS_OFF_STEPS = 10
 BATCH = 8
 SEED = 0
 # H100 SXM data-sheet peaks (at 700 W): fp32 outside the tensor cores, bf16
-# dense on the tensor cores, HBM3. A bf16 case's bound counts the tensor-core
-# rate, which only the kernels of design "wgmma" use; the others compute in
-# fp32 FMAs.
+# and TF32 dense on the tensor cores, HBM3. A bf16 case's bound counts the
+# tensor-core rate, which only the kernels of design "wgmma" use; the others
+# compute in fp32 FMAs. The attention kernels (design "tf32x3") multiply
+# fp32 on the tensor cores in the three-term TF32 split: their bound counts
+# 3 TF32 flops per fp32 flop at the TF32 rate.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # Tolerances against the plain version on the card, on the error each case
 # reports: max |kernel - plain| for outputs of O(1) (fp32 sums in another
@@ -119,7 +126,9 @@ PEAK_BYTES = 3.35e12
 # to the largest value; the augment kernel bit-equal (the same two roundings
 # in the same order). Attention:
 # each output's error relative to its largest value (softmax sums over 1024
-# keys in another order; an H100 read 2.2e-6 forward, 3.0e-6 backward).
+# keys in another order, products in the three-term TF32 split; the fp32
+# FMA design read 2.2e-6 forward, 3.0e-6 backward on an H100). Its cases
+# also report both sides' error against float64 on the card.
 # K4s: each output's error relative to its largest value (fp32 sums over
 # up to 9 * 128 terms, or a batch's pixels for the weight gradient).
 TOL = {"augment_batch": 0.0, "instance_norm": 1e-4,
@@ -136,7 +145,8 @@ TOL = {"augment_batch": 0.0, "instance_norm": 1e-4,
 TOL_BF16 = {name: 1.0 for name in TOL} | {"conv3_in_act": 2.0,
                                           "augment_batch": 0.0}
 # kernels whose every case must also repeat bit for bit
-REPEAT_BIT_EQUAL = ("augment_batch", "conv7_dgrad")
+REPEAT_BIT_EQUAL = ("augment_batch", "conv7_dgrad", "attention_fwd",
+                    "attention_bwd")
 # The card-vs-CPU step at batch 1 (compare_card_cpu): the largest gradient
 # gap allowed, relative to the network's largest gradient, and the largest
 # gap the kernels may add (card with kernels against card with the plain
@@ -183,10 +193,12 @@ SOURCES = {
     "attention_fwd": "src/uig_torch/csrc/attention.cu",
     "attention_bwd": "src/uig_torch/csrc/attention.cu",
 }
-# The kernels with more than one design: the CUDA function that launches
-# each design, and its source. Which design a dtype ran is read from the
-# functions its profiled training step launched (``designs_run``); every
-# other kernel has one design, "fma", in SOURCES.
+# The kernels with more than one design: the CUDA function (or functions)
+# that launch each design, and its source. Which design a dtype ran is read
+# from the functions its profiled training step launched (``designs_run``);
+# every other kernel has one design, "fma", in SOURCES. The attention
+# kernels' earlier FMA design is gone from the source: its names stay here
+# so that a step that launched it fails.
 DESIGNS = {
     "conv3_in_act": {
         "fma": ("conv3_gemm_kernel", "src/uig_torch/csrc/conv3_in.cu"),
@@ -207,24 +219,52 @@ DESIGNS = {
         "fma": ("conv_wgrad_kernel", "src/uig_torch/csrc/conv3s2.cu"),
         "wgmma": ("conv_wgrad_wgmma_kernel",
                   "src/uig_torch/csrc/conv3s2_tc.cu")},
+    "attention_fwd": {
+        "fma": ("attn_fwd_kernel", "src/uig_torch/csrc/attention.cu"),
+        "tf32x3": ("attn_fwd_tc_kernel", "src/uig_torch/csrc/attention.cu")},
+    "attention_bwd": {
+        "fma": (("attn_dkdv_kernel", "attn_dq_kernel"),
+                "src/uig_torch/csrc/attention.cu"),
+        "tf32x3": (("attn_scores_tc_kernel", "attn_dv_tc_kernel",
+                    "attn_dk_tc_kernel", "attn_dq_tc_kernel"),
+                   "src/uig_torch/csrc/attention.cu")},
 }
 
 
-def designs_run(calls: dict, phase: str) -> dict:
-    """{kernel: design} of the kernels in DESIGNS from one profiled training
-    step's launches by CUDA function (``calls``): the design whose function
-    launched PER_STEP[kernel] times, while every other design's launched
-    none. Raises otherwise."""
+def design_functions(name: str, design: str) -> tuple:
+    """The CUDA functions that launch ``design`` of kernel ``name``."""
+    fns = DESIGNS[name][design][0]
+    return (fns,) if isinstance(fns, str) else fns
+
+
+def designs_run(calls: dict, phase: str, per_step: dict | None = None) -> dict:
+    """{kernel: design} of the kernels in DESIGNS that one profiled training
+    step launches (``per_step``, PER_STEP by default), from its launches by
+    CUDA function (``calls``): the design each of whose functions launched
+    per_step[kernel] times, while every other design's launched none. A
+    kernel the step does not launch must have launched no function of any
+    design. Raises otherwise."""
+    per_step = PER_STEP if per_step is None else per_step
     out = {}
     for name, by_design in DESIGNS.items():
-        seen = {d: calls.get(fn, 0) for d, (fn, _) in by_design.items()}
-        ran = [d for d, n in seen.items() if n]
-        if len(ran) != 1 or seen[ran[0]] != PER_STEP[name]:
+        seen = {d: [calls.get(fn, 0) for fn in design_functions(name, d)]
+                for d in by_design}
+        want = per_step[name]
+        ran = [d for d, ns in seen.items() if any(ns)]
+        if not want and not ran:
+            continue
+        if len(ran) != 1 or set(seen[ran[0]]) != {want}:
             raise AssertionError(
                 f"{phase}: {name} launched {seen} by design in one step, "
-                f"want one design {PER_STEP[name]} times")
+                f"want one design's functions {want} times each")
         out[name] = ran[0]
     return out
+
+
+def design_calls(calls: dict) -> dict:
+    """The launches of every function in DESIGNS, from ``calls``."""
+    return {fn: calls.get(fn, 0) for name, by in DESIGNS.items()
+            for d in by for fn in design_functions(name, d)}
 
 
 PER_APPLY = {"augment_batch": 0, "instance_norm": 5, "instance_norm_bwd": 0,
@@ -277,6 +317,15 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def nvcc_version() -> str:
+    """nvcc's release line, the toolkit the kernels were built with."""
+    from uig_torch.kernels import _build
+
+    out = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[-1]
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -301,9 +350,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound_ms(nbytes: float, flops: float,
-             dtype: str = "float32") -> tuple[float, str]:
-    peak = PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
+def bound_ms(nbytes: float, flops: float, dtype: str = "float32",
+             design: str = "") -> tuple[float, str]:
+    """The least time for the work, in ms, and what bounds it. ``flops``
+    counts the function's own products; design "tf32x3" runs each as three
+    TF32 products at the TF32 rate."""
+    if design == "tf32x3":
+        flops, peak = 3.0 * flops, PEAK_TF32_FLOPS
+    else:
+        peak = PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
     tb, tf = nbytes / PEAK_BYTES, flops / peak
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
@@ -402,7 +457,10 @@ def _multi_rel_check(outs, refs):
 
 
 def _case(name, label, step, apply, fn, plain, lib, nbytes, flops,
-          check=_abs_check, path="cyclegan", dtype="float32", tol=None):
+          check=_abs_check, path="cyclegan", dtype="float32", tol=None,
+          design="", fp64=None):
+    """One kernel case; ``fp64``, where given, computes the function in
+    float64 on the card for the errors against it."""
     if dtype == "bfloat16" and check in (_abs_check, _rel_check):
         check = _ulp_check
     if tol is None or dtype != "float32":
@@ -410,7 +468,43 @@ def _case(name, label, step, apply, fn, plain, lib, nbytes, flops,
     return {"name": name, "case": label, "step": step, "apply": apply,
             "fn": fn, "plain": plain, "lib": lib, "bytes": nbytes,
             "flops": flops, "check": check, "path": path, "dtype": dtype,
-            "tol": tol}
+            "tol": tol, "design": design, "fp64": fp64}
+
+
+def _outputs(x) -> tuple:
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(u, v) for u, v in zip(_outputs(a), _outputs(b)))
+
+
+def fp64_errs(out, plain, exact) -> dict:
+    """The kernel's and the plain version's largest error against the
+    float64 computation, each relative to the largest value of that output
+    (the unit of the attention gates)."""
+    errs = {"err_fp64": 0.0, "plain_err_fp64": 0.0}
+    for key, got in (("err_fp64", out), ("plain_err_fp64", plain)):
+        for g, e in zip(_outputs(got), _outputs(exact)):
+            errs[key] = max(errs[key], max_err(g, e) / e.abs().max().item())
+    return errs
+
+
+def attention_fp64(q, k, v, do=None):
+    """Attention in float64: o, or (dq, dk, dv) for the output gradient
+    ``do``."""
+    q, k, v = (t.double() for t in (q, k, v))
+    scale = q.shape[-1] ** -0.5
+    p = (q @ k.transpose(1, 2) * scale).softmax(-1)
+    if do is None:
+        return p @ v
+    do = do.double()
+    dp = do @ v.transpose(1, 2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    return (scale * ds @ k, scale * ds.transpose(1, 2) @ q,
+            p.transpose(1, 2) @ do)
 
 
 def kernel_cases(dev, dtype: str = "float32"):
@@ -666,7 +760,8 @@ def kernel_cases(dev, dtype: str = "float32"):
                    lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                        q, k, v),
                    4.0 * (4 * q.numel() + nb * n), 4.0 * nb * n * n * d,
-                   check=_rel_check, path="vqgan")
+                   check=_rel_check, path="vqgan", design="tf32x3",
+                   fp64=lambda q=q, k=k, v=v: attention_fp64(q, k, v))
         if not per_step:
             continue
         o, lse = attention_fwd(q, k, v)
@@ -679,7 +774,8 @@ def kernel_cases(dev, dtype: str = "float32"):
                    lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
                                                retain_graph=True),
                    4.0 * (8 * q.numel() + nb * n), 10.0 * nb * n * n * d,
-                   check=_multi_rel_check, path="vqgan")
+                   check=_multi_rel_check, path="vqgan", design="tf32x3",
+                   fp64=lambda: attention_fp64(q, k, v, do))
 
 
 def conv3_backward_parts(dev):
@@ -725,14 +821,19 @@ def phase_kernels(dev) -> dict:
                         f"{name} {dtype} {c['case']}: error {checked} > tol "
                         f"{c['tol']}")
                 if name in REPEAT_BIT_EQUAL:
-                    if not torch.equal(c["fn"](), out):
+                    if not _bit_equal(c["fn"](), out):
                         raise AssertionError(
                             f"{name} {dtype} {c['case']}: a repeat differs")
                     extra["repeat_bit_equal"] = True
+                if c["fp64"] is not None:
+                    extra.update(fp64_errs(out, c["plain"](), c["fp64"]()))
+                    # the precision the yardstick runs at: its CUDA kernels
+                    extra["library_kernels"] = sorted(profile_call(
+                        c["lib"], "library", calls=True)["calls"])
                 del out
                 ms, plain_ms, lib_ms = (cuda_ms(c[k], KERNEL_ITERS, 2)
                                         for k in ("fn", "plain", "lib"))
-                bms, by = bound_ms(c["bytes"], c["flops"], dtype)
+                bms, by = bound_ms(c["bytes"], c["flops"], dtype, c["design"])
                 emit({"phase": "kernel", "name": name, "dtype": dtype,
                       "case": c["case"], "path": c["path"],
                       "calls_per_step": c["step"],
@@ -1147,9 +1248,7 @@ def phase_train(dev, overrides=TRAIN_OVERRIDES, phase: str = "train",
                             f"{phase}_profile", calls=True)
         calls = prof.pop("calls")
         prof["designs"] = designs_run(calls, phase)
-        prof["design_calls"] = {fn: calls.get(fn, 0)
-                                for by in DESIGNS.values()
-                                for fn, _ in by.values()}
+        prof["design_calls"] = design_calls(calls)
         emit(prof)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1345,15 +1444,16 @@ def profile_call(fn, phase: str, calls: bool = False) -> dict:
     return out
 
 
-def wgmma_ptxas(log: list) -> list:
-    """The wgmma kernels' entry points (a name holding "wgmma") with the
+def wgmma_ptxas(log: list, key: str = "wgmma") -> list:
+    """The entry points whose name holds ``key`` (the wgmma kernels, or
+    "_tc_kernel", the attention kernels on the tensor cores) with the
     registers and spills that ptxas reported for each, from the build
     log's per-source sections."""
     out, keep = [], False
     for sec in log:
         for ln in sec.splitlines():
             if "entry function" in ln:
-                keep = "wgmma" in ln
+                keep = key in ln
             if keep and ("entry function" in ln or "registers" in ln
                          or "spill" in ln):
                 out.append(ln.strip())
@@ -1588,11 +1688,15 @@ def phase_vqgan_train() -> dict:
             img_per_s=1e3 * 2 * VQ_BATCH / step_ms,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         emit(out)
-        emit(profile_call(lambda: tr.train_step(st, (a, b)),
-                          "vqgan_train_profile"))
+        prof = profile_call(lambda: tr.train_step(st, (a, b)),
+                            "vqgan_train_profile", calls=True)
+        calls = prof.pop("calls")
+        prof["designs"] = designs_run(calls, "vqgan_train", VQ_PER_STEP)
+        prof["design_calls"] = design_calls(calls)
+        emit(prof)
     finally:
         torch.use_deterministic_algorithms(False)
-    return launches
+    return launches, prof["designs"]
 
 
 # ---------------------------------------------------------------------------
@@ -1672,11 +1776,12 @@ def main() -> int:
         if "log" in _build.build_info else []
     ptxas = [ln.strip() for sec in log for ln in sec.splitlines()
              if "registers" in ln or "spill" in ln]
-    ptxas_wgmma = wgmma_ptxas(log)
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "cuda": torch.version.cuda, "nvcc": nvcc_version(),
+          "device": torch.cuda.get_device_name(0),
           "build_seconds": build_s, "build_cached": _build.build_info["cached"],
-          "ptxas": ptxas[:12], "ptxas_wgmma": ptxas_wgmma})
+          "ptxas": ptxas[:12], "ptxas_wgmma": wgmma_ptxas(log),
+          "ptxas_tf32x3": wgmma_ptxas(log, "_tc_kernel")})
     dev = torch.device("cuda", 0)
     totals = phase_kernels(dev)
     step_launches, designs = phase_train(dev, steps=FP32_TRAIN_STEPS)
@@ -1696,12 +1801,13 @@ def main() -> int:
         seeded_vq_weights(vq_weights)
         vq_apply_launches = phase_vqgan_slice(vq_weights)
     torch.cuda.empty_cache()
-    vq_step_launches = phase_vqgan_train()
+    vq_step_launches, vq_designs = phase_vqgan_train()
     kernels = []
     for name in PER_STEP:
         if name.startswith("attention"):
             dtypes = ("float32",)
             step_l = {"float32": vq_step_launches}
+            kind_of = {"float32": vq_designs}
             apply_l = vq_apply_launches
             per = (f"one {VQ_PRESET} training step at union batch "
                    f"{2 * VQ_BATCH}; per reconstruct apply at batch "
@@ -1709,6 +1815,7 @@ def main() -> int:
         else:
             dtypes = DTYPE_NAMES
             step_l = {"float32": step_launches, "bfloat16": bf16_launches}
+            kind_of = designs
             apply_l = apply_launches
             per = (f"one {PRESET} training step at batch {BATCH} (fp32: "
                    f"train; bf16: train_bf16); per translate apply at "
@@ -1719,7 +1826,7 @@ def main() -> int:
             if step_l[dtype][name] < 1:
                 raise AssertionError(f"{name} never launched on the "
                                      f"{dtype} main path")
-            kind = designs[dtype].get(name, "fma")
+            kind = kind_of[dtype].get(name, "fma")
             per_dtype[dtype] = {"design": kind,
                                 "source": (DESIGNS[name][kind][1]
                                            if name in DESIGNS

@@ -11,246 +11,485 @@
 // VMEM and take each q block's softmax row in one piece; dK/dV accumulate in
 // a VMEM block across a sequential q-block grid.
 //
-// Bound on this card: operations. The forward is two products of 2 B N^2 D
-// flops each (0.256 ms at (8, 1024, 512) at 67 TFLOP/s fp32, H100 SXM data
-// sheet at 700 W); the backward five (0.641 ms). The bytes (q, k, v, o, dO
-// and the gradients, ~67 MB at B = 8) take 0.02 ms. fp32 FMAs only, no TF32:
-// the serving path is fp32 "highest".
+// Numerics: the three-term TF32 split on the tensor cores. Each fp32
+// operand x of a product becomes hi = rna_tf32(x) and lo = rna_tf32(x - hi),
+// each rounded to the nearest TF32 value explicitly (the tensor core
+// truncates the low 13 bits of a raw fp32 input; `split`), and each product
+// is summed as lo_a hi_b + hi_a lo_b + hi_a hi_b, in that order, into fp32
+// accumulators (mma.sync m16n8k8 tf32). hi + lo carries 22 of x's 24
+// significand bits and the dropped lo_a lo_b term is 2^-22 of the product,
+// so the products keep fp32's order of error; plain single-pass TF32 (2^-11)
+// would not. The softmax, its rescales, the log-sum-exp, delta =
+// rowsum(dO o O) and every epilogue are fp32 FMAs. Every sum runs in a fixed
+// order and nothing uses atomics, so repeats are bit-equal.
 //
-// Design. A block's 227 KB of shared memory cannot hold K and V, so a block
-// owns a tile of 32 q rows (or 16 k rows) and streams the other side's tiles
-// through shared memory; the (N, N) scores never reach device memory.
-//   * Forward (attn_fwd_kernel): an online softmax. Per K tile of 32 rows the
-//     block forms the 32 x 32 scores, updates each row's running max and sum,
-//     rescales its O accumulator (32 x D in registers, 16 rows x float4 a
-//     thread at D = 512), and adds P V from the V tile loaded into the same
-//     buffer. It writes O = acc / sum and the row log-sum-exp (B, N), the
-//     residual of the backward.
-//   * Backward, the FlashAttention-2 shape without atomics, so every sum runs
-//     in a fixed order and a step repeats bit for bit: attn_delta_kernel
-//     forms rowsum(dO o O) (= rowsum(P o dP)); attn_dkdv_kernel owns 16 k rows
-//     and loops over every q tile to form dK and dV; attn_dq_kernel owns 32 q
-//     rows and loops over every k tile to form dQ. Both recompute P from the
-//     log-sum-exp, so the backward does seven products where five suffice.
-//   * Score tiles (score_tile): four D-slices of 64 threads, each thread a
-//     4 x (BC/8) micro tile at rows mi + 8a, columns mj + 8b (float4 loads
-//     along D; rows padded to D + 4 floats, so eight rows fall in eight
-//     different 16-byte bank groups), then the four partials are summed in
-//     slice order.
-//   * Wide products (wide_acc): a thread owns one float4 column group of D
-//     and every (256 / (D/4))-th row, and sums over the tile in order.
-// Ragged N: rows past N load as zeros, their scores are masked to -inf (P =
-// 0), and their outputs are not stored.
+// Bound on this card: operations, counted on the split's basis: 3 TF32
+// products per fp32 product, at 495 TFLOP/s dense TF32 (H100 SXM data sheet,
+// 700 W). The forward is two products of 2 B N^2 D flops (17.2 GFLOP at
+// (8, 1024, 512): 0.104 ms), the backward five (0.260 ms). The bytes (q, k,
+// v, o, dO and the gradients) take 0.02-0.04 ms at 3.35 TB/s; the backward's
+// P^T and dS^T scratch adds 2 B N^2 floats written and 3 B N^2 read.
+//
+// Design. mma.sync reads its fragments from registers, so every operand
+// orientation the seven products need is an addressing choice when the
+// fragments are read from padded shared memory, and the split is done in
+// registers as they are loaded. Every fragment takes the k8 step's k in
+// the order 0, 2, 4, 6, 1, 3, 5, 7 on both sides (lane t holds k = 2t and
+// 2t + 1), which leaves the product unchanged and keeps the reads
+// conflict-free:
+//   * "row" operands, A[i][k] = A[i * lda + k] and B[k][n] = M[n][k]: a
+//     float2 a row, rows at a stride of 8 mod 32 words (S = Q K^T, S^T =
+//     K Q^T, dP^T = V dO^T, and the scratch's rows as A of dV and dK);
+//   * "pair" operands, B[k][n] = M[k][n] from rows 2t and 2t + 1 at a
+//     stride of 4 mod 32, with A from hi/lo planes or the scratch's columns
+//     (O += P V, dV = P^T dO, dK = dS^T Q, dQ = dS K).
+// Blocks stream their operands through a 3-stage cp.async ring cut along D
+// (or along the keys); rows and columns past N or D load as zeros
+// (cp.async with src-size 0), scores past N are -inf (P = 0), and outputs
+// past N are not stored. D is padded to a multiple of 64 in shared memory.
+// The tensor core's own fp32 accumulation may truncate: each 32- or 64-deep
+// slice of a sum (12 or 24 mma) is formed in zeroed fragments and added to
+// the running sum with a rounded fp32 add (summed in the accumulator over
+// all 1024 keys at once, the gradients landed over the 1e-5 gate from the
+// plain version on an H100).
+//   * Forward (attn_fwd_tc_kernel): a block of 8 warps owns 64 q rows, Q
+//     resident (130 KB at D = 512); per tile of 64 keys it streams K's
+//     64 x 64 D-chunks (S on the tensor cores), takes an online softmax in
+//     registers (the row max shared through shared memory between the two
+//     warps of a row group, row sums kept per warp and added in warp order
+//     at the end), writes P's hi/lo planes, then streams V's D-chunks: O =
+//     alpha O + P V, one rounded FMA a chunk. O stays in registers (a warp
+//     owns 16 rows x D / 2 columns). Writes O / l and lse = m + log l.
+//     Where one block a q tile would fill at most half the SMs (the
+//     reconstruct apply's batch 4), the key tiles are cut into two ranges,
+//     a block each, and attn_combine_kernel merges the two partial (O, lse)
+//     in a fixed order. tools/attention_designs.py times this against
+//     32-row blocks (this file built with UIG_ATTN_BQ=32).
+//   * Backward, five products beside attn_delta_kernel (rowsum(dO o O)):
+//     attn_scores_tc_kernel forms S^T and dP^T for a tile of 128 keys x 128
+//     q rows (8 warps, 32 x 64 a warp; (K, Q) then (V, dO) chunk pairs 32
+//     deep in D) and writes P^T = exp(scale S^T - lse) and dS^T = P^T o
+//     (dP^T - delta) to a key-major scratch (2 x B x Np x Np fp32, Np = N
+//     rounded up to 128: 8 B Np^2 bytes, 64 MiB at vqgan512's (8, 1024),
+//     256 MiB at vaegan256's (32, 1024) on one card, 1 GiB at (8, 4096);
+//     the one term that grows with N^2); attn_dv_tc_kernel,
+//     attn_dk_tc_kernel and attn_dq_tc_kernel are one tiled GEMM over that
+//     scratch (128 x 128 of the output a block, 8 warps, 32 x 64 a warp):
+//     dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K. No product is
+//     recomputed. FlashAttention-2's shape, a dK/dV kernel with both
+//     accumulators in registers and dS alone in the scratch, fits only 32
+//     keys a block at D = 512 (64 keys' dK and dV would fill the register
+//     file); tools/attention_designs.cu holds it, and
+//     tools/attention_designs.py times it against this design.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 32;       // q rows of a tile
-constexpr int kBKf = 32;      // k rows of a tile, forward
-constexpr int kBKb = 16;      // k rows of a tile, backward
-constexpr int kSlices = 4;    // D-slices of a score tile
-constexpr int kMaxRows = 16;  // accumulator rows a thread owns (D <= 512)
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kStages = 3;     // cp.async ring depth
+constexpr int kC = 64;         // a chunk: 64 rows x 64 columns
+constexpr int kLdr = kC + 8;   // row stride of a "row" operand, = 8 mod 32
+constexpr int kLdc = kC + 4;   // row stride of a "pair" B chunk, = 4 mod 32
+constexpr int kLdp = kC + 8;   // hi/lo plane row stride, = 8 mod 32
+constexpr int kSlot = kC * kLdr;  // a chunk of either stride
+constexpr int kMaxChunks = 8;  // D <= 512
+constexpr int kBK = 64;        // keys a tile (forward)
+#ifndef UIG_ATTN_BQ
+#define UIG_ATTN_BQ 64
+#endif
+constexpr int kBQ = UIG_ATTN_BQ;  // q rows a forward block (32 or 64)
+constexpr int kGThreads = 256;  // the backward's product kernels: 8 warps,
+constexpr int kGFrag = 8;       // each 32 x 64 of the output (2 x 8 n8 tiles)
+constexpr int kScoreTile = 128;  // keys and q rows of a scores block
 
-// rows [r0, r0 + R) of an (N, D) matrix into shared memory with row stride
-// D + 4; rows at or past N are zeros.
-__device__ void load_rows(float* s, const float* g, int r0, int R, int N,
-                          int D) {
-  const int d4 = D / 4, ld = D + 4;
-  for (int e = threadIdx.x; e < R * d4; e += kThreads) {
-    const int r = e / d4, c = e - r * d4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < N)
-      v = reinterpret_cast<const float4*>(g + (size_t)(r0 + r) * D)[c];
-    *reinterpret_cast<float4*>(s + r * ld + 4 * c) = v;
-  }
+// ------------------------------------------------------------- PTX glue --
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Barrier `id` (1..4) over the `count` threads of one row group's warps.
+__device__ __forceinline__ void group_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// out[i * ldo + j] = sum_d A[i][d] * B[j][d] for i < 32, j < BC; A and B in
-// shared memory with row stride D + 4. Ends with a barrier.
-template <int BC>
-__device__ void score_tile(const float* A, const float* B, float* red,
-                           float* out, int ldo, int D) {
-  constexpr int MC = BC / 8;
-  const int ld = D + 4, d4 = D / 4;
-  const int t = threadIdx.x, s = t / 64, m = t % 64, mi = m / 8, mj = m % 8;
-  float acc[4][MC];
+// x as the TF32 pair the products take. hi: x rounded to the nearest TF32
+// value, ties away from zero, as cvt.rna.tf32.f32 rounds a finite x: half of
+// the 13 dropped bits' weight added to the magnitude bits, which are then
+// cleared (2 integer ops; cvt.rna.tf32.f32 compiles to a longer sequence on
+// sm_90a, with a test for inf and NaN that finite operands do not need). lo:
+// x - hi (exact) with the same half added; the tensor core reads only a
+// TF32 operand's upper 19 bits, so it takes lo rounded to nearest.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c[j] += a b_j in three terms, lo_a hi_b, hi_a lo_b, hi_a hi_b, in that
+// order for every j; b[j] = {b0, b1} of fragment j. The terms run across
+// all j in turn, so consecutive mma are independent.
+template <int NT>
+__device__ __forceinline__ void mma3(float (&c)[NT][4],
+                                     const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[NT][2],
+                                     const uint32_t (&bl)[NT][2]) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int j = 0; j < NT; ++j) mma(c[j], al, bh[j][0], bh[j][1]);
 #pragma unroll
-    for (int b = 0; b < MC; ++b) acc[a][b] = 0.f;
-  for (int k = s; k < d4; k += kSlices) {
-    float4 av[4], bv[MC];
+  for (int j = 0; j < NT; ++j) mma(c[j], ah, bl[j][0], bl[j][1]);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-      av[a] = *reinterpret_cast<const float4*>(A + (mi + 8 * a) * ld + 4 * k);
+  for (int j = 0; j < NT; ++j) mma(c[j], ah, bh[j][0], bh[j][1]);
+}
+// The same with b[j] = {b0, b1} split here.
+template <int NT>
+__device__ __forceinline__ void mma3(float (&c)[NT][4],
+                                     const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const float (&b)[NT][2]) {
+  uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
-    for (int b = 0; b < MC; ++b)
-      bv[b] = *reinterpret_cast<const float4*>(B + (mj + 8 * b) * ld + 4 * k);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < MC; ++b) {
-        float c = acc[a][b];
-        c = fmaf(av[a].x, bv[b].x, c);
-        c = fmaf(av[a].y, bv[b].y, c);
-        c = fmaf(av[a].z, bv[b].z, c);
-        c = fmaf(av[a].w, bv[b].w, c);
-        acc[a][b] = c;
-      }
+  for (int j = 0; j < NT; ++j) {
+    split(b[j][0], bh[j][0], bl[j][0]);
+    split(b[j][1], bh[j][1], bl[j][1]);
   }
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < MC; ++b)
-      red[(s * kBQ + mi + 8 * a) * BC + mj + 8 * b] = acc[a][b];
-  __syncthreads();
-  for (int e = t; e < kBQ * BC; e += kThreads) {
-    const int i = e / BC, j = e - i * BC;
-    float v = red[i * BC + j];
-#pragma unroll
-    for (int s2 = 1; s2 < kSlices; ++s2) v += red[(s2 * kBQ + i) * BC + j];
-    out[i * ldo + j] = v;
-  }
-  __syncthreads();
+  mma3(c, ah, al, bh, bl);
 }
 
-// The rows and float4 column group of D that a thread accumulates.
-struct Wide {
-  int cg, rg, RG;
-  bool active;
-};
-
-__device__ Wide wide_of(int D) {
-  const int cgs = D / 4, RG = kThreads / cgs;
-  const int t = threadIdx.x;
-  return Wide{t % cgs, t / cgs, RG, t < RG * cgs};
+template <int NT>
+__device__ __forceinline__ void zero(float (&c)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+template <int NT>
+__device__ __forceinline__ void add_to(float (&acc)[NT][4],
+                                       const float (&part)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
 }
 
-// acc[u] += sum_{j < J} C[r * ldc + j] * M[j][4 cg .. 4 cg + 3] for the
-// thread's rows r = rg + RG u < R, summed over j in order. U >= R / RG.
-template <int U>
-__device__ void wide_acc(float4 (&acc)[U], const float* C, int ldc,
-                         const float* M, int J, int R, int D, Wide w) {
-  if (!w.active) return;
-  const int ld = D + 4;
-  for (int j = 0; j < J; ++j) {
-    const float4 mv = *reinterpret_cast<const float4*>(M + j * ld + 4 * w.cg);
+// c[j] (16 x 8) += A (16 x 64) B_j over one chunk's 64-deep k, with "row"
+// operands: A[i][k] = A[i * lda + k] (fp32), B_j[k][n] = Bc[(nb + 8 j + n) *
+// kLdr + k] (a chunk); both row strides = 8 mod 32. Lane (g, t) takes k =
+// 2t and 2t + 1 of each k8 step, one float2 a row, as the fragment's k = t
+// and t + 4. g = lane / 4, t = lane % 4.
+template <int NT>
+__device__ __forceinline__ void prod_row(float (&c)[NT][4], const float* A,
+                                         int lda, const float* Bc, int nb,
+                                         int g, int t) {
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int r = w.rg + w.RG * u;
-      if (r < R) {
-        const float c = C[r * ldc + j];
-        acc[u].x = fmaf(c, mv.x, acc[u].x);
-        acc[u].y = fmaf(c, mv.y, acc[u].y);
-        acc[u].z = fmaf(c, mv.z, acc[u].z);
-        acc[u].w = fmaf(c, mv.w, acc[u].w);
-      }
+  for (int ks = 0; ks < kC / 8; ++ks) {
+    const int k = 8 * ks + 2 * t;
+    const float2 x = *reinterpret_cast<const float2*>(A + g * lda + k);
+    const float2 y = *reinterpret_cast<const float2*>(A + (g + 8) * lda + k);
+    uint32_t ah[4], al[4];
+    split(x.x, ah[0], al[0]);
+    split(y.x, ah[1], al[1]);
+    split(x.y, ah[2], al[2]);
+    split(y.y, ah[3], al[3]);
+    float b[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(Bc + (nb + 8 * j + g) * kLdr + k);
+      b[j][0] = v.x;
+      b[j][1] = v.y;
     }
+    mma3(c, ah, al, b);
   }
 }
 
-template <int U>
-__device__ void store_rows(float* g, const float4 (&acc)[U], int r0,
-                           int R, int N, int D, float mul, Wide w) {
-  if (!w.active) return;
+// c[j] (16 x 8) += A (16 x 64) B_j over one chunk's 64-deep k, with "pair"
+// operands: A from the hi/lo planes Ahi/Alo (row stride kLdp, A[i][k] at
+// i * kLdp + k, as `split` leaves them), B_j[k][n] = Bc[k * kLdc + nb + 8 j
+// + n]. Lane (g, t) takes k = 2t and 2t + 1 of each k8 step as the
+// fragment's k = t and t + 4.
+template <int NT>
+__device__ __forceinline__ void prod_pair(float (&c)[NT][4], const float* Ahi,
+                                          const float* Alo, const float* Bc,
+                                          int nb, int g, int t) {
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int r = w.rg + w.RG * u;
-    if (r < R && r0 + r < N) {
-      const float4 a = acc[u];
-      reinterpret_cast<float4*>(g + (size_t)(r0 + r) * D)[w.cg] =
-          make_float4(a.x * mul, a.y * mul, a.z * mul, a.w * mul);
+  for (int ks = 0; ks < kC / 8; ++ks) {
+    const int k = 8 * ks + 2 * t;
+    const float2 h0 = *reinterpret_cast<const float2*>(Ahi + g * kLdp + k);
+    const float2 h1 =
+        *reinterpret_cast<const float2*>(Ahi + (g + 8) * kLdp + k);
+    const float2 l0 = *reinterpret_cast<const float2*>(Alo + g * kLdp + k);
+    const float2 l1 =
+        *reinterpret_cast<const float2*>(Alo + (g + 8) * kLdp + k);
+    const uint32_t ah[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
+                            __float_as_uint(h0.y), __float_as_uint(h1.y)};
+    const uint32_t al[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
+                            __float_as_uint(l0.y), __float_as_uint(l1.y)};
+    float b[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      b[j][0] = Bc[k * kLdc + nb + 8 * j + g];
+      b[j][1] = Bc[(k + 1) * kLdc + nb + 8 * j + g];
     }
+    mma3(c, ah, al, b);
   }
 }
 
+// The hi/lo planes of one C fragment (rows r, r + 8; columns col, col + 1).
+__device__ __forceinline__ void put_planes(float* hi, float* lo, int r,
+                                           int col, const float (&v)[4]) {
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(v[e], h[e], l[e]);
+  *reinterpret_cast<uint2*>(hi + r * kLdp + col) = make_uint2(h[0], h[1]);
+  *reinterpret_cast<uint2*>(hi + (r + 8) * kLdp + col) =
+      make_uint2(h[2], h[3]);
+  *reinterpret_cast<uint2*>(lo + r * kLdp + col) = make_uint2(l[0], l[1]);
+  *reinterpret_cast<uint2*>(lo + (r + 8) * kLdp + col) =
+      make_uint2(l[2], l[3]);
+}
+
+// Rows [r0, r0 + R) x columns [c0, c0 + W) of M (row stride ldm) into shared
+// memory with row stride lds; zeros at rows >= rlim or columns >= clim.
+// Issues cp.async without committing.
+__device__ __forceinline__ void load_tile(float* s, int lds, const float* M,
+                                          int ldm, int r0, int c0, int R,
+                                          int W, int rlim, int clim) {
+  const int w4 = W / 4;
+  for (int p = threadIdx.x; p < R * w4; p += kThreads) {
+    const int r = p / w4, c = 4 * (p - r * w4);
+    const bool ok = r0 + r < rlim && c0 + c < clim;
+    cp_async16(s + r * lds + c, ok ? M + (size_t)(r0 + r) * ldm + c0 + c : M,
+               ok);
+  }
+}
+// The same for a box of R x W known at compile time, loaded by a block of
+// T threads.
+template <int R, int W, int T>
+__device__ __forceinline__ void load_box(float* s, int lds, const float* M,
+                                         int ldm, int r0, int c0, int rlim,
+                                         int clim) {
+#pragma unroll
+  for (int i = 0; i < R * W / 4 / T; ++i) {
+    const int p = threadIdx.x + i * T;
+    const int r = p / (W / 4), c = 4 * (p % (W / 4));
+    const bool ok = r0 + r < rlim && c0 + c < clim;
+    cp_async16(s + r * lds + c, ok ? M + (size_t)(r0 + r) * ldm + c0 + c : M,
+               ok);
+  }
+}
+
+// The ring: chunk j lives in stage j % kStages. ring_step(j) waits for
+// chunk j, syncs the block (so the stage of chunk j - 1 is free and every
+// shared write before it is visible), and issues chunk j + kStages - 1.
+template <typename Issue>
+__device__ __forceinline__ void ring_step(int j, Issue& issue) {
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  issue(j + kStages - 1);
+}
+
+// ---------------------------------------------------------------- K5f ---
+// Grid (q tiles, B, S): split z of S takes its share of the key tiles and
+// writes O and lse for those keys alone to o and lse, offset by z B N D and
+// z B N (S = 1: the outputs; S = 2: the partial results that
+// attn_combine_kernel merges).
 __global__ void __launch_bounds__(kThreads, 1)
-    attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
-                    float* __restrict__ lse, int N, int D, float scale) {
+    attn_fwd_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int N, int D, float scale) {
+  constexpr int WC = 8 / (kBQ / 16);  // warps sharing a 16-row group
+  constexpr int KW = kBK / WC;       // keys of S a warp forms
+  constexpr int SN = KW / 8;         // ... in n8 tiles
+  constexpr int ON = 8 / WC;         // O n8 tiles a warp owns per chunk
   extern __shared__ float4 smem4[];
-  const int ld = D + 4, ldp = kBKf + 1;
-  float* sQ = reinterpret_cast<float*>(smem4);  // kBQ x ld
-  float* sKV = sQ + kBQ * ld;                   // kBKf x ld: K, then V
-  float* red = sKV + kBKf * ld;                 // kSlices x kBQ x kBKf
-  float* sS = red + kSlices * kBQ * kBKf;       // kBQ x ldp: scores, then P
-  float* sM = sS + kBQ * ldp;                   // running row max
-  float* sL = sM + kBQ;                         // running row sum
-  float* sA = sL + kBQ;                         // this tile's rescale
-  const int b = blockIdx.y, q0 = blockIdx.x * kBQ, t = threadIdx.x;
+  const int nc = (D + kC - 1) / kC, ldq = nc * kC + 8;
+  float* sQ = reinterpret_cast<float*>(smem4);  // kBQ x ldq
+  float* ring = sQ + kBQ * ldq;  // kStages x kSlot
+  float* pHi = ring + kStages * kSlot;  // kBQ x kLdp
+  float* pLo = pHi + kBQ * kLdp;
+  float* sMax = pLo + kBQ * kLdp;  // WC x kBQ
+  float* sSum = sMax + WC * kBQ;   // WC x kBQ
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wr = warp / WC, wc = warp % WC;
+  const int b = blockIdx.y, q0 = blockIdx.x * kBQ, r0 = 16 * wr;
   const size_t base = (size_t)b * N * D;
-  load_rows(sQ, q + base, q0, kBQ, N, D);
-  if (t < kBQ) {
-    sM[t] = -INFINITY;
-    sL[t] = 0.f;
-  }
-  const Wide w = wide_of(D);
-  float4 acc[kMaxRows];
+  const float *kb = k + base, *vb = v + base;
+  const int tiles = (N + kBK - 1) / kBK;
+  const int kt0 = blockIdx.z * tiles / gridDim.z;
+  const int kt1 = (blockIdx.z + 1) * tiles / gridDim.z;
+  o += (size_t)blockIdx.z * gridDim.y * N * D;
+  lse += (size_t)blockIdx.z * gridDim.y * N;
+  const int per_tile = 2 * nc, total = (kt1 - kt0) * per_tile;
+  auto slot = [&](int j) { return ring + (j % kStages) * kSlot; };
+  auto issue = [&](int j) {
+    if (j < total) {
+      const int kt = kt0 + j / per_tile, r = j - (kt - kt0) * per_tile;
+      // K chunks as "row" B, V chunks as "pair" B
+      load_box<kC, kC, kThreads>(slot(j), r < nc ? kLdr : kLdc,
+                                 r < nc ? kb : vb, D, kt * kBK,
+                                 (r < nc ? r : r - nc) * kC, N, D);
+    }
+    cp_async_commit();
+  };
+  load_tile(sQ, ldq, q + base, D, q0, 0, kBQ, nc * kC, N, D);
+  issue(0);
+  issue(1);
+
+  float acc[kMaxChunks * ON][4];
+  zero(acc);
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  int j = 0;
+  for (int k0 = kt0 * kBK; k0 < min(kt1 * kBK, N); k0 += kBK) {
+    float s[SN][4];
+    zero(s);
+    for (int dc = 0; dc < nc; ++dc, ++j) {
+      ring_step(j, issue);
+      float part[SN][4];
+      zero(part);
+      prod_row(part, sQ + r0 * ldq + dc * kC, ldq, slot(j), wc * KW, g, t);
+      add_to(s, part);
+    }
+    // online softmax over this tile's keys: each warp the max of its KW
+    // columns, the row group's max through sMax
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int u = 0; u < kMaxRows; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const int warp = t / 32, lane = t % 32;
-  for (int k0 = 0; k0 < N; k0 += kBKf) {
-    __syncthreads();  // the previous V tile is consumed
-    load_rows(sKV, k + base, k0, kBKf, N, D);
-    __syncthreads();
-    score_tile<kBKf>(sQ, sKV, red, sS, ldp, D);
-    // online softmax: warp w updates rows 4w .. 4w + 3, lane = column
+    for (int i = 0; i < SN; ++i)
 #pragma unroll
-    for (int rr = 0; rr < kBQ / 8; ++rr) {
-      const int i = warp * (kBQ / 8) + rr;
-      const float m_old = sM[i];
-      const float s = (k0 + lane < N) ? sS[i * ldp + lane] * scale : -INFINITY;
-      float mx = s;
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + wc * KW + 8 * i + 2 * t + (e & 1);
+        s[i][e] = key < N ? s[i][e] * scale : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[i][e]);
+      }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_old, mx);
-      const float p = expf(s - m_new);
-      float sum = p;
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    if (t == 0) {
+      sMax[wc * kBQ + r0 + g] = mx[0];
+      sMax[wc * kBQ + r0 + g + 8] = mx[1];
+    }
+    group_sync(1 + wr, 32 * WC);
+    float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      sS[i * ldp + lane] = p;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sA[i] = alpha;
-        sL[i] = sL[i] * alpha + sum;
-        sM[i] = m_new;
+    for (int h = 0; h < 2; ++h) {
+      float m = m_run[h];
+#pragma unroll
+      for (int c = 0; c < WC; ++c) m = fmaxf(m, sMax[c * kBQ + r0 + g + 8 * h]);
+      alpha[h] = expf(m_run[h] - m);
+      m_run[h] = m;
+    }
+#pragma unroll
+    for (int i = 0; i < SN; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[i][e] = expf(s[i][e] - m_run[e >> 1]);
+        rs[e >> 1] += s[i][e];
+      }
+      put_planes(pHi, pLo, r0 + g, wc * KW + 8 * i + 2 * t, s[i]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+      l_run[h] = l_run[h] * alpha[h] + rs[h];
+    }
+    // O = alpha O + P V, one D-chunk of V at a time
+#pragma unroll
+    for (int dc = 0; dc < kMaxChunks; ++dc) {
+      if (dc < nc) {
+        ring_step(j, issue);
+        float part[ON][4];
+        zero(part);
+        prod_pair(part, pHi + r0 * kLdp, pLo + r0 * kLdp, slot(j),
+                  8 * ON * wc, g, t);
+#pragma unroll
+        for (int i = 0; i < ON; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[dc * ON + i][e] =
+                fmaf(acc[dc * ON + i][e], alpha[e >> 1], part[i][e]);
+        ++j;
       }
     }
-    __syncthreads();  // P and the rescales are ready; K is no longer read
-    load_rows(sKV, v + base, k0, kBKf, N, D);
-    __syncthreads();
-    if (w.active) {
-#pragma unroll
-      for (int u = 0; u < kMaxRows; ++u) {
-        const int r = w.rg + w.RG * u;
-        if (r < kBQ) {
-          const float a = sA[r];
-          acc[u] = make_float4(acc[u].x * a, acc[u].y * a, acc[u].z * a,
-                               acc[u].w * a);
-        }
-      }
-    }
-    wide_acc(acc, sS, ldp, sKV, kBKf, kBQ, D, w);
   }
-  if (w.active) {
-#pragma unroll
-    for (int u = 0; u < kMaxRows; ++u) {
-      const int r = w.rg + w.RG * u;
-      if (r < kBQ && q0 + r < N) {
-        const float l = sL[r];
-        const float4 a = acc[u];
-        reinterpret_cast<float4*>(o + base + (size_t)(q0 + r) * D)[w.cg] =
-            make_float4(a.x / l, a.y / l, a.z / l, a.w / l);
-      }
-    }
+  cp_async_wait<0>();
+  // l: the row group's per-warp sums, added in warp order
+  if (t == 0) {
+    sSum[wc * kBQ + r0 + g] = l_run[0];
+    sSum[wc * kBQ + r0 + g + 8] = l_run[1];
   }
-  if (t < kBQ && q0 + t < N) lse[(size_t)b * N + q0 + t] = sM[t] + logf(sL[t]);
+  group_sync(1 + wr, 32 * WC);
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < WC; ++c) l[h] += sSum[c * kBQ + r0 + g + 8 * h];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + g + 8 * h;
+    if (row >= N) continue;
+#pragma unroll
+    for (int dc = 0; dc < kMaxChunks; ++dc)
+#pragma unroll
+      for (int i = 0; i < ON; ++i) {
+        const int n = dc * kC + 8 * (ON * wc + i) + 2 * t;
+        if (dc < nc && n < D)
+          *reinterpret_cast<float2*>(o + base + (size_t)row * D + n) =
+              make_float2(acc[dc * ON + i][2 * h] / l[h],
+                          acc[dc * ON + i][2 * h + 1] / l[h]);
+      }
+    if (wc == 0 && t == 0) lse[(size_t)b * N + row] = m_run[h] + logf(l[h]);
+  }
 }
 
+// O and lse from two splits' partial results (po: 2 x rows x D, plse: 2 x
+// rows): lse = log(e^lse0 + e^lse1), O = e^(lse0 - lse) O0 + e^(lse1 - lse)
+// O1. One warp a row, float4 steps along D.
+__global__ void attn_combine_kernel(const float* __restrict__ po,
+                                    const float* __restrict__ plse,
+                                    float* __restrict__ o,
+                                    float* __restrict__ lse, int rows,
+                                    int D) {
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const float l0 = plse[row], l1 = plse[rows + row];
+  const float m = fmaxf(l0, l1);
+  const float e0 = expf(l0 - m), e1 = expf(l1 - m), sum = e0 + e1;
+  const float w0 = e0 / sum, w1 = e1 / sum;
+  const float4* a = reinterpret_cast<const float4*>(po + (size_t)row * D);
+  const float4* c =
+      reinterpret_cast<const float4*>(po + ((size_t)rows + row) * D);
+  float4* out = reinterpret_cast<float4*>(o + (size_t)row * D);
+  for (int i = lane; i < D / 4; i += 32) {
+    const float4 x = a[i], y = c[i];
+    out[i] = make_float4(fmaf(w1, y.x, w0 * x.x), fmaf(w1, y.y, w0 * x.y),
+                         fmaf(w1, y.z, w0 * x.z), fmaf(w1, y.w, w0 * x.w));
+  }
+  if (lane == 0) lse[row] = m + logf(sum);
+}
+
+// ---------------------------------------------------------------- K5b ---
 // delta[row] = sum_d dO[row][d] * O[row][d]: one warp per row, lanes over D
 // in float4 steps, then a butterfly sum (every lane holds the same bits).
 __global__ void attn_delta_kernel(const float* __restrict__ o,
@@ -275,184 +514,372 @@ __global__ void attn_delta_kernel(const float* __restrict__ o,
   if (lane == 0) delta[row] = s;
 }
 
-// The per-q-row residuals of a q tile (past N: lse 0, delta 0).
-__device__ void load_row_stats(float* sLse, float* sDelta, const float* lse,
-                               const float* delta, size_t row0, int q0,
-                               int N) {
-  const int t = threadIdx.x;
-  if (t < kBQ) {
-    const bool in = q0 + t < N;
-    sLse[t] = in ? lse[row0 + q0 + t] : 0.f;
-    sDelta[t] = in ? delta[row0 + q0 + t] : 0.f;
+// S^T and dP^T for one tile of 128 keys x 128 q rows: 8 warps, 32 x 64 a
+// warp (2 x 8 fragments). (K, Q) chunks 32 deep in D form S^T, then (V, dO)
+// chunks dP^T, each stage of the ring holding two 128 x 32 chunks. Writes
+// P^T = exp(scale S^T - lse) to the scratch after the first pass and reads
+// it back (each thread its own entries) for dS^T = P^T o (dP^T - delta)
+// after the second; key-major, B x Np x Np each, 0 past N.
+constexpr int kSK = 32;                        // D-chunk depth
+constexpr int kLdS = kSK + 8;                  // chunk row stride, = 8 mod 32
+constexpr int kSStage = 2 * kScoreTile * kLdS;  // a (K or V, Q or dO) pair
+
+__device__ __forceinline__ void scores_pass(float (&acc)[2][kGFrag][4],
+                                            const float* As, const float* Bs,
+                                            int wm, int wn, int g, int t) {
+  float part[2][kGFrag][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) zero(part[mi]);
+#pragma unroll
+  for (int ks = 0; ks < kSK / 8; ++ks) {
+    const int k = 8 * ks + 2 * t;
+    uint32_t bh[kGFrag][2], bl[kGFrag][2];
+#pragma unroll
+    for (int nj = 0; nj < kGFrag; ++nj) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(Bs + (wn + 8 * nj + g) * kLdS + k);
+      split(v.x, bh[nj][0], bl[nj][0]);
+      split(v.y, bh[nj][1], bl[nj][1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int r = wm + 16 * mi + g;
+      const float2 x = *reinterpret_cast<const float2*>(As + r * kLdS + k);
+      const float2 y =
+          *reinterpret_cast<const float2*>(As + (r + 8) * kLdS + k);
+      uint32_t ah[4], al[4];
+      split(x.x, ah[0], al[0]);
+      split(y.x, ah[1], al[1]);
+      split(x.y, ah[2], al[2]);
+      split(y.y, ah[3], al[3]);
+      mma3(part[mi], ah, al, bh, bl);
+    }
   }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) add_to(acc[mi], part[mi]);
 }
 
-// One block per 16 k rows: loops over every q tile, dK and dV in registers.
-__global__ void __launch_bounds__(kThreads, 1)
-    attn_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int N, int D, float scale) {
+__global__ void __launch_bounds__(kGThreads, 1)
+    attn_scores_tc_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ pt_out,
+                          float* __restrict__ dst_out, int N, int D, int Np,
+                          float scale) {
   extern __shared__ float4 smem4[];
-  const int ld = D + 4, lds = kBKb + 1, ldt = kBQ + 1;
-  float* sK = reinterpret_cast<float*>(smem4);  // kBKb x ld
-  float* sV = sK + kBKb * ld;                   // kBKb x ld
-  float* sQ = sV + kBKb * ld;                   // kBQ x ld
-  float* sdO = sQ + kBQ * ld;                   // kBQ x ld
-  float* red = sdO + kBQ * ld;                  // kSlices x kBQ x kBKb
-  float* sS = red + kSlices * kBQ * kBKb;       // kBQ x lds: Q K^T
-  float* sDP = sS + kBQ * lds;                  // kBQ x lds: dO V^T
-  float* sPT = sDP + kBQ * lds;                 // kBKb x ldt: P^T
-  float* sDST = sPT + kBKb * ldt;               // kBKb x ldt: dS^T
-  float* sLse = sDST + kBKb * ldt;              // kBQ
-  float* sDelta = sLse + kBQ;                   // kBQ
-  const int b = blockIdx.y, k0 = blockIdx.x * kBKb;
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int nc = (D + kSK - 1) / kSK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = 32 * (warp / 2), wn = 8 * kGFrag * (warp % 2);
+  const int q0 = blockIdx.x * kScoreTile, k0 = blockIdx.y * kScoreTile;
+  const int b = blockIdx.z;
   const size_t base = (size_t)b * N * D, row0 = (size_t)b * N;
-  load_rows(sK, k + base, k0, kBKb, N, D);
-  load_rows(sV, v + base, k0, kBKb, N, D);
-  const Wide w = wide_of(D);
-  float4 acc_dk[kMaxRows / 2], acc_dv[kMaxRows / 2];  // 16 rows, RG >= 2
-#pragma unroll
-  for (int u = 0; u < kMaxRows / 2; ++u) {
-    acc_dk[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-    acc_dv[u] = acc_dk[u];
-  }
-  for (int q0 = 0; q0 < N; q0 += kBQ) {
-    __syncthreads();  // the previous q tile is consumed
-    load_rows(sQ, q + base, q0, kBQ, N, D);
-    load_rows(sdO, dout + base, q0, kBQ, N, D);
-    load_row_stats(sLse, sDelta, lse, delta, row0, q0, N);
-    __syncthreads();
-    score_tile<kBKb>(sQ, sK, red, sS, lds, D);
-    score_tile<kBKb>(sdO, sV, red, sDP, lds, D);
-    for (int e = threadIdx.x; e < kBQ * kBKb; e += kThreads) {
-      const int i = e / kBKb, j = e - i * kBKb;
-      const bool in = q0 + i < N && k0 + j < N;
-      const float p = in ? expf(sS[i * lds + j] * scale - sLse[i]) : 0.f;
-      sPT[j * ldt + i] = p;
-      sDST[j * ldt + i] = p * (sDP[i * lds + j] - sDelta[i]);
+  auto stage = [&](int j) { return ring + (j % kStages) * kSStage; };
+  // (K, Q) chunks, then (V, dO) chunks
+  auto issue = [&](int j) {
+    if (j < 2 * nc) {
+      const int pass = j / nc, c0 = (j - pass * nc) * kSK;
+      load_box<kScoreTile, kSK, kGThreads>(stage(j), kLdS,
+                                           (pass ? v : k) + base, D, k0, c0,
+                                           N, D);
+      load_box<kScoreTile, kSK, kGThreads>(stage(j) + kScoreTile * kLdS, kLdS,
+                                           (pass ? dout : q) + base, D, q0,
+                                           c0, N, D);
     }
-    __syncthreads();
-    wide_acc(acc_dv, sPT, ldt, sdO, kBQ, kBKb, D, w);
-    wide_acc(acc_dk, sDST, ldt, sQ, kBQ, kBKb, D, w);
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+  float acc[2][kGFrag][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) zero(acc[mi]);
+  int j = 0;
+  for (; j < nc; ++j) {
+    ring_step(j, issue);
+    scores_pass(acc, stage(j), stage(j) + kScoreTile * kLdS, wm, wn, g, t);
   }
-  store_rows(dk + base, acc_dk, k0, kBKb, N, D, scale, w);
-  store_rows(dv + base, acc_dv, k0, kBKb, N, D, 1.f, w);
+  // P^T, zero past N
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + wm + 16 * mi + g + 8 * h;
+#pragma unroll
+      for (int nj = 0; nj < kGFrag; ++nj) {
+        const int qq = q0 + wn + 8 * nj + 2 * t;
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          p[e] = key < N && qq + e < N
+                     ? expf(acc[mi][nj][2 * h + e] * scale - lse[row0 + qq + e])
+                     : 0.f;
+        *reinterpret_cast<float2*>(pt_out + ((size_t)b * Np + key) * Np +
+                                   qq) = make_float2(p[0], p[1]);
+      }
+    }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) zero(acc[mi]);
+  for (; j < 2 * nc; ++j) {
+    ring_step(j, issue);
+    scores_pass(acc, stage(j), stage(j) + kScoreTile * kLdS, wm, wn, g, t);
+  }
+  cp_async_wait<0>();
+  // dS^T = P^T o (dP^T - delta[q]), P^T read back from this thread's writes
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + wm + 16 * mi + g + 8 * h;
+#pragma unroll
+      for (int nj = 0; nj < kGFrag; ++nj) {
+        const int qq = q0 + wn + 8 * nj + 2 * t;
+        const size_t at = ((size_t)b * Np + key) * Np + qq;
+        const float2 p = *reinterpret_cast<const float2*>(pt_out + at);
+        const float d0 = qq < N ? delta[row0 + qq] : 0.f;
+        const float d1 = qq + 1 < N ? delta[row0 + qq + 1] : 0.f;
+        *reinterpret_cast<float2*>(dst_out + at) =
+            make_float2(p.x * (acc[mi][nj][2 * h] - d0),
+                        p.y * (acc[mi][nj][2 * h + 1] - d1));
+      }
+    }
 }
 
-// One block per 32 q rows: loops over every k tile, dQ in registers.
-__global__ void __launch_bounds__(kThreads, 1)
-    attn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dq,
-                   int N, int D, float scale) {
+// The products over the scratch, a tiled GEMM a batch element: out = scale
+// A M, A(r, c) = s[c][r] (TRANS: dQ = scale dS K, from the key-major dS^T)
+// or s[r][c] (dK = scale dS^T Q, dV = P^T dO); M = K, Q or dO (N x D). A
+// block of 8 warps owns 128 rows x 128 columns of out (32 x 64 a warp: 2 x
+// 8 fragments, so each k8 step splits 8 A and 16 B values for 48 mma; 16
+// warps of 32 x 32 were slower) and streams 32-deep chunks of A and M
+// through a 3-stage ring, each chunk's sum added to the running sum with a
+// rounded fp32 add (the design note above). A's chunk is s's rows (TRANS,
+// row stride 132 = 4 mod 32, read as a "pair" A) or columns (row stride 40
+// = 8 mod 32, a float2 a fragment pair), M's chunk rows of c (row stride
+// 132). Splitting both chunks once a block into hi/lo planes, instead of in
+// each warp's registers, was slower (twice the shared-memory reads).
+constexpr int kGR = 128, kGN = 128, kGK = 32;
+constexpr int kLdT = kGR + 4;  // chunk rows of 128 (M; A under TRANS)
+constexpr int kLdA = kGK + 8;  // chunk rows of 32 (A without TRANS)
+constexpr int kGStage = kGR * kLdA + kGK * kLdT;  // A region (the larger) + M
+
+template <bool TRANS>
+__device__ __forceinline__ void scratch_gemm(const float* __restrict__ m,
+                                             const float* __restrict__ sc,
+                                             float* __restrict__ out, int N,
+                                             int D, int Np, float scale) {
   extern __shared__ float4 smem4[];
-  const int ld = D + 4, lds = kBKb + 1;
-  float* sQ = reinterpret_cast<float*>(smem4);  // kBQ x ld
-  float* sdO = sQ + kBQ * ld;                   // kBQ x ld
-  float* sK = sdO + kBQ * ld;                   // kBKb x ld
-  float* sV = sK + kBKb * ld;                   // kBKb x ld
-  float* red = sV + kBKb * ld;                  // kSlices x kBQ x kBKb
-  float* sS = red + kSlices * kBQ * kBKb;       // kBQ x lds: Q K^T, then dS
-  float* sDP = sS + kBQ * lds;                  // kBQ x lds: dO V^T
-  float* sLse = sDP + kBQ * lds;                // kBQ
-  float* sDelta = sLse + kBQ;                   // kBQ
-  const int b = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const size_t base = (size_t)b * N * D, row0 = (size_t)b * N;
-  load_rows(sQ, q + base, q0, kBQ, N, D);
-  load_rows(sdO, dout + base, q0, kBQ, N, D);
-  load_row_stats(sLse, sDelta, lse, delta, row0, q0, N);
-  const Wide w = wide_of(D);
-  float4 acc[kMaxRows];
-#pragma unroll
-  for (int u = 0; u < kMaxRows; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k0 = 0; k0 < N; k0 += kBKb) {
-    __syncthreads();  // the previous k tile is consumed
-    load_rows(sK, k + base, k0, kBKb, N, D);
-    load_rows(sV, v + base, k0, kBKb, N, D);
-    __syncthreads();
-    score_tile<kBKb>(sQ, sK, red, sS, lds, D);
-    score_tile<kBKb>(sdO, sV, red, sDP, lds, D);
-    for (int e = threadIdx.x; e < kBQ * kBKb; e += kThreads) {
-      const int i = e / kBKb, j = e - i * kBKb;
-      const bool in = q0 + i < N && k0 + j < N;
-      const float p = in ? expf(sS[i * lds + j] * scale - sLse[i]) : 0.f;
-      sS[i * lds + j] = p * (sDP[i * lds + j] - sDelta[i]);
+  float* ring = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * kGN, r0 = blockIdx.y * kGR, b = blockIdx.z;
+  const int wm = 32 * (warp / 2), wn = 8 * kGFrag * (warp % 2);
+  const size_t base = (size_t)b * N * D;
+  const float* mb = m + base;
+  const float* sb = sc + (size_t)b * Np * Np;
+  const int total = (N + kGK - 1) / kGK;
+  auto stage = [&](int j) { return ring + (j % kStages) * kGStage; };
+  auto issue = [&](int j) {
+    if (j < total) {
+      float* st = stage(j);
+      if (TRANS)
+        load_box<kGK, kGR, kGThreads>(st, kLdT, sb, Np, j * kGK, r0, N, N);
+      else
+        load_box<kGR, kGK, kGThreads>(st, kLdA, sb, Np, r0, j * kGK, N, N);
+      load_box<kGK, kGN, kGThreads>(st + kGR * kLdA, kLdT, mb, D, j * kGK, n0,
+                                    N, D);
     }
-    __syncthreads();
-    wide_acc(acc, sS, lds, sK, kBKb, kBQ, D, w);
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+  float acc[2][kGFrag][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) zero(acc[mi]);
+  for (int j = 0; j < total; ++j) {
+    ring_step(j, issue);
+    const float* As = stage(j);
+    const float* Bs = As + kGR * kLdA;
+    float part[2][kGFrag][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) zero(part[mi]);
+#pragma unroll
+    for (int ks = 0; ks < kGK / 8; ++ks) {
+      const int k = 8 * ks + 2 * t;
+      uint32_t bh[kGFrag][2], bl[kGFrag][2];
+#pragma unroll
+      for (int nj = 0; nj < kGFrag; ++nj) {
+        split(Bs[k * kLdT + wn + 8 * nj + g], bh[nj][0], bl[nj][0]);
+        split(Bs[(k + 1) * kLdT + wn + 8 * nj + g], bh[nj][1], bl[nj][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm + 16 * mi + g;
+        float a[4];
+        if (TRANS) {
+          a[0] = As[k * kLdT + r];
+          a[1] = As[k * kLdT + r + 8];
+          a[2] = As[(k + 1) * kLdT + r];
+          a[3] = As[(k + 1) * kLdT + r + 8];
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(As + r * kLdA + k);
+          const float2 y =
+              *reinterpret_cast<const float2*>(As + (r + 8) * kLdA + k);
+          a[0] = x.x, a[1] = y.x, a[2] = x.y, a[3] = y.y;
+        }
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(a[e], ah[e], al[e]);
+        mma3(part[mi], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) add_to(acc[mi], part[mi]);
   }
-  store_rows(dq + base, acc, q0, kBQ, N, D, scale, w);
+  cp_async_wait<0>();
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + wm + 16 * mi + g + 8 * h;
+      if (row >= N) continue;
+#pragma unroll
+      for (int nj = 0; nj < kGFrag; ++nj) {
+        const int n = n0 + wn + 8 * nj + 2 * t;
+        if (n < D)
+          *reinterpret_cast<float2*>(out + base + (size_t)row * D + n) =
+              make_float2(acc[mi][nj][2 * h] * scale,
+                          acc[mi][nj][2 * h + 1] * scale);
+      }
+    }
 }
+
+// dV = P^T dO.
+__global__ void __launch_bounds__(kGThreads, 1)
+    attn_dv_tc_kernel(const float* __restrict__ dout,
+                      const float* __restrict__ pt, float* __restrict__ dv,
+                      int N, int D, int Np, float scale) {
+  scratch_gemm<false>(dout, pt, dv, N, D, Np, scale);
+}
+
+// dK = scale dS^T Q.
+__global__ void __launch_bounds__(kGThreads, 1)
+    attn_dk_tc_kernel(const float* __restrict__ q,
+                      const float* __restrict__ ds, float* __restrict__ dk,
+                      int N, int D, int Np, float scale) {
+  scratch_gemm<false>(q, ds, dk, N, D, Np, scale);
+}
+
+// dQ = scale dS K.
+__global__ void __launch_bounds__(kGThreads, 1)
+    attn_dq_tc_kernel(const float* __restrict__ k,
+                      const float* __restrict__ ds, float* __restrict__ dq,
+                      int N, int D, int Np, float scale) {
+  scratch_gemm<true>(k, ds, dq, N, D, Np, scale);
+}
+
+// ----------------------------------------------------------------- host --
+int padded_d(int D) { return (D + kC - 1) / kC * kC; }
 
 size_t fwd_smem(int D) {
-  const size_t ld = D + 4;
-  return sizeof(float) * (2 * kBQ * ld + kSlices * kBQ * kBKf +
-                          kBQ * (kBKf + 1) + 3 * kBQ);
+  const size_t floats = (size_t)kBQ * (padded_d(D) + 8) + kStages * kSlot +
+                        2 * kBQ * kLdp + 2 * (8 / (kBQ / 16)) * kBQ;
+  return sizeof(float) * floats;
+}
+size_t scores_smem() { return sizeof(float) * kStages * kSStage; }
+size_t gemm_smem() { return sizeof(float) * kStages * kGStage; }
+
+// One of the products over the scratch: dV, dK or dQ.
+template <typename Kernel>
+cudaError_t launch_gemm(Kernel kernel, size_t smem, dim3 grid, const float* m,
+                        const float* scratch, float* out, int N, int D,
+                        int Np, float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kGThreads, smem, stream>>>(m, scratch, out, N, D, Np, scale);
+  return cudaGetLastError();
 }
 
-size_t dkdv_smem(int D) {
-  const size_t ld = D + 4;
-  return sizeof(float) * (2 * kBKb * ld + 2 * kBQ * ld +
-                          kSlices * kBQ * kBKb + 2 * kBQ * (kBKb + 1) +
-                          2 * kBKb * (kBQ + 1) + 2 * kBQ);
-}
-
-size_t dq_smem(int D) {
-  const size_t ld = D + 4;
-  return sizeof(float) * (2 * kBQ * ld + 2 * kBKb * ld +
-                          kSlices * kBQ * kBKb + 2 * kBQ * (kBKb + 1) +
-                          2 * kBQ);
+// dV, dK and dQ from the P^T and dS^T scratch.
+cudaError_t launch_products(const float* q, const float* k, const float* dout,
+                            const float* pt, const float* dst, float* dq,
+                            float* dk, float* dv, int B, int N, int D, int Np,
+                            float scale, cudaStream_t stream) {
+  const size_t smem = gemm_smem();
+  const dim3 grid((D + kGN - 1) / kGN, (N + kGR - 1) / kGR, B);
+  cudaError_t err = launch_gemm(attn_dv_tc_kernel, smem, grid, dout, pt, dv,
+                                N, D, Np, 1.f, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm(attn_dk_tc_kernel, smem, grid, q, dst, dk, N, D, Np,
+                    scale, stream);
+  if (err != cudaSuccess) return err;
+  return launch_gemm(attn_dq_tc_kernel, smem, grid, k, dst, dq, N, D, Np,
+                     scale, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: (B, N, D) fp32, contiguous, 16-byte aligned; D % 4 == 0,
 // 4 <= D <= 512. lse: (B, N), the row log-sum-exp of scale * Q K^T.
+// splits: the key tiles (64 keys) cut into 1 or 2 ranges, each a block of
+// its own, merged by attn_combine_kernel (more blocks where B N / 64 would
+// leave SMs idle); at most one range a tile. part: 2 B N (D + 1) floats of
+// scratch for 2 splits, else unused.
 extern "C" cudaError_t uig_attention_fwd(const float* q, const float* k,
                                          const float* v, float* o, float* lse,
-                                         int B, int N, int D, float scale,
+                                         float* part, int B, int N, int D,
+                                         float scale, int splits,
                                          cudaStream_t stream) {
+  const int tiles = (N + kBK - 1) / kBK;
+  if (splits > tiles) splits = tiles;
+  if (splits < 1 || splits > 2 || (splits == 2 && part == nullptr))
+    return cudaErrorInvalidValue;
   const size_t smem = fwd_smem(D);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  attn_fwd_kernel<<<dim3((N + kBQ - 1) / kBQ, B), kThreads, smem, stream>>>(
-      q, k, v, o, lse, N, D, scale);
+  float* po = splits == 1 ? o : part;
+  float* plse = splits == 1 ? lse : part + (size_t)2 * B * N * D;
+  attn_fwd_tc_kernel<<<dim3((N + kBQ - 1) / kBQ, B, splits), kThreads, smem,
+                       stream>>>(q, k, v, po, plse, N, D, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess || splits == 1) return err;
+  const int rows = B * N, per_block = kThreads / 32;
+  attn_combine_kernel<<<(rows + per_block - 1) / per_block, kThreads, 0,
+                        stream>>>(po, plse, o, lse, rows, D);
   return cudaGetLastError();
 }
 
 // dout: (B, N, D) the gradient of o; o and lse from uig_attention_fwd.
-// delta: (B, N) scratch. dq, dk, dv: (B, N, D) outputs.
+// delta: (B, N) scratch; ds: (2, B, Np, Np) scratch, dS^T then P^T, Np = N
+// rounded up to a multiple of 128. dq, dk, dv: (B, N, D) outputs.
 extern "C" cudaError_t uig_attention_bwd(const float* q, const float* k,
                                          const float* v, const float* o,
                                          const float* lse, const float* dout,
-                                         float* delta, float* dq, float* dk,
-                                         float* dv, int B, int N, int D,
-                                         float scale, cudaStream_t stream) {
+                                         float* delta, float* ds, float* dq,
+                                         float* dk, float* dv, int B, int N,
+                                         int D, float scale,
+                                         cudaStream_t stream) {
   const int rows = B * N, per_block = kThreads / 32;
+  const int Np = (N + kScoreTile - 1) / kScoreTile * kScoreTile;
   attn_delta_kernel<<<(rows + per_block - 1) / per_block, kThreads, 0,
                       stream>>>(o, dout, delta, rows, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t s_kv = dkdv_smem(D), s_q = dq_smem(D);
-  err = cudaFuncSetAttribute(attn_dkdv_kernel,
+  const size_t s_sc = scores_smem();
+  err = cudaFuncSetAttribute(attn_scores_tc_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(s_kv));
+                             static_cast<int>(s_sc));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_dq_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(s_q));
-  if (err != cudaSuccess) return err;
-  attn_dkdv_kernel<<<dim3((N + kBKb - 1) / kBKb, B), kThreads, s_kv,
-                     stream>>>(q, k, v, dout, lse, delta, dk, dv, N, D, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_dq_kernel<<<dim3((N + kBQ - 1) / kBQ, B), kThreads, s_q, stream>>>(
-      q, k, v, dout, lse, delta, dq, N, D, scale);
-  return cudaGetLastError();
+  const int tiles = (N + kScoreTile - 1) / kScoreTile;
+  float* pt = ds + (size_t)B * Np * Np;
+  attn_scores_tc_kernel<<<dim3(tiles, tiles, B), kGThreads, s_sc, stream>>>(
+      q, k, v, dout, lse, delta, pt, ds, N, D, Np, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_products(q, k, dout, pt, ds, dq, dk, dv, B, N, D, Np, scale,
+                         stream);
 }

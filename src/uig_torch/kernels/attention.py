@@ -9,6 +9,12 @@ fp32 over scale * q k^T with scale = 1/sqrt(D), stabilised by the row max.
 The forward also returns the row log-sum-exp (B, N): the port keeps it as
 the backward's residual, beside q, k, v and o (JAX keeps q, k, v and
 recomputes the row max).
+
+The kernels multiply on the tensor cores in the three-term TF32 split
+(each fp32 operand as a rounded TF32 high part plus a TF32 low part, three
+products summed in fp32), which keeps fp32's order of error: the card
+tests and ``chip_smoke.py`` hold them within 1e-5 of each output's largest
+value against the plain versions. The plain versions compute in fp32.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 from uig_torch.kernels import _build
 from uig_torch.kernels._check import cuda_operand, on_cpu
 
-MAX_D = 512  # the kernels keep a 32 x D accumulator in registers
+MAX_D = 512  # the kernels keep a 16 x D / 2 accumulator a warp in registers
 
 
 def _scale(d: int) -> float:
@@ -69,18 +75,33 @@ def _check_cuda(name: str, b: int, n: int, d: int, tensors: dict) -> None:
         cuda_operand(name, what, t, shape)
 
 
+def _key_splits(dev: torch.device, b: int, n: int) -> int:
+    """2 where one 64-row block a q tile would fill at most half the SMs
+    and there are two key tiles to share, else 1."""
+    tiles = -(-n // 64)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return 2 if tiles >= 2 and 2 * b * tiles <= sms else 1
+
+
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """(o, lse): o = softmax(q k^T / sqrt(D)) v, (B, N, D), and the row
-    log-sum-exp of the scaled logits, (B, N)."""
+    log-sum-exp of the scaled logits, (B, N). On the card the keys run in
+    one range or, where ``_key_splits`` says, in two, a kernel block each,
+    merged in a fixed order."""
     b, n, d = _check_qkv("attention_fwd", q, k, v)
     if on_cpu("attention_fwd", q, k, v):
         return attention_reference(q, k, v), torch.logsumexp(_logits(q, k), -1)
     _check_cuda("attention_fwd", b, n, d,
                 {"q": (q, None), "k": (k, None), "v": (v, None)})
+    splits = _key_splits(q.device, b, n)
     o = torch.empty_like(q)
     lse = torch.empty((b, n), device=q.device, dtype=torch.float32)
+    # the two ranges' partial O and lse
+    part = (torch.empty(2 * b * n * (d + 1), device=q.device,
+                        dtype=torch.float32) if splits == 2 else None)
     with torch.cuda.device(q.device):
-        _build.launch("uig_attention_fwd", q, k, v, o, lse, b, n, d, _scale(d))
+        _build.launch("uig_attention_fwd", q, k, v, o, lse, part, b, n, d,
+                      _scale(d), splits)
     attention_fwd.launches += 1
     return o, lse
 
@@ -91,7 +112,11 @@ attention_fwd.launches = 0
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor):
     """(dq, dk, dv) of ``attention_fwd(q, k, v)`` for the output gradient
-    ``do``; ``o`` and ``lse`` are that call's outputs."""
+    ``do``; ``o`` and ``lse`` are that call's outputs. On the card the
+    kernels keep P^T and dS^T in a scratch of 2 B Np^2 fp32, Np = N rounded
+    up to 128: 64 MiB for vqgan512's step (8, 1024), 256 MiB for
+    vaegan256's (32, 1024) on one card (both domains of 16 at its 32²
+    grid), 1 GiB at (8, 4096), a 64² grid."""
     b, n, d = _check_qkv("attention_bwd", q, k, v, o, do)
     if on_cpu("attention_bwd", q, k, v, o, lse, do):
         return attention_bwd_reference(q, k, v, do)
@@ -100,9 +125,14 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  "o": (o, None), "do": (do, None), "lse": (lse, (b, n))})
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty((b, n), device=q.device, dtype=torch.float32)
+    # dS^T and P^T, key-major, N rounded up to a multiple of 128 on both
+    # sides (the scores kernel's tiles)
+    n_pad = -(-n // 128) * 128
+    ds = torch.empty((2, b, n_pad, n_pad), device=q.device,
+                     dtype=torch.float32)
     with torch.cuda.device(q.device):
-        _build.launch("uig_attention_bwd", q, k, v, o, lse, do, delta, dq, dk,
-                      dv, b, n, d, _scale(d))
+        _build.launch("uig_attention_bwd", q, k, v, o, lse, do, delta, ds, dq,
+                      dk, dv, b, n, d, _scale(d))
     attention_bwd.launches += 1
     return dq, dk, dv
 

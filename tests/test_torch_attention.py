@@ -11,6 +11,10 @@ block to 8. Inputs are numpy normals from a seed.
 Tolerances, fp32 on both sides with sums in another order: the output
 within 1e-5 of its largest value; each gradient within 1e-5 of its largest
 value; the log-sum-exp within 1e-5 of float64's.
+
+The CUDA kernels multiply in the three-term TF32 split on the tensor cores;
+``test_tf32x3_split_matches_pallas`` emulates that arithmetic in torch on
+the CPU and holds it to the same tolerance against the Pallas kernels.
 """
 
 import jax
@@ -76,6 +80,62 @@ def test_gradients_match_pallas(jax_runs, shape):
                            torch.from_numpy(do))
     for g, d in zip(got, direct):
         assert torch.equal(g, d)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 to the nearest TF32 value (ties away from zero, as
+    ``cvt.rna.tf32.f32``): add half of the 13 dropped bits' weight to the
+    magnitude bits, then clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels form it: each operand as hi = tf32(x) and
+    lo = tf32(x - hi), the terms lo hi, hi lo, hi hi summed in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def test_tf32_rounding():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 1.0], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32))
+    hi = _tf32(r)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    rel = ((hi + _tf32(r - hi)).double() - r.double()).abs() / r.abs().double()
+    assert rel.max() <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_tf32x3_split_matches_pallas(jax_runs, shape):
+    """The forward's two products and the backward's five in the split,
+    with the softmax, delta and the epilogues in fp32 as the kernels take
+    them, against the Pallas kernels' outputs at REL."""
+    q, k, v, do, o_want, *want = jax_runs[shape]
+    q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, do))
+    scale = 1.0 / shape[-1] ** 0.5
+    s = _mm3(q, k.transpose(1, 2)) * scale
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = _mm3(p, v) / l
+    lse = m + torch.log(l)
+    _close(o.numpy(), o_want, "o")
+    # the backward from the forward's residuals: S^T and dP^T key-major
+    pt = torch.exp(_mm3(k, q.transpose(1, 2)) * scale - lse.transpose(1, 2))
+    dpt = _mm3(v, do.transpose(1, 2))
+    delta = (do * o).sum(-1)[:, None, :]
+    dst = pt * (dpt - delta)
+    dv = _mm3(pt, do)
+    dk = _mm3(dst, q) * scale
+    dq = _mm3(dst.transpose(1, 2), k) * scale
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        _close(g.numpy(), w, name)
 
 
 def test_shape_checks():

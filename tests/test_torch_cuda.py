@@ -301,14 +301,18 @@ def test_reflect_pad_adjoint_is_deterministic(dev):
     assert torch.equal(got[1], again[1])
 
 
-_ATTN_SHAPES = [(1, 37, 64), (2, 300, 256), (1, 70, 512), (3, 33, 36)]
+_ATTN_SHAPES = [(1, 37, 64), (2, 300, 256), (1, 70, 512), (3, 33, 36),
+                (1, 1024, 512), (2, 129, 128), (9, 1024, 64)]
 
 
 @pytest.mark.parametrize("shape", _ATTN_SHAPES, ids=str)
 def test_attention_kernels(dev, shape):
-    """Ragged N (tiles cut at the edge), D in {64, 256, 512} and one that
-    fills no float4 group of 32, B = 1; repeats are bit-equal (no
-    atomics)."""
+    """Ragged N (tiles cut at the edge; N = 129 one row past two 64-row
+    tiles), D in {64, 128, 256, 512} and one that fills no k8 step of the
+    tensor cores, B = 1, and one full VQGAN grid (1, 1024, 512); the
+    forward takes its keys in one range (one key tile: N = 37, 33; and at
+    (9, 1024, 64), whose 9 x 16 q tiles fill the SMs) or in two (the
+    others, on an H100's 132 SMs); repeats are bit-equal (no atomics)."""
     q, k, v, do = (_randn(dev, *shape, seed=i) for i in range(4))
     before = (attention_fwd.launches, attention_bwd.launches)
     o, lse = attention_fwd(q, k, v)

@@ -96,18 +96,44 @@ def test_chip_smoke_counts_launches_by_function():
 
 @pytest.mark.parametrize("ran", ["fma", "wgmma"])
 def test_chip_smoke_reads_the_design_that_ran(ran):
+    """The CycleGAN step: each conv kernel in one design, no attention."""
     cs = _chip_smoke()
     assert set(cs.DESIGNS) == {"conv3_in_act", "conv7_dgrad", "conv3s2",
-                               "conv3s2_dgrad", "conv3s2_wgrad"}
-    calls = {by[ran][0]: cs.PER_STEP[name]
-             for name, by in cs.DESIGNS.items()}
-    assert cs.designs_run(calls, "train") == {n: ran for n in cs.DESIGNS}
+                               "conv3s2_dgrad", "conv3s2_wgrad",
+                               "attention_fwd", "attention_bwd"}
+    conv = [name for name in cs.DESIGNS if cs.PER_STEP[name]]
+    assert len(conv) == 5
+    calls = {fn: cs.PER_STEP[name] for name in conv
+             for fn in cs.design_functions(name, ran)}
+    assert cs.designs_run(calls, "train") == {n: ran for n in conv}
     other = "fma" if ran == "wgmma" else "wgmma"
-    for name, by in cs.DESIGNS.items():
-        for bad in ({**calls, by[other][0]: 1},
-                    {**calls, by[ran][0]: cs.PER_STEP[name] - 1}):
+    for name in conv:
+        for bad in ({**calls, cs.design_functions(name, other)[0]: 1},
+                    {**calls, cs.design_functions(name, ran)[0]:
+                     cs.PER_STEP[name] - 1}):
             with pytest.raises(AssertionError, match=name):
                 cs.designs_run(bad, "train")
+    with pytest.raises(AssertionError, match="attention_fwd"):
+        cs.designs_run({**calls, "attn_fwd_tc_kernel": 1}, "train")
+
+
+def test_chip_smoke_reads_the_attention_design():
+    """The VQGAN step: every function of the tf32x3 attention design its
+    VQ_PER_STEP times, none of the FMA design, no conv kernel."""
+    cs = _chip_smoke()
+    calls = {fn: cs.VQ_PER_STEP[name] for name in ("attention_fwd",
+                                                   "attention_bwd")
+             for fn in cs.design_functions(name, "tf32x3")}
+    assert len(calls) == 5 and set(calls.values()) == {4}
+    assert cs.designs_run(calls, "vqgan_train", cs.VQ_PER_STEP) == {
+        "attention_fwd": "tf32x3", "attention_bwd": "tf32x3"}
+    for bad in ({**calls, "attn_dq_kernel": 4},
+                {**calls, "attn_dq_tc_kernel": 3},
+                {**calls, "conv_fwd_kernel": 1}):
+        with pytest.raises(AssertionError):
+            cs.designs_run(bad, "vqgan_train", cs.VQ_PER_STEP)
+    bound, by = cs.bound_ms(1.0, 495e9, design="tf32x3")
+    assert by == "operations" and abs(bound - 3.0) < 1e-12
 
 
 def test_chip_smoke_lists_the_wgmma_kernels_ptxas():
