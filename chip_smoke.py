@@ -17,10 +17,16 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    could take (bound). Also the library convs of the fused conv3+IN
    backward, timed with their bound.
    Every CycleGAN kernel runs twice: in fp32 and in bf16 (tolerances in
-   bf16 ulps of the output's largest magnitude, ``TOL_BF16``). The
-   attention cases (fp32, design "tf32x3") also report the kernel's and the
-   plain version's error against float64 on the card and the CUDA kernels
-   the SDPA yardstick launched.
+   bf16 ulps of the output's largest magnitude, ``TOL_BF16``). The cases
+   of design "tf32x3" (fp32 on the tensor cores in the three-term TF32
+   split: the attention kernels and the fused conv3+IN) also report the
+   kernel's and the plain version's error against float64 on the card,
+   the kernel's at most ``FP64_ERR_OVER_PLAIN`` times the plain version's,
+   and the CUDA kernels the yardstick launched. The norm backward's cases
+   take the statistics their forward kept. Each case also reports the
+   kernel's own device time in one call from the profiler (``device_ms``),
+   beside ``ms``, which times back-to-back calls and so, for the small
+   kernels, the host's rate of issuing them.
 3. train: a ``CycleGANTrainer`` for ``cyclegan256_dp`` at full width with
    ``model.compute_dtype=float32`` and ``loss.lambda_lpips=0``, from a
    seeded state, on seeded uint8 (8, 286, 286, 3) batches, under
@@ -72,9 +78,10 @@ and reconstruct apply for the attention kernels; its error, and its times
 and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
 ``train_bf16`` step, with the design each dtype launched: "wgmma" on the
-tensor cores, or "fma", read from the functions that the dtype's
-profiled training step launched; "tf32x3" for the attention kernels, read
-from the VQGAN step's profile), the nvidia-smi line, and, last,
+tensor cores, "tf32x3" (the fp32 conv3+IN), or "fma", read from the
+functions that the dtype's profiled training step launched and held to
+``STEP_DESIGNS``; "tf32x3" for the attention kernels, read from the VQGAN
+step's profile), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -112,9 +119,10 @@ SEED = 0
 # H100 SXM data-sheet peaks (at 700 W): fp32 outside the tensor cores, bf16
 # and TF32 dense on the tensor cores, HBM3. A bf16 case's bound counts the
 # tensor-core rate, which only the kernels of design "wgmma" use; the others
-# compute in fp32 FMAs. The attention kernels (design "tf32x3") multiply
-# fp32 on the tensor cores in the three-term TF32 split: their bound counts
-# 3 TF32 flops per fp32 flop at the TF32 rate.
+# compute in fp32 FMAs. The attention kernels and the fp32 conv3+IN
+# (design "tf32x3") multiply fp32 on the tensor cores in the three-term
+# TF32 split: their bound counts 3 TF32 flops per fp32 flop at the TF32
+# rate.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
@@ -128,7 +136,9 @@ PEAK_BYTES = 3.35e12
 # each output's error relative to its largest value (softmax sums over 1024
 # keys in another order, products in the three-term TF32 split; the fp32
 # FMA design read 2.2e-6 forward, 3.0e-6 backward on an H100). Its cases
-# also report both sides' error against float64 on the card.
+# also report both sides' error against float64 on the card. The fused
+# conv3+IN in fp32 multiplies in the same split (design "tf32x3"), within
+# the same 2e-4 of the plain version as its earlier FMA design.
 # K4s: each output's error relative to its largest value (fp32 sums over
 # up to 9 * 128 terms, or a batch's pixels for the weight gradient).
 TOL = {"augment_batch": 0.0, "instance_norm": 1e-4,
@@ -145,8 +155,12 @@ TOL = {"augment_batch": 0.0, "instance_norm": 1e-4,
 TOL_BF16 = {name: 1.0 for name in TOL} | {"conv3_in_act": 2.0,
                                           "augment_batch": 0.0}
 # kernels whose every case must also repeat bit for bit
-REPEAT_BIT_EQUAL = ("augment_batch", "conv7_dgrad", "attention_fwd",
-                    "attention_bwd")
+REPEAT_BIT_EQUAL = ("augment_batch", "instance_norm_bwd", "conv3_in_act",
+                    "conv7_dgrad", "attention_fwd", "attention_bwd")
+# design "tf32x3": the kernel's error against float64 at most this many
+# times the plain version's (fp32 on the FMA cores), so that the split keeps
+# fp32's order of error
+FP64_ERR_OVER_PLAIN = 2.0
 # The card-vs-CPU step at batch 1 (compare_card_cpu): the largest gradient
 # gap allowed, relative to the network's largest gradient, and the largest
 # gap the kernels may add (card with kernels against card with the plain
@@ -196,14 +210,24 @@ SOURCES = {
 # The kernels with more than one design: the CUDA function (or functions)
 # that launch each design, and its source. Which design a dtype ran is read
 # from the functions its profiled training step launched (``designs_run``);
-# every other kernel has one design, "fma", in SOURCES. The attention
-# kernels' earlier FMA design is gone from the source: its names stay here
-# so that a step that launched it fails.
+# every other kernel has one design, "fma", in SOURCES. The earlier FMA
+# designs of the fp32 conv3+IN and of the attention kernels, and the
+# earlier six-launch norm backward, are gone from the source: their names
+# stay here so that a step that launched them fails.
 DESIGNS = {
     "conv3_in_act": {
         "fma": ("conv3_gemm_kernel", "src/uig_torch/csrc/conv3_in.cu"),
         "wgmma": ("conv3_in_wgmma_kernel",
-                  "src/uig_torch/csrc/conv3_in_tc.cu")},
+                  "src/uig_torch/csrc/conv3_in_tc.cu"),
+        "tf32x3": (("conv3_wt_split_kernel", "conv3_in_tf32_wgmma_kernel"),
+                   "src/uig_torch/csrc/conv3_in_tf32.cu")},
+    "instance_norm_bwd": {
+        "six_pass": (("in_bwd_stats_kernel", "in_bwd_partials_kernel",
+                      "in_bwd_reduce_kernel", "in_bwd_params_kernel",
+                      "in_bwd_apply_kernel"),
+                     "src/uig_torch/csrc/instance_norm_bwd.cu"),
+        "two_pass": (("in_bwd_sums_kernel", "in_bwd_dx_kernel"),
+                     "src/uig_torch/csrc/instance_norm_bwd.cu")},
     "conv3s2": {
         "fma": ("conv_fwd_kernel", "src/uig_torch/csrc/conv3s2.cu"),
         "wgmma": ("conv_fwd_wgmma_kernel", "src/uig_torch/csrc/conv3s2_tc.cu")},
@@ -231,19 +255,33 @@ DESIGNS = {
 }
 
 
+# The design each kernel of DESIGNS must run in one training step, by
+# compute dtype (CycleGAN), and in the VQGAN step.
+STEP_DESIGNS = {
+    "float32": {"instance_norm_bwd": "two_pass", "conv3_in_act": "tf32x3",
+                "conv3s2": "fma", "conv7_dgrad": "fma",
+                "conv3s2_dgrad": "fma", "conv3s2_wgrad": "fma"},
+    "bfloat16": {"instance_norm_bwd": "two_pass", "conv3_in_act": "wgmma",
+                 "conv3s2": "wgmma", "conv7_dgrad": "wgmma",
+                 "conv3s2_dgrad": "wgmma", "conv3s2_wgrad": "wgmma"}}
+VQ_STEP_DESIGNS = {"instance_norm_bwd": "two_pass",
+                   "attention_fwd": "tf32x3", "attention_bwd": "tf32x3"}
+
+
 def design_functions(name: str, design: str) -> tuple:
     """The CUDA functions that launch ``design`` of kernel ``name``."""
     fns = DESIGNS[name][design][0]
     return (fns,) if isinstance(fns, str) else fns
 
 
-def designs_run(calls: dict, phase: str, per_step: dict | None = None) -> dict:
+def designs_run(calls: dict, phase: str, per_step: dict | None = None,
+                expect: dict | None = None) -> dict:
     """{kernel: design} of the kernels in DESIGNS that one profiled training
     step launches (``per_step``, PER_STEP by default), from its launches by
     CUDA function (``calls``): the design each of whose functions launched
     per_step[kernel] times, while every other design's launched none. A
     kernel the step does not launch must have launched no function of any
-    design. Raises otherwise."""
+    design. Raises otherwise, and if ``expect`` is given and differs."""
     per_step = PER_STEP if per_step is None else per_step
     out = {}
     for name, by_design in DESIGNS.items():
@@ -258,6 +296,8 @@ def designs_run(calls: dict, phase: str, per_step: dict | None = None) -> dict:
                 f"{phase}: {name} launched {seen} by design in one step, "
                 f"want one design's functions {want} times each")
         out[name] = ran[0]
+    if expect is not None and out != expect:
+        raise AssertionError(f"{phase}: designs {out}, want {expect}")
     return out
 
 
@@ -492,6 +532,18 @@ def fp64_errs(out, plain, exact) -> dict:
     return errs
 
 
+def conv3_in_fp64(x, w, b, g, be, relu):
+    """The reflect-padded conv3 + bias + instance norm (+ReLU) in float64,
+    NHWC."""
+    import torch
+    import torch.nn.functional as F
+
+    xn = F.pad(x.double().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    y = F.conv2d(xn, w.double().permute(3, 2, 0, 1), b.double())
+    y = F.instance_norm(y, weight=g.double(), bias=be.double(), eps=1e-5)
+    return (torch.relu(y) if relu else y).permute(0, 2, 3, 1)
+
+
 def attention_fp64(q, k, v, do=None):
     """Attention in float64: o, or (dq, dk, dv) for the output gradient
     ``do``."""
@@ -531,6 +583,7 @@ def kernel_cases(dev, dtype: str = "float32"):
                                    instance_norm_bwd_reference,
                                    instance_norm_reference)
     from uig_torch.kernels import conv_s2
+    from uig_torch.kernels.norm import _instance_norm_fwd
 
     dt = getattr(torch, dtype)
     isz = 4.0 if dtype == "float32" else 2.0
@@ -597,6 +650,7 @@ def kernel_cases(dev, dtype: str = "float32"):
                         x.permute(0, 3, 1, 2), weight=ga, bias=be, eps=1e-5),
                     2 * isz * n, 6.0 * n)
             dy = randn_dev(nb, h, h, c)
+            stats = _instance_norm_fwd(x, ga, be, 1e-5, relu)[1]
             xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
             gl = ga.detach().requires_grad_(True)
             bl = be.detach().requires_grad_(True)
@@ -606,16 +660,17 @@ def kernel_cases(dev, dtype: str = "float32"):
             dyl = dy.permute(0, 3, 1, 2)
             yield case(
                 "instance_norm_bwd", label, per_step + conv_bwd, 0,
-                lambda x=x, ga=ga, be=be, dy=dy, r=relu: instance_norm_bwd(
-                    x, ga, be, dy, relu=r),
-                lambda x=x, ga=ga, be=be, dy=dy, r=relu:
-                instance_norm_bwd_reference(x, ga, be, dy, relu=r),
+                lambda x=x, ga=ga, be=be, dy=dy, st=stats, r=relu:
+                instance_norm_bwd(x, ga, be, dy, st, relu=r),
+                lambda x=x, ga=ga, be=be, dy=dy, st=stats, r=relu:
+                instance_norm_bwd_reference(x, ga, be, dy, st, relu=r),
                 lambda yl=yl, xl=xl, gl=gl, bl=bl, dyl=dyl: torch.autograd.grad(
                     yl, (xl, gl, bl), dyl, retain_graph=True),
                 3 * isz * n, 14.0 * n,
                 check=_norm_bwd_check(x, ga, be, dy, relu))
-            del x, dy, xl, yl
-    # conv3 + IN forward: the 18 trunk pairs of each apply, half with ReLU
+            del x, dy, xl, yl, stats
+    # conv3 + IN forward: the 18 trunk pairs of each apply, half with ReLU;
+    # fp32 in the three-term TF32 split, held against float64 too
     h, c = 64, 256
     w = randn(3, 3, c, c, scale=0.02)
     b, ga, be = (randn(c, scale=0.02, t=torch.float32),
@@ -636,7 +691,10 @@ def kernel_cases(dev, dtype: str = "float32"):
                     F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect"),
                     w.permute(3, 2, 0, 1), b.to(dt)), weight=ga, bias=be,
                     eps=1e-5),
-                nbytes, flops)
+                nbytes, flops,
+                design="tf32x3" if dtype == "float32" else "",
+                fp64=(lambda x=x, relu=relu: conv3_in_fp64(
+                    x, w, b, ga, be, relu)) if dtype == "float32" else None)
         del x
     # the 7x7 head: forward, dgrad, wgrad at both batches, and the forward
     # with zeros padding at a smaller shape (not on the path)
@@ -827,12 +885,22 @@ def phase_kernels(dev) -> dict:
                     extra["repeat_bit_equal"] = True
                 if c["fp64"] is not None:
                     extra.update(fp64_errs(out, c["plain"](), c["fp64"]()))
+                    if extra["err_fp64"] > (FP64_ERR_OVER_PLAIN
+                                            * extra["plain_err_fp64"]):
+                        raise AssertionError(
+                            f"{name} {dtype} {c['case']}: error from float64 "
+                            f"{extra['err_fp64']} > {FP64_ERR_OVER_PLAIN} x "
+                            f"the plain version's {extra['plain_err_fp64']}")
                     # the precision the yardstick runs at: its CUDA kernels
                     extra["library_kernels"] = sorted(profile_call(
                         c["lib"], "library", calls=True)["calls"])
                 del out
                 ms, plain_ms, lib_ms = (cuda_ms(c[k], KERNEL_ITERS, 2)
                                         for k in ("fn", "plain", "lib"))
+                # the kernels' own device time in one call: ms above times
+                # back-to-back calls, which the host's issue rate bounds
+                # for the small kernels
+                device_ms = profile_call(c["fn"], "device")["device_busy_ms"]
                 bms, by = bound_ms(c["bytes"], c["flops"], dtype, c["design"])
                 emit({"phase": "kernel", "name": name, "dtype": dtype,
                       "case": c["case"], "path": c["path"],
@@ -842,8 +910,9 @@ def phase_kernels(dev) -> dict:
                       "tol": c["tol"],
                       "tol_unit": ("bf16 ulp" if dtype == "bfloat16"
                                    else "as TOL"),
-                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bms, "bound_by": by, **extra})
+                      "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                      **extra})
                 t = totals.setdefault((name, dtype), {
                     "max_abs_err": 0.0, "bound_by": by, "step": {},
                     "apply": {}})
@@ -852,9 +921,14 @@ def phase_kernels(dev) -> dict:
                     t["bound_by"] = by
                 for per in ("step", "apply"):
                     acc = t[per]
-                    for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                    for k, v in (("ms", ms), ("device_ms", device_ms),
+                                 ("plain_ms", plain_ms),
                                  ("library_ms", lib_ms), ("bound_ms", bms)):
-                        acc[k] = acc.get(k, 0.0) + c[per] * v
+                        if isinstance(v, str) and c[per]:  # "not measured"
+                            acc[k] = v
+                        elif not isinstance(acc.get(k), str):
+                            acc[k] = acc.get(k, 0.0) + c[per] * (
+                                0.0 if isinstance(v, str) else v)
         parts = {"ms": 0.0, "bound_ms": 0.0}
         for label, calls, fn, nbytes, flops in conv3_backward_parts(dev):
             ms = cuda_ms(fn, KERNEL_ITERS, 2)
@@ -1247,7 +1321,9 @@ def phase_train(dev, overrides=TRAIN_OVERRIDES, phase: str = "train",
         prof = profile_call(lambda: tr.train_step(st, (a, b)),
                             f"{phase}_profile", calls=True)
         calls = prof.pop("calls")
-        prof["designs"] = designs_run(calls, phase)
+        prof["designs"] = designs_run(calls, phase,
+                                      expect=STEP_DESIGNS[
+                                          cfg.model.compute_dtype])
         prof["design_calls"] = design_calls(calls)
         emit(prof)
     finally:
@@ -1444,16 +1520,17 @@ def profile_call(fn, phase: str, calls: bool = False) -> dict:
     return out
 
 
-def wgmma_ptxas(log: list, key: str = "wgmma") -> list:
-    """The entry points whose name holds ``key`` (the wgmma kernels, or
-    "_tc_kernel", the attention kernels on the tensor cores) with the
-    registers and spills that ptxas reported for each, from the build
-    log's per-source sections."""
+def wgmma_ptxas(log: list, key: str | tuple = "wgmma") -> list:
+    """The entry points whose name holds ``key``, or one of the keys (the
+    wgmma kernels; "_tc_kernel" and "tf32", the kernels in the three-term
+    TF32 split) with the registers and spills that ptxas reported for each,
+    from the build log's per-source sections."""
+    keys = (key,) if isinstance(key, str) else key
     out, keep = [], False
     for sec in log:
         for ln in sec.splitlines():
             if "entry function" in ln:
-                keep = key in ln
+                keep = any(k in ln for k in keys)
             if keep and ("entry function" in ln or "registers" in ln
                          or "spill" in ln):
                 out.append(ln.strip())
@@ -1691,7 +1768,8 @@ def phase_vqgan_train() -> dict:
         prof = profile_call(lambda: tr.train_step(st, (a, b)),
                             "vqgan_train_profile", calls=True)
         calls = prof.pop("calls")
-        prof["designs"] = designs_run(calls, "vqgan_train", VQ_PER_STEP)
+        prof["designs"] = designs_run(calls, "vqgan_train", VQ_PER_STEP,
+                                      VQ_STEP_DESIGNS)
         prof["design_calls"] = design_calls(calls)
         emit(prof)
     finally:
@@ -1757,14 +1835,15 @@ def phase_serve(tr, weights: str) -> None:
 
 
 def main() -> int:
+    # the checkout first: without it there is nothing to import
+    if not os.path.isdir(os.path.join(ROOT, "src", "uig_torch", "csrc")):
+        print("chip_smoke: run it from a checkout of the repository "
+              "(src/uig_torch/ not found)", file=sys.stderr)
+        return 1
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
-        return 1
-    if not os.path.isdir(os.path.join(ROOT, "src", "uig_torch", "csrc")):
-        print("chip_smoke: run it from a checkout of the repository "
-              "(src/uig_torch/ not found)", file=sys.stderr)
         return 1
     from uig_torch.kernels import _build
 
@@ -1781,7 +1860,7 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "build_seconds": build_s, "build_cached": _build.build_info["cached"],
           "ptxas": ptxas[:12], "ptxas_wgmma": wgmma_ptxas(log),
-          "ptxas_tf32x3": wgmma_ptxas(log, "_tc_kernel")})
+          "ptxas_tf32x3": wgmma_ptxas(log, ("_tc_kernel", "tf32"))})
     dev = torch.device("cuda", 0)
     totals = phase_kernels(dev)
     step_launches, designs = phase_train(dev, steps=FP32_TRAIN_STEPS)

@@ -14,14 +14,15 @@
 // Numerics: the three-term TF32 split on the tensor cores. Each fp32
 // operand x of a product becomes hi = rna_tf32(x) and lo = rna_tf32(x - hi),
 // each rounded to the nearest TF32 value explicitly (the tensor core
-// truncates the low 13 bits of a raw fp32 input; `split`), and each product
-// is summed as lo_a hi_b + hi_a lo_b + hi_a hi_b, in that order, into fp32
-// accumulators (mma.sync m16n8k8 tf32). hi + lo carries 22 of x's 24
-// significand bits and the dropped lo_a lo_b term is 2^-22 of the product,
-// so the products keep fp32's order of error; plain single-pass TF32 (2^-11)
-// would not. The softmax, its rescales, the log-sum-exp, delta =
-// rowsum(dO o O) and every epilogue are fp32 FMAs. Every sum runs in a fixed
-// order and nothing uses atomics, so repeats are bit-equal.
+// truncates the low 13 bits of a raw fp32 input; `split`, csrc/tf32.cuh),
+// and each product is summed as lo_a hi_b + hi_a lo_b + hi_a hi_b, in that
+// order, into fp32 accumulators (mma.sync m16n8k8 tf32). hi + lo carries
+// 22 of x's 24 significand bits and the dropped lo_a lo_b term is 2^-22 of
+// the product, so the products keep fp32's order of error; plain
+// single-pass TF32 (2^-11) would not. The softmax, its rescales, the
+// log-sum-exp, delta = rowsum(dO o O) and every epilogue are fp32 FMAs.
+// Every sum runs in a fixed order and nothing uses atomics, so repeats are
+// bit-equal.
 //
 // Bound on this card: operations, counted on the split's basis: 3 TF32
 // products per fp32 product, at 495 TFLOP/s dense TF32 (H100 SXM data sheet,
@@ -85,6 +86,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
@@ -124,17 +127,6 @@ __device__ __forceinline__ void group_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// x as the TF32 pair the products take. hi: x rounded to the nearest TF32
-// value, ties away from zero, as cvt.rna.tf32.f32 rounds a finite x: half of
-// the 13 dropped bits' weight added to the magnitude bits, which are then
-// cleared (2 integer ops; cvt.rna.tf32.f32 compiles to a longer sequence on
-// sm_90a, with a test for inf and NaN that finite operands do not need). lo:
-// x - hi (exact) with the same half added; the tensor core reads only a
-// TF32 operand's upper 19 bits, so it takes lo rounded to nearest.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
   asm(

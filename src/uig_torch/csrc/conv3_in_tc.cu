@@ -1,8 +1,8 @@
 // K3 in bf16 on Hopper's tensor cores: the fused 3x3 stride-1 pad-1 conv
 // (reflect or zeros) + bias + instance norm (+ReLU) over NHWC bf16, for the
 // generator's residual trunk (18 conv + IN pairs an apply, (B, 64, 64, 256)
-// -> 256 in cyclegan256_dp). The fp32 variant stays on the FMA core of
-// csrc/conv3_in.cu, whose entry point launches this one for bf16.
+// -> 256 in cyclegan256_dp). csrc/conv3_in.cu's entry point launches this
+// one for bf16 and csrc/conv3_in_tf32.cu's for fp32.
 //   x (B, H, W, C), w (3, 3, C, F) as a (9C, F) matrix, bias (F,) fp32
 //   -> y_conv = bf16(conv + bias), y = IN(y_conv) (+ReLU), both (B, H, W, F)
 //
@@ -23,32 +23,30 @@
 // ring of 128B-swizzled tiles, 36 K steps at C = 256), with two changes:
 //   - M tiles are per image (grid (tiles, F / 128, B), 128 pixels of one
 //     image a block), so that a tile's moments belong to one image and the
-//     partials keep conv3_in.cu's (2, B, tiles, F) layout;
+//     partials keep the (2, B, tiles, F) layout of in_common.cuh;
 //   - the A gather (a 128-byte row is one output pixel's 64 channels at one
 //     tap, cp.async into the swizzle, 8-byte pieces where C % 8 == 4)
 //     mirrors the index for reflect padding before the copy; zero fill
 //     only for masked rows, padding in zeros mode and the channels missing
 //     from a ragged last chunk. B is the (9C, F) weight by TMA where
 //     F % 8 == 0, else by cp.async.
-// Epilogue: acc + bias in fp32, one __float2bfloat16_rn, masked store of
-// y_conv; then per-column sums of the rounded v and v^2 over the tile's
-// valid rows in a fixed order: within the thread (its two rows), across
-// the lanes that share the column (shuffle-xor 4, 8, 16), across the eight
-// warps in row order through shared memory, and one write per (tile,
-// channel) into the partials. No atomics: repeats are bit-equal.
-// in_common.cuh's in_finalize_apply (unchanged) then reduces the partials
-// in tile order and normalizes y_conv into y.
+// Epilogue (csrc/conv3_in_epilogue.cuh, shared with the fp32 kernel): acc +
+// bias in fp32, one __float2bfloat16_rn, masked store of y_conv; then
+// per-column sums of the rounded v and v^2 in a fixed order into the
+// partials. No atomics: repeats are bit-equal. in_common.cuh's
+// in_finalize_apply then reduces the partials in tile order and normalizes
+// y_conv into y.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "conv3_in_epilogue.cuh"
 #include "dtype.cuh"
 #include "in_common.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ int mirror(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
@@ -74,7 +72,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
-  const int tiles = gridDim.x;
   const int HW = H * W;
   const int m0 = blockIdx.x * 128;
   const int n0 = blockIdx.y * 128;
@@ -122,72 +119,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_commit();
   };
 
-  const int wg = tid / 128, t = tid % 128;
+  const int wg = tid / 128;
   float d[64];
   mainloop<128, TMA_B, false>(d, base, 9 * cchunks, wg, load);
-
-  // every warpgroup is done with the ring: its memory takes the sums,
-  // red[stat][warp][column]
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(smem_raw);
-  const int warp = tid >> 5, lane = tid & 31;
-  bool row_ok[2];
-  bf16* yr[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + wg * 64 + acc_row(t, h);
-    row_ok[h] = m < HW;
-    yr[h] = y + ((size_t)b * HW + (row_ok[h] ? m : 0)) * F;
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = acc_col(t, j);
-    const int n = n0 + col;
-    const bool n_ok = n < F;  // F % 4 == 0: n and n + 1 are both in or out
-    const float b0 = n_ok ? bias[n] : 0.f, b1 = n_ok ? bias[n + 1] : 0.f;
-    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(
-          d[4 * j + 2 * h] + b0, d[4 * j + 2 * h + 1] + b1);
-      if (!row_ok[h]) continue;
-      if (n_ok) *reinterpret_cast<__nv_bfloat162*>(yr[h] + n) = v;
-      const float2 f = __bfloat1622float2(v);
-      s1[0] += f.x;
-      s2[0] += f.x * f.x;
-      s1[1] += f.y;
-      s2[1] += f.y * f.y;
-    }
-    // the 8 lanes of a column (lane % 4 equal): a butterfly, the same
-    // order on every lane
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], off);
-        s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], off);
-      }
-    }
-    if (lane < 4) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[(0 * kWarps + warp) * 128 + col + e] = s1[e];
-        red[(1 * kWarps + warp) * 128 + col + e] = s2[e];
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < 128 && n0 + tid < F) {
-    float t1 = 0.f, t2 = 0.f;
-#pragma unroll
-    for (int r = 0; r < kWarps; ++r) {  // warps in row order
-      t1 += red[(0 * kWarps + r) * 128 + tid];
-      t2 += red[(1 * kWarps + r) * 128 + tid];
-    }
-    const size_t o = ((size_t)b * tiles + blockIdx.x) * F + n0 + tid;
-    part[o] = t1;
-    part[(size_t)B * tiles * F + o] = t2;
-  }
+  conv3_in_epilogue<bf16>(d, bias, y, part, smem_raw, B, HW, F, b, m0, n0);
 }
 
 template <int VA, bool TMA_B>

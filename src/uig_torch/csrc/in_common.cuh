@@ -1,11 +1,10 @@
 // Shared parts of instance norm: per-chunk channel moments of x, their
 // reduction in a fixed order, and normalize + affine (+ReLU) elementwise.
 //
-// Used by instance_norm.cu and instance_norm_bwd.cu (moments from a reduction
-// pass over x) and by conv3_in.cu and conv3_in_tc.cu (moments from the conv
-// epilogue). All write
-// their partial sums as a (2, B, chunks, C) fp32 buffer: plane 0 holds
-// sum(x), plane 1 sum(x^2).
+// Used by instance_norm.cu (moments from a reduction pass over x) and by
+// conv3_in_tf32.cu and conv3_in_tc.cu (moments from the conv epilogue).
+// All write their partial sums as a (2, B, chunks, C) fp32 buffer: plane 0
+// holds sum(x), plane 1 sum(x^2).
 // Activations are T (float or bf16, dtype.cuh); moments, scale, shift and
 // every sum are fp32, computed from the stored T values, as the JAX
 // InstanceNorm takes fp32 statistics of its bf16 input.
@@ -63,12 +62,15 @@ static __global__ void __launch_bounds__(kCT * kRows)
 //   mean = s1 / n, var = max(s2 / n - mean^2, 0), r = 1 / sqrt(var + eps)
 //   scale = r * gamma, shift = beta - mean * scale
 // which is the numerics of the JAX InstanceNorm (fp32 one-pass moments,
-// variance clamped at 0, eps inside the square root).
+// variance clamped at 0, eps inside the square root). mean and r are kept
+// for the backward (instance_norm_bwd.cu), as the JAX convin VJP keeps them.
 static __global__ void in_finalize_kernel(const float* __restrict__ part,
                                           const float* __restrict__ gamma,
                                           const float* __restrict__ beta,
                                           float* __restrict__ scale,
-                                          float* __restrict__ shift, int B,
+                                          float* __restrict__ shift,
+                                          float* __restrict__ mean,
+                                          float* __restrict__ rstd, int B,
                                           int C, int chunks, float n,
                                           float eps) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -89,6 +91,8 @@ static __global__ void in_finalize_kernel(const float* __restrict__ part,
   const float sc = r * gamma[c];
   scale[i] = sc;
   shift[i] = beta[c] - m * sc;
+  mean[i] = m;
+  rstd[i] = r;
 }
 
 // y = x * scale[b, c] + shift[b, c] (+ReLU), four channels at a time
@@ -124,19 +128,21 @@ static __global__ void in_apply_kernel(const T* __restrict__ x,
   }
 }
 
-// Finalize the moments in `part` into `ss` (plane 0 scale, plane 1 shift,
-// each (B, C)) and apply them to x -> y. Returns the first launch error.
+// Finalize the moments in `part` into `ss` (planes of (B, C): 0 scale, 1
+// shift, 2 mean, 3 1/sqrt(var + eps), the statistics the backward takes)
+// and apply them to x -> y. Returns the first launch error.
 template <typename T>
 static cudaError_t in_finalize_apply(const float* part, const float* gamma,
                                      const float* beta, float* ss, const T* x,
                                      T* y, int B, int HW, int C, int chunks,
                                      float eps, int relu,
                                      cudaStream_t stream) {
-  float* scale = ss;
-  float* shift = ss + (size_t)B * C;
   const int bc = B * C;
+  float* scale = ss;
+  float* shift = ss + bc;
   in_finalize_kernel<<<(bc + 255) / 256, 256, 0, stream>>>(
-      part, gamma, beta, scale, shift, B, C, chunks, (float)HW, eps);
+      part, gamma, beta, scale, shift, ss + 2 * bc, ss + 3 * bc, B, C, chunks,
+      (float)HW, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int hwc4 = HW * (C / 4);

@@ -19,7 +19,8 @@
 //       (2, B, chunks, C) scratch; no float atomics, so the result is
 //       bit-stable from run to run.
 //   (b) in_common.cuh: one thread per (b, c) reduces the partials in chunk
-//       order into scale/shift, then a 4-wide elementwise pass writes y.
+//       order into scale/shift (keeping mean and 1/sqrt(var + eps) for the
+//       backward), then a 4-wide elementwise pass writes y.
 // x is read twice (3 x 134 MB in all at the largest fp32 shape); the second
 // read partly hits the 50 MB L2 at the smaller planes.
 #include <cuda_runtime.h>
@@ -45,8 +46,9 @@ cudaError_t fwd(const void* x, const float* gamma, const float* beta, void* y,
 }  // namespace
 
 // x, y: (B, HW, C) fp32, or bf16 when is_bf16; C % 4 == 0. gamma, beta:
-// (C,) fp32. part: (2, B, chunks, C) fp32 scratch; ss: (2, B, C) fp32
-// scratch. chunks * rows_per_chunk >= HW.
+// (C,) fp32. part: (2, B, chunks, C) fp32 scratch; ss: (4, B, C) fp32:
+// scale and shift, then the statistics mean and 1/sqrt(var + eps) that the
+// backward takes. chunks * rows_per_chunk >= HW.
 extern "C" cudaError_t uig_instance_norm_fwd(const void* x,
                                              const float* gamma,
                                              const float* beta, void* y,

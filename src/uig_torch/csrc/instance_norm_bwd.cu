@@ -1,15 +1,19 @@
 // Instance norm backward over NHWC fp32 or bf16, with the optional fused
-// ReLU:
-// given x, gamma, beta and dy, write
+// ReLU, from the forward's statistics: given x, gamma, beta, dy and the
+// mean and r = 1/sqrt(var + eps) per (b, c) that the forward's finalize kept
+// (in_common.cuh), write
 //   dx = r * (gamma * dy' - mean(gamma * dy') - xhat * mean(gamma * dy' * xhat))
 //   dgamma = sum over (b, h, w) of dy' * xhat,  dbeta = sum of dy'
 // where xhat = (x - mean) * r and dy' is dy masked by xhat * gamma + beta > 0
-// when relu (the mask comes from the recomputed pre-activation).
+// when relu.
 //
 // Replaces: src/uig/kernels/norm_pallas.py, _bwd_impl -> _in_bwd_kernel (the
-// TPU kernel keeps one example's plane and its gradient in VMEM and
-// accumulates dgamma/dbeta across the sequential batch grid). In bf16, x, dy
-// and dx are bf16 and every statistic, sum, dgamma and dbeta fp32, as there.
+// TPU kernel keeps one example's plane and its gradient in VMEM, recomputes
+// the statistics there, and accumulates dgamma/dbeta across the sequential
+// batch grid). The statistics come from the forward instead, as the JAX
+// convin VJP carries its forward's mean and rstd into its backward
+// (convin_pallas.py). In bf16, x, dy and dx are bf16 and every statistic,
+// sum, dgamma and dbeta fp32, as there.
 //
 // Bound on this card: bytes. It must read x and dy once and write dx once:
 // at (16, 256, 256, 64) fp32 that is 3 x 268 MB, ~0.24 ms at the H100 SXM
@@ -17,95 +21,116 @@
 // byte.
 //
 // Design: a plane does not fit a block, and blocks run in no order, so the
-// batch-sequential accumulation becomes fixed-order passes with no atomics:
-//   1. in_partials_kernel (in_common.cuh): per-chunk sums of x and x^2;
-//   2. one thread per (b, c) reduces them in chunk order into mean and
-//      1/sqrt(var + eps), with the forward's formulas;
-//   3. per-chunk sums of dy' and dy' * xhat (same block shape as 1);
-//   4. one thread per (b, c) reduces those in chunk order;
-//   5. one thread per c sums the per-example results over b in order into
-//      dgamma and dbeta;
-//   6. a 4-wide elementwise pass writes dx, rounded once to its type.
-// x is read three times and dy twice; the repeats partly hit the 50 MB L2.
+// batch-sequential accumulation becomes two passes over one grid of blocks
+// (pixel chunk, channel group, b), 256 threads each as qb channel quads x
+// 256 / qb pixel lanes (qb = min(C / 4, 32): a warp reads whole 512-byte
+// pixel rows at C >= 128); each thread holds 4 channels of a pixel, one
+// 16-byte load of x and one of dy (8-byte in bf16). No float atomics:
+//   1. in_bwd_sums_kernel: per-chunk sums of dy' and dy' * xhat, the pixel
+//      lanes added in order through shared memory, into part (2, B, chunks,
+//      C); it also zeroes the tickets of pass 2.
+//   2. in_bwd_dx_kernel: each block first reduces the chunk partials of its
+//      own (b, channels) in chunk order (every block of an image reads the
+//      same partials in the same order, so all get the same values), then
+//      writes dx for its chunk, rounded once to its type. The block of
+//      chunk 0 of each (b, group) also writes its (b, c) sums to ws and
+//      takes an integer ticket; the last of a channel group's B tickets
+//      sums them over b in order into dgamma and dbeta.
+// Pass 2 takes the blocks in the reverse order of pass 1, so that the
+// images pass 1 read last are still in the 50 MB L2 when pass 2 reads them
+// again: at the trunk's (8, 64, 64, 256) x and dy are 32 MB each in fp32.
 // Repeat runs give the same bits.
 #include <cuda_runtime.h>
 
-#include "in_common.cuh"
+#include "dtype.cuh"
 
 namespace {
 
-// ws planes, each (B, C): mean, rstd, k1 = gamma * mean(dy'),
-// k2 = gamma * mean(dy' * xhat), A = sum(dy'), Bs = sum(dy' * xhat).
-enum { kMean = 0, kRstd, kK1, kK2, kA, kBs, kPlanes };
-
-__global__ void in_bwd_stats_kernel(const float* __restrict__ part,
-                                    float* __restrict__ ws, int B, int C,
-                                    int chunks, float n, float eps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * C) return;
-  const int b = i / C;
-  const int c = i - b * C;
-  const size_t plane = (size_t)B * chunks * C;
-  const float* p1 = part + (size_t)b * chunks * C + c;
-  const float* p2 = p1 + plane;
-  float s1 = 0.f, s2 = 0.f;
-  for (int k = 0; k < chunks; ++k) {
-    s1 += p1[(size_t)k * C];
-    s2 += p2[(size_t)k * C];
-  }
-  const float m = s1 / n;
-  const float var = fmaxf(s2 / n - m * m, 0.f);
-  ws[(size_t)kMean * B * C + i] = m;
-  ws[(size_t)kRstd * B * C + i] = 1.f / sqrtf(var + eps);
-}
+constexpr int kBwdThreads = 256;
 
 __device__ __forceinline__ float masked_dy(float dy, float xh, float g,
                                            float be, int relu) {
   return (relu && !(xh * g + be > 0.f)) ? 0.f : dy;
 }
 
-// grid (chunks, ceil(C / kCT), B), block (kCT, kRows): per-chunk sums of dy'
-// and dy' * xhat into part (2, B, chunks, C).
+__device__ __forceinline__ void to_array(float4 v, float (&a)[4]) {
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
+// The thread's place: pixel lane `lane` of `lanes`, channels c .. c + 3.
+struct Place {
+  int lane, lanes, c;
+  bool ok;
+};
+
+__device__ __forceinline__ Place place(int qb, int group, int C) {
+  Place p;
+  p.lanes = kBwdThreads / qb;
+  p.lane = threadIdx.x / qb;
+  p.c = (group * qb + threadIdx.x % qb) * 4;
+  p.ok = p.lane < p.lanes && p.c < C;
+  return p;
+}
+
+// grid (chunks, groups, B), block kBwdThreads. stats: (2, B, C), mean and
+// r; part: (2, B, chunks, C), sums of dy' and dy' * xhat.
 template <typename T>
-__global__ void __launch_bounds__(kCT * kRows)
-    in_bwd_partials_kernel(const T* __restrict__ x,
-                           const T* __restrict__ dy,
-                           const float* __restrict__ gamma,
-                           const float* __restrict__ beta,
-                           const float* __restrict__ ws,
-                           float* __restrict__ part, int B, int HW, int C,
-                           int chunks, int rows_per_chunk, int relu) {
-  const int c = blockIdx.y * kCT + threadIdx.x;
-  const int b = blockIdx.z;
-  const int chunk = blockIdx.x;
-  const int p0 = chunk * rows_per_chunk;
-  const int p1 = min(p0 + rows_per_chunk, HW);
-  float sa = 0.f, sb = 0.f;
-  if (c < C) {
-    const size_t bc = (size_t)b * C + c;
-    const float m = ws[(size_t)kMean * B * C + bc];
-    const float r = ws[(size_t)kRstd * B * C + bc];
-    const float g = gamma[c], be = beta[c];
-    const size_t base = (size_t)b * HW * C + c;
-    for (int p = p0 + threadIdx.y; p < p1; p += kRows) {
-      const size_t o = base + (size_t)p * C;
-      const float xh = (to_f32(x[o]) - m) * r;
-      const float d = masked_dy(to_f32(dy[o]), xh, g, be, relu);
-      sa += d;
-      sb += d * xh;
+__global__ void __launch_bounds__(kBwdThreads)
+    in_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta,
+                       const float* __restrict__ stats,
+                       float* __restrict__ part, int* __restrict__ tickets,
+                       int B, int HW, int C, int rows_per_chunk, int qb,
+                       int relu) {
+  const int b = blockIdx.z, chunk = blockIdx.x, chunks = gridDim.x;
+  const Place pl = place(qb, blockIdx.y, C);
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+    for (int i = threadIdx.x; i < gridDim.y; i += kBwdThreads) tickets[i] = 0;
+  float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+  if (pl.ok) {
+    const size_t bc = (size_t)b * C + pl.c;
+    float m[4], r[4], g[4], be[4];
+    to_array(*reinterpret_cast<const float4*>(stats + bc), m);
+    to_array(*reinterpret_cast<const float4*>(stats + (size_t)B * C + bc), r);
+    to_array(*reinterpret_cast<const float4*>(gamma + pl.c), g);
+    to_array(*reinterpret_cast<const float4*>(beta + pl.c), be);
+    const int p0 = chunk * rows_per_chunk;
+    const int p1 = min(p0 + rows_per_chunk, HW);
+    const size_t base = (size_t)b * HW * C + pl.c;
+#pragma unroll 4
+    for (int p = p0 + pl.lane; p < p1; p += pl.lanes) {
+      float xs[4], ds[4];
+      to_array(load4(x + base + (size_t)p * C), xs);
+      to_array(load4(dy + base + (size_t)p * C), ds);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xh = (xs[e] - m[e]) * r[e];
+        const float d = masked_dy(ds[e], xh, g[e], be[e], relu);
+        sa[e] += d;
+        sb[e] += d * xh;
+      }
     }
   }
-  __shared__ float r1[kRows][kCT + 1];
-  __shared__ float r2[kRows][kCT + 1];
-  r1[threadIdx.y][threadIdx.x] = sa;
-  r2[threadIdx.y][threadIdx.x] = sb;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    float t1 = 0.f, t2 = 0.f;
+  // red[stat][e][thread]: the lanes of a channel added in lane order
+  __shared__ float red[2][4][kBwdThreads];
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      t1 += r1[j][threadIdx.x];
-      t2 += r2[j][threadIdx.x];
+  for (int e = 0; e < 4; ++e) {
+    red[0][e][threadIdx.x] = sa[e];
+    red[1][e][threadIdx.x] = sb[e];
+  }
+  __syncthreads();
+  const int cc = threadIdx.x;  // channel of the group
+  const int c = blockIdx.y * qb * 4 + cc;
+  if (cc < 4 * qb && c < C) {
+    const int q = cc / 4, e = cc % 4;
+    float t1 = 0.f, t2 = 0.f;
+    for (int l = 0; l < pl.lanes; ++l) {
+      t1 += red[0][e][l * qb + q];
+      t2 += red[1][e][l * qb + q];
     }
     const size_t o = ((size_t)b * chunks + chunk) * C + c;
     part[o] = t1;
@@ -113,134 +138,139 @@ __global__ void __launch_bounds__(kCT * kRows)
   }
 }
 
-__global__ void in_bwd_reduce_kernel(const float* __restrict__ part,
-                                     const float* __restrict__ gamma,
-                                     float* __restrict__ ws, int B, int C,
-                                     int chunks, float n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * C) return;
-  const int b = i / C;
-  const int c = i - b * C;
-  const size_t plane = (size_t)B * chunks * C;
-  const float* p1 = part + (size_t)b * chunks * C + c;
-  const float* p2 = p1 + plane;
-  float sa = 0.f, sb = 0.f;
-  for (int k = 0; k < chunks; ++k) {
-    sa += p1[(size_t)k * C];
-    sb += p2[(size_t)k * C];
-  }
-  const size_t bc = (size_t)B * C;
-  ws[kK1 * bc + i] = gamma[c] * (sa / n);
-  ws[kK2 * bc + i] = gamma[c] * (sb / n);
-  ws[kA * bc + i] = sa;
-  ws[kBs * bc + i] = sb;
-}
-
-__global__ void in_bwd_params_kernel(const float* __restrict__ ws,
-                                     float* __restrict__ dgamma,
-                                     float* __restrict__ dbeta, int B, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const size_t bc = (size_t)B * C;
-  float sa = 0.f, sb = 0.f;
-  for (int b = 0; b < B; ++b) {
-    sa += ws[kA * bc + (size_t)b * C + c];
-    sb += ws[kBs * bc + (size_t)b * C + c];
-  }
-  dgamma[c] = sb;
-  dbeta[c] = sa;
-}
-
-// grid (x: blocks over one image's H*W*C/4 groups, y: b).
+// The same grid, its blocks taken in reverse order. ws: (2, B, C) fp32,
+// the per-(b, c) sums of dy' and dy' * xhat, for dgamma and dbeta.
 template <typename T>
-__global__ void in_bwd_apply_kernel(const T* __restrict__ x,
-                                    const T* __restrict__ dy,
-                                    const float* __restrict__ gamma,
-                                    const float* __restrict__ beta,
-                                    const float* __restrict__ ws,
-                                    T* __restrict__ dx, int B, int hwc4,
-                                    int C, int relu) {
-  const int b = blockIdx.y;
-  const int c4n = C >> 2;
-  const size_t bc = (size_t)B * C;
-  const float* mean = ws + kMean * bc + (size_t)b * C;
-  const float* rstd = ws + kRstd * bc + (size_t)b * C;
-  const float* k1 = ws + kK1 * bc + (size_t)b * C;
-  const float* k2 = ws + kK2 * bc + (size_t)b * C;
-  const T* xb = x + (size_t)b * hwc4 * 4;
-  const T* db = dy + (size_t)b * hwc4 * 4;
-  T* ob = dx + (size_t)b * hwc4 * 4;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < hwc4;
-       i += gridDim.x * blockDim.x) {
-    const int c = (i % c4n) * 4;
-    const float4 xv = load4(xb + (size_t)i * 4);
-    const float4 dv = load4(db + (size_t)i * 4);
-    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-    const float ds[4] = {dv.x, dv.y, dv.z, dv.w};
-    float out[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int cc = c + q;
-      const float r = rstd[cc];
-      const float xh = (xs[q] - mean[cc]) * r;
-      const float g = gamma[cc];
-      const float d = masked_dy(ds[q], xh, g, beta[cc], relu);
-      out[q] = r * (g * d - k1[cc] - xh * k2[cc]);
+__global__ void __launch_bounds__(kBwdThreads)
+    in_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                     const float* __restrict__ gamma,
+                     const float* __restrict__ beta,
+                     const float* __restrict__ stats,
+                     const float* __restrict__ part, float* __restrict__ ws,
+                     int* __restrict__ tickets, T* __restrict__ dx,
+                     float* __restrict__ dgamma, float* __restrict__ dbeta,
+                     int B, int HW, int C, int rows_per_chunk, int qb,
+                     int relu) {
+  const int chunks = gridDim.x;
+  const int chunk = chunks - 1 - blockIdx.x;
+  const int group = gridDim.y - 1 - blockIdx.y;
+  const int b = B - 1 - blockIdx.z;
+  const size_t plane = (size_t)B * chunks * C;
+  const float n = (float)HW;
+  // k[0][cc] = gamma * mean(dy'), k[1][cc] = gamma * mean(dy' * xhat)
+  __shared__ float k[2][128];
+  __shared__ int last;
+  const int cc = threadIdx.x;
+  const int c = group * qb * 4 + cc;
+  const bool reduces = cc < 4 * qb && c < C;
+  float sa = 0.f, sb = 0.f;
+  if (reduces) {
+    const float* p1 = part + (size_t)b * chunks * C + c;
+    for (int j = 0; j < chunks; ++j) {
+      sa += p1[(size_t)j * C];
+      sb += p1[plane + (size_t)j * C];
     }
-    store4(ob + (size_t)i * 4, make_float4(out[0], out[1], out[2], out[3]));
+    const float g = gamma[c];
+    k[0][cc] = g * (sa / n);
+    k[1][cc] = g * (sb / n);
+  }
+  if (chunk == 0) {  // dgamma and dbeta: the last of the group's B blocks
+    if (reduces) {
+      ws[(size_t)b * C + c] = sa;
+      ws[(size_t)(B + b) * C + c] = sb;
+      __threadfence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(&tickets[group], 1) == B - 1;
+    __syncthreads();
+    if (last && reduces) {
+      float ta = 0.f, tb = 0.f;
+      for (int i = 0; i < B; ++i) {  // images in order
+        ta += __ldcg(ws + (size_t)i * C + c);
+        tb += __ldcg(ws + (size_t)(B + i) * C + c);
+      }
+      dgamma[c] = tb;
+      dbeta[c] = ta;
+    }
+  }
+  __syncthreads();
+  const Place pl = place(qb, group, C);
+  if (!pl.ok) return;
+  const size_t bc = (size_t)b * C + pl.c;
+  const int q4 = pl.c - group * qb * 4;
+  float m[4], r[4], g[4], be[4], k1[4], k2[4];
+  to_array(*reinterpret_cast<const float4*>(stats + bc), m);
+  to_array(*reinterpret_cast<const float4*>(stats + (size_t)B * C + bc), r);
+  to_array(*reinterpret_cast<const float4*>(gamma + pl.c), g);
+  to_array(*reinterpret_cast<const float4*>(beta + pl.c), be);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    k1[e] = k[0][q4 + e];
+    k2[e] = k[1][q4 + e];
+  }
+  const int p0 = chunk * rows_per_chunk;
+  const int p1 = min(p0 + rows_per_chunk, HW);
+  const size_t base = (size_t)b * HW * C + pl.c;
+#pragma unroll 4
+  for (int p = p0 + pl.lane; p < p1; p += pl.lanes) {
+    const size_t o = base + (size_t)p * C;
+    float xs[4], ds[4], out[4];
+    to_array(load4(x + o), xs);
+    to_array(load4(dy + o), ds);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float xh = (xs[e] - m[e]) * r[e];
+      const float d = masked_dy(ds[e], xh, g[e], be[e], relu);
+      out[e] = r[e] * (g[e] * d - k1[e] - xh * k2[e]);
+    }
+    store4(dx + o, make_float4(out[0], out[1], out[2], out[3]));
   }
 }
 
 template <typename T>
 cudaError_t bwd(const T* x, const float* gamma, const float* beta, const T* dy,
-                T* dx, float* dgamma, float* dbeta, float* part, float* ws,
-                int B, int HW, int C, int chunks, int rows_per_chunk,
-                float eps, int relu, cudaStream_t stream) {
-  const dim3 grid(chunks, (C + kCT - 1) / kCT, B);
-  const dim3 block(kCT, kRows);
-  const int bc = B * C;
-  const float n = (float)HW;
-  in_partials_kernel<T><<<grid, block, 0, stream>>>(x, part, B, HW, C, chunks,
-                                                    rows_per_chunk);
+                const float* stats, T* dx, float* dparams, float* scratch,
+                int B, int HW, int C, int chunks, int rows_per_chunk, int qb,
+                int relu, cudaStream_t stream) {
+  const int groups = (C / 4 + qb - 1) / qb;
+  const dim3 grid(chunks, groups, B);
+  float* part = scratch;
+  float* ws = part + 2 * (size_t)B * chunks * C;
+  int* tickets = reinterpret_cast<int*>(ws + 2 * (size_t)B * C);
+  float* dgamma = dparams;
+  float* dbeta = dparams + C;
+  in_bwd_sums_kernel<T><<<grid, kBwdThreads, 0, stream>>>(
+      x, dy, gamma, beta, stats, part, tickets, B, HW, C, rows_per_chunk, qb,
+      relu);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  in_bwd_stats_kernel<<<(bc + 255) / 256, 256, 0, stream>>>(part, ws, B, C,
-                                                            chunks, n, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  in_bwd_partials_kernel<T><<<grid, block, 0, stream>>>(
-      x, dy, gamma, beta, ws, part, B, HW, C, chunks, rows_per_chunk, relu);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  in_bwd_reduce_kernel<<<(bc + 255) / 256, 256, 0, stream>>>(part, gamma, ws,
-                                                             B, C, chunks, n);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  in_bwd_params_kernel<<<(C + 255) / 256, 256, 0, stream>>>(ws, dgamma, dbeta,
-                                                            B, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int hwc4 = HW * (C / 4);
-  int gx = (hwc4 + 255) / 256;
-  if (gx > 1024) gx = 1024;
-  in_bwd_apply_kernel<T><<<dim3(gx, B), 256, 0, stream>>>(
-      x, dy, gamma, beta, ws, dx, B, hwc4, C, relu);
+  in_bwd_dx_kernel<T><<<grid, kBwdThreads, 0, stream>>>(
+      x, dy, gamma, beta, stats, part, ws, tickets, dx, dgamma, dbeta, B, HW,
+      C, rows_per_chunk, qb, relu);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, dy, dx: (B, HW, C) fp32, or bf16 when is_bf16; C % 4 == 0. gamma,
-// beta, dgamma, dbeta: (C,) fp32. part: (2, B, chunks, C) fp32 scratch;
-// ws: (6, B, C) fp32 scratch. chunks * rows_per_chunk >= HW.
+// beta: (C,) fp32; dparams: (2, C) fp32, dgamma then dbeta. stats: (2, B,
+// C) fp32, the forward's mean and 1/sqrt(var + eps). scratch: the partials
+// (2, B, chunks, C) fp32, the per-(b, c) sums (2, B, C) fp32, then
+// ceil(C / 4 / qb) int32 tickets. chunks * rows_per_chunk >= HW; qb =
+// min(C / 4, 32) channel quads a block.
 extern "C" cudaError_t uig_instance_norm_bwd(
     const void* x, const float* gamma, const float* beta, const void* dy,
-    void* dx, float* dgamma, float* dbeta, float* part, float* ws, int B,
-    int HW, int C, int chunks, int rows_per_chunk, float eps, int relu,
+    const float* stats, void* dx, float* dparams, float* scratch, int B,
+    int HW, int C, int chunks, int rows_per_chunk, int qb, int relu,
     int is_bf16, cudaStream_t stream) {
+  if (qb < 1 || qb > 32) return cudaErrorInvalidValue;
   if (is_bf16)
     return bwd<bf16>(static_cast<const bf16*>(x), gamma, beta,
-                     static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
-                     dgamma, dbeta, part, ws, B, HW, C, chunks,
-                     rows_per_chunk, eps, relu, stream);
+                     static_cast<const bf16*>(dy), stats,
+                     static_cast<bf16*>(dx), dparams, scratch, B, HW, C,
+                     chunks, rows_per_chunk, qb, relu, stream);
   return bwd<float>(static_cast<const float*>(x), gamma, beta,
-                    static_cast<const float*>(dy), static_cast<float*>(dx),
-                    dgamma, dbeta, part, ws, B, HW, C, chunks, rows_per_chunk,
-                    eps, relu, stream);
+                    static_cast<const float*>(dy), stats,
+                    static_cast<float*>(dx), dparams, scratch, B, HW, C,
+                    chunks, rows_per_chunk, qb, relu, stream);
 }

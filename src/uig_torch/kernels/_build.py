@@ -39,12 +39,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "uig_instance_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                               _I, _I, _P],
-    "uig_conv3_in_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _F, _I, _P],
+    "uig_conv3_in_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _F, _I, _P],
     "uig_conv7_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "uig_augment": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "uig_instance_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _I, _F, _I, _I, _P],
+    "uig_instance_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P],
     "uig_conv7_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "uig_conv7_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P],
@@ -142,25 +142,16 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` on the current CUDA stream. Tensors pass
-    as device pointers and None as a null pointer; the caller has checked
-    their device, type, shape and contiguity."""
-    lib = library()
-    conv = []
-    for a in args:
-        if a is None:
-            conv.append(ctypes.c_void_p(None))
-        elif isinstance(a, torch.Tensor):
-            conv.append(ctypes.c_void_p(a.data_ptr()))
-        elif isinstance(a, bool):
-            conv.append(ctypes.c_int(int(a)))
-        elif isinstance(a, int):
-            conv.append(ctypes.c_int(a))
-        elif isinstance(a, float):
-            conv.append(ctypes.c_float(a))
-        else:
-            raise TypeError(f"{name}: cannot pass {type(a).__name__}")
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, name)(*conv, ctypes.c_void_p(stream))
+    as device pointers, None as a null pointer, and bools, ints and floats
+    as the entry point's SIGNATURES say; the caller has checked the
+    tensors' device, type, shape and contiguity. The stream is read with
+    ``torch._C._cuda_getCurrentRawStream``: ``torch.cuda.current_stream()``
+    builds a Stream object, several microseconds of host time a launch on
+    the card's host, where the step's small kernels are host-bound."""
+    lib = _lib or library()
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    err = getattr(lib, name)(*conv, stream)
     if err != 0:
         msg = lib.uig_error_string(err).decode()
         raise RuntimeError(f"{name} failed to launch: cudaError {err} ({msg})")

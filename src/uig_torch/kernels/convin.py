@@ -1,6 +1,5 @@
-"""Fused 3x3 conv + bias + instance norm (+ReLU): the CUDA kernels in
-``csrc/conv3_in.cu`` and ``csrc/conv3_in_tc.cu`` and their plain PyTorch
-version.
+"""Fused 3x3 conv + bias + instance norm (+ReLU): the CUDA kernels behind
+``csrc/conv3_in.cu`` and their plain PyTorch version.
 
 Replaces the JAX package's ``kernels/convin_pallas.py`` forward
 (``_convin_fwd_impl`` -> ``_convin_kernel``): a pad-1 3x3 stride-1 conv
@@ -10,16 +9,20 @@ x is NHWC and w is HWIO (3, 3, C, F), which the kernel reads as the (9C, F)
 matrix of an implicit GEMM. x and w are fp32 or bf16 (one type); b, g and
 be fp32. In bf16 the conv sums in fp32, ``acc + b`` is rounded once to bf16
 for the conv output, and the moments come from those rounded values, as in
-the Pallas kernel. Two designs, chosen by the type: fp32 runs fp32 FMAs
-(``conv3_in.cu``, TF32 stays off); bf16 runs the conv on the tensor cores
-(``wgmma``, exact products into fp32 accumulators, ``conv3_in_tc.cu``).
-Both write the same per-tile moment partials and share the finalize.
+the Pallas kernel. Both types run the conv on the tensor cores
+(``wgmma``), with the entry point in ``conv3_in.cu``: fp32 in the
+three-term TF32 split (``conv3_in_tf32.cu``: each operand as a hi and a lo
+TF32 part, three products summed in fp32, which keeps fp32's order of
+error; single-pass TF32 is not used), bf16 with exact products into fp32
+accumulators (``conv3_in_tc.cu``). Both write the same per-tile moment
+partials and share the finalize, which keeps the statistics (mean and
+1/sqrt(var + eps) per example and channel) for the backward.
 
 The backward is the composition of ``convin_pallas.py``'s ``bwd``, which is
 XLA in JAX and no Pallas kernel: the instance norm backward (K2b,
-``kernels/norm.py``) on the saved conv output gives its gradient, the conv
-bias gradient is that gradient's sum, and the conv's weight and input
-gradients are library convs (cuDNN on the card) against the padded plane
+``kernels/norm.py``) on the saved conv output, from the forward's saved
+statistics as there, gives its gradient, the conv bias gradient is that
+gradient's sum, and the conv's weight and input gradients are library convs (cuDNN on the card) against the padded plane
 the forward read, with the reflect ring folded by ``kernels/reflect.py``.
 In bf16 the norm backward's gradient is rounded to bf16 before them, and
 they run in bf16, as JAX transposes its bf16 conv.
@@ -32,7 +35,8 @@ import torch.nn.functional as F
 
 from uig_torch.kernels import _build
 from uig_torch.kernels._check import cuda_operand, on_cpu, storage_type
-from uig_torch.kernels.norm import instance_norm_bwd, instance_norm_reference
+from uig_torch.kernels.norm import (_instance_norm_fwd, instance_norm_bwd,
+                                    instance_norm_reference)
 from uig_torch.kernels.reflect import reflect_fold
 
 _BM = 128  # output pixels per conv tile, of one image (both designs)
@@ -67,10 +71,12 @@ def conv3_in_act_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _conv3_in_fwd(x, w, b, g, be, relu, eps, pad_mode):
-    """(y, y_conv): the normalized output and the conv output it came from."""
+    """(y, y_conv, stats): the normalized output, the conv output it came
+    from, and the norm's statistics (2, B, F) fp32."""
     if on_cpu("conv3_in_act", x, w, b, g, be):
         yconv = conv3_reference(x, w, b, pad_mode)
-        return instance_norm_reference(yconv, g, be, eps, relu), yconv
+        y, stats = _instance_norm_fwd(yconv, g, be, eps, relu)
+        return y, yconv, stats
     nb, h, wd, c = x.shape
     f = w.shape[3]
     if c % 4 or f % 4:
@@ -86,13 +92,18 @@ def _conv3_in_fwd(x, w, b, g, be, relu, eps, pad_mode):
     yconv = torch.empty((nb, h, wd, f), device=x.device, dtype=dt)
     y = torch.empty_like(yconv)
     part = torch.empty((2, nb, tiles, f), device=x.device, dtype=torch.float32)
-    ss = torch.empty((2, nb, f), device=x.device, dtype=torch.float32)
+    # scale, shift, then the statistics
+    ss = torch.empty((4, nb, f), device=x.device, dtype=torch.float32)
+    # fp32: the weight's hi and lo TF32 planes, K-major, 9 taps of C
+    # channels rounded up to 32
+    wt = None if dt == torch.bfloat16 else torch.empty(
+        (2, f, 9 * -(-c // 32) * 32), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        _build.launch("uig_conv3_in_fwd", x, w, b, g, be, yconv, y, part, ss,
-                      nb, h, wd, c, f, pad_mode == "reflect", bool(relu),
+        _build.launch("uig_conv3_in_fwd", x, w, wt, b, g, be, yconv, y, part,
+                      ss, nb, h, wd, c, f, pad_mode == "reflect", bool(relu),
                       float(eps), dt == torch.bfloat16)
     conv3_in_act.launches += 1
-    return y, yconv
+    return y, yconv, ss[2:]
 
 
 def conv3_dgrad(dyc: torch.Tensor, w: torch.Tensor,
@@ -129,16 +140,16 @@ def conv3_wgrad(x: torch.Tensor, dyc: torch.Tensor,
 class _Conv3InAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, g, be, relu, eps, pad_mode):
-        y, yconv = _conv3_in_fwd(x, w, b, g, be, relu, eps, pad_mode)
-        ctx.save_for_backward(x, w, g, be, yconv)
-        ctx.relu, ctx.eps, ctx.pad_mode = relu, eps, pad_mode
+        y, yconv, stats = _conv3_in_fwd(x, w, b, g, be, relu, eps, pad_mode)
+        ctx.save_for_backward(x, w, g, be, yconv, stats)
+        ctx.relu, ctx.pad_mode = relu, pad_mode
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, w, g, be, yconv = ctx.saved_tensors
-        dyc, dg, dbe = instance_norm_bwd(yconv, g, be, dy.contiguous(),
-                                         ctx.eps, ctx.relu)
+        x, w, g, be, yconv, stats = ctx.saved_tensors
+        dyc, dg, dbe = instance_norm_bwd(yconv, g, be, dy.contiguous(), stats,
+                                         ctx.relu)
         db = dyc.to(torch.float32).sum(dim=(0, 1, 2))
         need = ctx.needs_input_grad
         dx = conv3_dgrad(dyc, w, ctx.pad_mode) if need[0] else None

@@ -11,12 +11,14 @@ PyTorch is installed:
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: fp32 sums taken in another order than the plain version's;
-outputs are O(1) and the longest sum has 49 * 24 terms (1e-4). Sums over a
-whole plane or batch (dgamma, dbeta, dw) hold to 1e-4 relative to their
+outputs are O(1) and the longest sum has 9 * 256 terms (the fused conv3+IN
+at the path shape, products in the three-term TF32 split) (1e-4). Sums over
+a whole plane or batch (dgamma, dbeta, dw) hold to 1e-4 relative to their
 largest value. The augment kernel is bit-equal (the same two roundings in
-the same order). With a
-fused ReLU, the norm backward is compared where the recomputed
-pre-activation is at least 1e-4 from 0: at the kink either side is right.
+the same order). The norm backward takes the statistics its forward kept,
+both sides the same ones; with a fused ReLU it is compared where the
+recomputed pre-activation is at least 1e-4 from 0: at the kink either side
+is right.
 Attention: the output and dq/dk/dv within 1e-5 of their largest value (fp32
 softmax sums over at most 300 keys in another order), the log-sum-exp
 within 1e-5. K4s (the 3x3 stride-2 conv and the VALID conv): within 1e-5 of
@@ -49,6 +51,7 @@ from uig_torch.kernels import (attention, attention_bwd,
                                instance_norm_act, instance_norm_bwd,
                                instance_norm_bwd_reference,
                                instance_norm_reference)
+from uig_torch.kernels.norm import _instance_norm_fwd
 from uig_torch.kernels.reflect import reflect_pad
 from uig_torch.serving import exact_fp32
 
@@ -91,8 +94,16 @@ def test_instance_norm(dev, shape, relu):
     assert torch.equal(y, instance_norm(x, g, b, relu=relu))  # no atomics
 
 
+# fp32 runs the conv on the tensor cores in the three-term TF32 split: C =
+# 20, 4 and 8 fill part of a 32-channel K stage, (1, 9, 9, 36) one stage and
+# a ragged one a tap, with 81 pixels of a 128-row tile; F = 12 and 4 fill
+# part of a 128-wide N tile, 132 one and a ragged one; H = W = 2 mirrors
+# onto one row; the path shape at batch 2, (2, 64, 64, 256) -> 256, wraps
+# the 4-stage ring over its 72 K stages. Repeats are bit-equal.
 @pytest.mark.parametrize("shape,f", [((2, 11, 13, 20), 12), ((1, 2, 2, 4), 4),
-                                     ((1, 16, 16, 8), 132)])
+                                     ((1, 16, 16, 8), 132),
+                                     ((1, 9, 9, 36), 36),
+                                     ((2, 64, 64, 256), 256)])
 @pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
 @pytest.mark.parametrize("relu", [False, True])
 def test_conv3_in_act(dev, shape, f, pad_mode, relu):
@@ -191,10 +202,12 @@ def test_instance_norm_bwd(dev, shape, relu):
     g = _randn(dev, c, scale=0.2, shift=1.0, seed=1)
     b = _randn(dev, c, scale=0.2, seed=2)
     dy = _randn(dev, *shape, seed=3)
+    stats = _instance_norm_fwd(x, g, b, 1e-5, relu)[1]  # the forward's
     before = instance_norm_bwd.launches
-    dx, dg, db = instance_norm_bwd(x, g, b, dy, relu=relu)
+    dx, dg, db = instance_norm_bwd(x, g, b, dy, stats, relu=relu)
     assert instance_norm_bwd.launches == before + 1
-    rdx, rdg, rdb = instance_norm_bwd_reference(x, g, b, dy, relu=relu)
+    rdx, rdg, rdb = instance_norm_bwd_reference(x, g, b, dy, stats,
+                                                relu=relu)
     keep = torch.ones_like(x, dtype=torch.bool)
     if relu:
         xn = instance_norm_reference(x, torch.ones_like(g), torch.zeros_like(b))
@@ -202,7 +215,7 @@ def test_instance_norm_bwd(dev, shape, relu):
     _close(torch.where(keep, dx, 0.0), torch.where(keep, rdx, 0.0))
     _rel_close(dg, rdg)
     _rel_close(db, rdb)
-    again = instance_norm_bwd(x, g, b, dy, relu=relu)
+    again = instance_norm_bwd(x, g, b, dy, stats, relu=relu)
     assert all(torch.equal(u, v) for u, v in zip((dx, dg, db), again))
 
 
@@ -464,10 +477,11 @@ def test_instance_norm_bf16(dev, shape, relu):
     g = _randn(dev, c, scale=0.2, shift=1.0, seed=1)
     b = _randn(dev, c, scale=0.2, seed=2)
     dy = _randn(dev, *shape, seed=3).to(BF)
-    _ulps_close(instance_norm(x, g, b, relu=relu),
-                instance_norm_reference(x, g, b, relu=relu))
-    dx, dg, db = instance_norm_bwd(x, g, b, dy, relu=relu)
-    rdx, rdg, rdb = instance_norm_bwd_reference(x, g, b, dy, relu=relu)
+    y, stats = _instance_norm_fwd(x, g, b, 1e-5, relu)
+    _ulps_close(y, instance_norm_reference(x, g, b, relu=relu))
+    dx, dg, db = instance_norm_bwd(x, g, b, dy, stats, relu=relu)
+    rdx, rdg, rdb = instance_norm_bwd_reference(x, g, b, dy, stats,
+                                                relu=relu)
     keep = torch.ones_like(x, dtype=torch.bool)
     if relu:
         xn = instance_norm_reference(x.float(), torch.ones_like(g),
@@ -477,6 +491,8 @@ def test_instance_norm_bf16(dev, shape, relu):
     assert dg.dtype == db.dtype == torch.float32
     _rel_close(dg, rdg)
     _rel_close(db, rdb)
+    again = instance_norm_bwd(x, g, b, dy, stats, relu=relu)
+    assert all(torch.equal(u, v) for u, v in zip((dx, dg, db), again))
 
 
 # In bf16 the conv runs on the tensor cores (wgmma): C = 20 takes 8-byte A

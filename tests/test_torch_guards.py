@@ -96,40 +96,54 @@ def test_chip_smoke_counts_launches_by_function():
 
 @pytest.mark.parametrize("ran", ["fma", "wgmma"])
 def test_chip_smoke_reads_the_design_that_ran(ran):
-    """The CycleGAN step: each conv kernel in one design, no attention."""
+    """The CycleGAN step: each kernel of DESIGNS in one design, no
+    attention. "fma": the fp32 step (the conv kernels on the FMA cores but
+    K3, in the TF32 split); "wgmma": the bf16 step. The norm backward runs
+    its two-pass design in both; a step that launches another design's
+    function, or one design's function too few times, fails."""
     cs = _chip_smoke()
     assert set(cs.DESIGNS) == {"conv3_in_act", "conv7_dgrad", "conv3s2",
                                "conv3s2_dgrad", "conv3s2_wgrad",
-                               "attention_fwd", "attention_bwd"}
-    conv = [name for name in cs.DESIGNS if cs.PER_STEP[name]]
-    assert len(conv) == 5
-    calls = {fn: cs.PER_STEP[name] for name in conv
-             for fn in cs.design_functions(name, ran)}
-    assert cs.designs_run(calls, "train") == {n: ran for n in conv}
-    other = "fma" if ran == "wgmma" else "wgmma"
-    for name in conv:
-        for bad in ({**calls, cs.design_functions(name, other)[0]: 1},
-                    {**calls, cs.design_functions(name, ran)[0]:
-                     cs.PER_STEP[name] - 1}):
-            with pytest.raises(AssertionError, match=name):
-                cs.designs_run(bad, "train")
+                               "instance_norm_bwd", "attention_fwd",
+                               "attention_bwd"}
+    want = cs.STEP_DESIGNS["float32" if ran == "fma" else "bfloat16"]
+    assert set(want) == {name for name in cs.DESIGNS if cs.PER_STEP[name]}
+    assert want["conv3_in_act"] == ("tf32x3" if ran == "fma" else "wgmma")
+    assert want["conv3s2"] == ran
+    calls = {fn: cs.PER_STEP[name] for name, d in want.items()
+             for fn in cs.design_functions(name, d)}
+    assert cs.designs_run(calls, "train", expect=want) == want
+    for name, d in want.items():
+        for other in set(cs.DESIGNS[name]) - {d}:
+            for bad in ({**calls, cs.design_functions(name, other)[0]: 1},
+                        {**calls, cs.design_functions(name, d)[-1]:
+                         cs.PER_STEP[name] - 1}):
+                with pytest.raises(AssertionError, match=name):
+                    cs.designs_run(bad, "train")
     with pytest.raises(AssertionError, match="attention_fwd"):
         cs.designs_run({**calls, "attn_fwd_tc_kernel": 1}, "train")
+    other = cs.STEP_DESIGNS["bfloat16" if ran == "fma" else "float32"]
+    with pytest.raises(AssertionError, match="want"):
+        cs.designs_run(calls, "train", expect=other)
 
 
 def test_chip_smoke_reads_the_attention_design():
     """The VQGAN step: every function of the tf32x3 attention design its
-    VQ_PER_STEP times, none of the FMA design, no conv kernel."""
+    VQ_PER_STEP times, none of the FMA design, no conv kernel; the norm
+    backward in its two-pass design."""
     cs = _chip_smoke()
-    calls = {fn: cs.VQ_PER_STEP[name] for name in ("attention_fwd",
-                                                   "attention_bwd")
-             for fn in cs.design_functions(name, "tf32x3")}
-    assert len(calls) == 5 and set(calls.values()) == {4}
-    assert cs.designs_run(calls, "vqgan_train", cs.VQ_PER_STEP) == {
-        "attention_fwd": "tf32x3", "attention_bwd": "tf32x3"}
+    calls = {fn: cs.VQ_PER_STEP[name] for name, d in
+             cs.VQ_STEP_DESIGNS.items()
+             for fn in cs.design_functions(name, d)}
+    assert len(calls) == 7 and set(calls.values()) == {4, 12}
+    assert cs.designs_run(calls, "vqgan_train", cs.VQ_PER_STEP,
+                          cs.VQ_STEP_DESIGNS) == {
+        "attention_fwd": "tf32x3", "attention_bwd": "tf32x3",
+        "instance_norm_bwd": "two_pass"}
     for bad in ({**calls, "attn_dq_kernel": 4},
                 {**calls, "attn_dq_tc_kernel": 3},
-                {**calls, "conv_fwd_kernel": 1}):
+                {**calls, "conv_fwd_kernel": 1},
+                {**calls, "in_bwd_apply_kernel": 12}):
         with pytest.raises(AssertionError):
             cs.designs_run(bad, "vqgan_train", cs.VQ_PER_STEP)
     bound, by = cs.bound_ms(1.0, 495e9, design="tf32x3")
@@ -163,6 +177,7 @@ def test_chip_smoke_norm_bwd_check_bounds_dgamma_dbeta_by_the_kink(case):
 
     from uig_torch.kernels import (instance_norm_bwd_reference,
                                    instance_norm_reference)
+    from uig_torch.kernels.norm import _instance_norm_fwd
 
     cs = _chip_smoke()
     gen = torch.Generator().manual_seed(0)
@@ -175,7 +190,8 @@ def test_chip_smoke_norm_bwd_check_bounds_dgamma_dbeta_by_the_kink(case):
     b[1] = -(xn[1, 2, 3, 1] * g[1])
     k = (1, 2, 3, 1)
     assert (xn * g + b)[k] == 0
-    ref = instance_norm_bwd_reference(x, g, b, dy, relu=True)
+    stats = _instance_norm_fwd(x, g, b, 1e-5, True)[1]
+    ref = instance_norm_bwd_reference(x, g, b, dy, stats, relu=True)
     dx, dg, db = (t.clone() for t in ref)
     tol = cs.TOL["instance_norm_bwd"]
     if case == "kink_flipped":  # the other side of the kink: +-dy there

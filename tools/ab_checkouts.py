@@ -1,22 +1,35 @@
 """Hold this checkout against another one (for example the parent commit,
-unpacked with ``git archive``) on one card: the fp32 outputs of K3, K4s's
-dgrad and K4d (the 7x7 head's dgrad, at both step batches) and K1's fp32
-and bf16 outputs at the training step's shapes must be bit-identical, and
-the
-``cyclegan256_dp`` training step is timed in fp32 and in bf16 in turns
-(this, other, other, this), each checkout in its own process with its own
-build.
+unpacked with ``git archive``) on one card, each checkout in its own
+process with its own build:
+
+- outputs at the training step's shapes that must be bit-identical: K3 in
+  bf16, K4s's forward, dgrad and wgrad in bf16 and its dgrad in fp32, K4d
+  (the 7x7 head's dgrad, fp32, at both step batches), K2f in both dtypes,
+  K1 in both dtypes, and the attention kernels K5f and K5b at the VQGAN
+  shapes; K3 in fp32, whose design may differ between the checkouts, is
+  reported as its largest difference and not held;
+- the SASS of the bf16 wgmma kernels of ``conv3_in_tc.cu`` and
+  ``conv3s2_tc.cu`` and of every kernel of ``attention.cu``, compiled from
+  each checkout with the same nvcc flags and compared instruction by
+  instruction (the kernels' anonymous-namespace prefix left out of their
+  names): those of ``conv3s2_tc.cu`` and ``attention.cu`` must match;
+  ``conv3_in_tc.cu``'s are reported, its outputs held bit-identical above;
+- the ``cyclegan256_dp`` training step, timed in fp32 and in bf16, and the
+  ``vqgan512`` step (fp32, union batch 8, D on from the first step), in
+  turns (this, other, other, this).
 
     python3 tools/ab_checkouts.py OTHER_CHECKOUT
 
 One JSON line a run, then one with the verdict, after the card's name and
-power limit; exits non-zero if an output differs. The bf16 step runs with
-LPIPS off, which a checkout from before LPIPS was ported needs.
+power limit; exits non-zero if an output or a kernel's SASS differs. The
+bf16 step runs with LPIPS off, which a checkout from before LPIPS was
+ported needs.
 """
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -26,6 +39,14 @@ ROOT = Path(__file__).resolve().parents[1]
 SEED, BATCH, WARMUP, TIMED = 0, 8, 3, 10
 OVERRIDES = {"float32": ["model.compute_dtype=float32", "loss.lambda_lpips=0"],
              "bfloat16": ["loss.lambda_lpips=0"]}
+VQ_OVERRIDES = OVERRIDES["float32"] + ["loss.vq_disc_start=0"]
+VQ_BATCH, VQ_TIMED = 4, 5  # per domain: the step trains on a union of 8
+# outputs reported as their largest difference, not held bit-identical
+REPORTED = ("conv3_in_act float32 relu=True", "conv3_in_act float32 relu=False")
+# (source, the kernels compared: a substring of the name, whether their
+# SASS must match)
+SASS = (("conv3_in_tc.cu", "wgmma", False), ("conv3s2_tc.cu", "wgmma", True),
+        ("attention.cu", "", True))
 
 
 def worker(out: Path) -> None:
@@ -35,10 +56,12 @@ def worker(out: Path) -> None:
     import torch
 
     from uig_torch.config import apply_overrides, get_preset
-    from uig_torch.kernels import (augment_batch, conv3_in_act,
-                                   conv3s2_dgrad, conv7_dgrad)
+    from uig_torch.kernels import (attention_bwd, attention_fwd,
+                                   augment_batch, conv3_in_act, conv3s2,
+                                   conv3s2_dgrad, conv3s2_wgrad, conv7_dgrad,
+                                   instance_norm)
     from uig_torch.serving import exact_fp32
-    from uig_torch.train import CycleGANTrainer
+    from uig_torch.train import CycleGANTrainer, VQGANTrainer
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -52,14 +75,36 @@ def worker(out: Path) -> None:
         x, w = randn(BATCH, 64, 64, 256), randn(3, 3, 256, 256, scale=0.02)
         b, g, be = randn(256, scale=0.02), randn(256, scale=0.1) + 1, \
             randn(256, scale=0.1)
-        for relu in (True, False):
-            outs[f"conv3_in_act relu={relu}"] = conv3_in_act(
-                x, w, b, g, be, relu=relu).cpu()
+        for dt in (torch.float32, torch.bfloat16):
+            for relu in (True, False):
+                outs[f"conv3_in_act {str(dt)[6:]} relu={relu}"] = \
+                    conv3_in_act(x.to(dt), w.to(dt), b, g, be,
+                                 relu=relu).cpu()
+            outs[f"instance_norm {str(dt)[6:]}"] = instance_norm(
+                x.to(dt), g, be, relu=True).cpu()
         for h, cin, cout in ((256, 64, 128), (128, 128, 256)):
+            xs = randn(BATCH, h, h, cin)
             dy = randn(BATCH, h // 2, h // 2, cout)
             wd = randn(3, 3, cin, cout, scale=0.05)
+            bd = randn(cout, scale=0.05)
             outs[f"conv3s2_dgrad {h} {cin}->{cout}"] = conv3s2_dgrad(dy,
                                                                      wd).cpu()
+            bf = torch.bfloat16
+            outs[f"conv3s2 bf16 {h} {cin}->{cout}"] = conv3s2(
+                xs.to(bf), wd.to(bf), bd.to(bf)).cpu()
+            outs[f"conv3s2_dgrad bf16 {h} {cin}->{cout}"] = conv3s2_dgrad(
+                dy.to(bf), wd.to(bf)).cpu()
+            outs[f"conv3s2_wgrad bf16 {h} {cin}->{cout}"] = conv3s2_wgrad(
+                xs.to(bf), dy.to(bf)).cpu()
+        for nb in (4, 8):
+            q, k, v, do = (randn(nb, 1024, 512) for _ in range(4))
+            o, lse = attention_fwd(q, k, v)
+            outs[f"attention_fwd {nb}"] = o.cpu()
+            if nb == 8:
+                for name, t in zip(("dq", "dk", "dv"),
+                                   attention_bwd(q, k, v, o, lse, do)):
+                    outs[f"attention_bwd {name} {nb}"] = t.cpu()
+            del q, k, v, do, o, lse
         w7 = randn(7, 7, 64, 3, scale=0.02)
         for nb in (2 * BATCH, BATCH):
             outs[f"conv7_dgrad {nb} reflect"] = conv7_dgrad(
@@ -74,16 +119,20 @@ def worker(out: Path) -> None:
     torch.save(outs, out)
 
     times = {}
-    load = 286
-    a_u8, b_u8 = (rng.integers(0, 256, (BATCH, load, load, 3),
-                               dtype=np.uint8) for _ in range(2))
     torch.use_deterministic_algorithms(True)
-    for dtype, overrides in OVERRIDES.items():
-        cfg = apply_overrides(get_preset("cyclegan256_dp"), overrides)
-        tr = CycleGANTrainer(cfg)
+    runs = [(dtype, "cyclegan256_dp", CycleGANTrainer, overrides, BATCH,
+             TIMED) for dtype, overrides in OVERRIDES.items()]
+    runs.append(("vqgan512", "vqgan512", VQGANTrainer, VQ_OVERRIDES,
+                 VQ_BATCH, VQ_TIMED))
+    for key, preset, trainer, overrides, nb, timed in runs:
+        cfg = apply_overrides(get_preset(preset), overrides)
+        load = cfg.data.load_size
+        a_u8, b_u8 = (rng.integers(0, 256, (nb, load, load, 3),
+                                   dtype=np.uint8) for _ in range(2))
+        tr = trainer(cfg)
         st = tr.init_state(SEED)
         ms = []
-        for i in range(WARMUP + TIMED):
+        for i in range(WARMUP + timed):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -92,11 +141,44 @@ def worker(out: Path) -> None:
             torch.cuda.synchronize()
             if i >= WARMUP:
                 ms.append(e0.elapsed_time(e1))
-        times[dtype] = {"step_ms_median": float(np.median(ms)),
-                        "step_ms": ms}
+        times[key] = {"step_ms_median": float(np.median(ms)), "step_ms": ms}
         del tr, st
         torch.cuda.empty_cache()
     print(json.dumps(times), flush=True)
+
+
+def sass(checkout: Path, tmp: Path) -> dict:
+    """{source: {kernel: instructions}} of the SASS sources compiled from
+    ``checkout`` with this checkout's nvcc flags."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from uig_torch.kernels import _build
+
+    nvcc = _build._nvcc()
+    cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    csrc = checkout / "src" / "uig_torch" / "csrc"
+    out = {}
+    for src, key, _ in SASS:
+        cubin = tmp / (checkout.name + "_" + src + ".cubin")
+        subprocess.run([nvcc, *flags, "-cubin", "-I", str(csrc), "-o",
+                        str(cubin), str(csrc / src)], check=True,
+                       capture_output=True, timeout=600)
+        text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                              capture_output=True, text=True).stdout
+        fns, name = {}, None
+        for ln in text.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                # the anonymous namespace's name holds a hash of the path
+                name = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "",
+                              m.group(1))
+                fns[name] = []
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?;)", ln)
+            if name is not None and m:
+                fns[name].append(m.group(1))
+        out[src] = {k: v for k, v in fns.items() if key in k}
+    return out
 
 
 def run(checkout: Path, out: Path) -> dict:
@@ -143,10 +225,21 @@ def main() -> int:
                               "step_ms": {k: v["step_ms"]
                                           for k, v in times.items()}}),
                   flush=True)
+        mine, theirs = sass(ROOT, Path(tmp)), sass(other, Path(tmp))
+    sass_same = {f"{src} {k}": v == theirs[src].get(k)
+                 for src in mine for k, v in mine[src].items()}
+    sass_same.update({f"{src} {k}": False for src in theirs
+                      for k in theirs[src] if k not in mine[src]})
     same = {k: torch.equal(v, outputs["other"][k])
-            for k, v in outputs["this"].items()}
-    print(json.dumps({"bit_identical": same}), flush=True)
-    return 0 if all(same.values()) else 1
+            for k, v in outputs["this"].items() if k not in REPORTED}
+    differ = {k: (outputs["this"][k].double()
+                  - outputs["other"][k].double()).abs().max().item()
+              for k in REPORTED}
+    required = [src for src, _, must in SASS if must]
+    print(json.dumps({"bit_identical": same, "sass_identical": sass_same,
+                      "max_abs_difference": differ}), flush=True)
+    return 0 if all(same.values()) and all(
+        v for k, v in sass_same.items() if k.split()[0] in required) else 1
 
 
 if __name__ == "__main__":
