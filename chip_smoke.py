@@ -19,7 +19,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    Every CycleGAN kernel runs twice: in fp32 and in bf16 (tolerances in
    bf16 ulps of the output's largest magnitude, ``TOL_BF16``). The cases
    of design "tf32x3" (fp32 on the tensor cores in the three-term TF32
-   split: the attention kernels and the fused conv3+IN) also report the
+   split: the attention kernels, the fused conv3+IN and K4s's input and
+   weight gradients) also report the
    kernel's and the plain version's error against float64 on the card,
    the kernel's at most ``FP64_ERR_OVER_PLAIN`` times the plain version's,
    and the CUDA kernels the yardstick launched. The norm backward's cases
@@ -78,7 +79,8 @@ and reconstruct apply for the attention kernels; its error, and its times
 and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
 ``train_bf16`` step, with the design each dtype launched: "wgmma" on the
-tensor cores, "tf32x3" (the fp32 conv3+IN), or "fma", read from the
+tensor cores, "tf32x3" (the fp32 conv3+IN and K4s dgrad/wgrad), or
+"fma", read from the
 functions that the dtype's profiled training step launched and held to
 ``STEP_DESIGNS``; "tf32x3" for the attention kernels, read from the VQGAN
 step's profile), the nvidia-smi line, and, last,
@@ -119,10 +121,10 @@ SEED = 0
 # H100 SXM data-sheet peaks (at 700 W): fp32 outside the tensor cores, bf16
 # and TF32 dense on the tensor cores, HBM3. A bf16 case's bound counts the
 # tensor-core rate, which only the kernels of design "wgmma" use; the others
-# compute in fp32 FMAs. The attention kernels and the fp32 conv3+IN
-# (design "tf32x3") multiply fp32 on the tensor cores in the three-term
-# TF32 split: their bound counts 3 TF32 flops per fp32 flop at the TF32
-# rate.
+# compute in fp32 FMAs. The attention kernels, the fp32 conv3+IN and K4s's
+# fp32 dgrad and wgrad (design "tf32x3") multiply fp32 on the tensor cores
+# in the three-term TF32 split: their bound counts 3 TF32 flops per fp32
+# flop at the TF32 rate.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
@@ -140,7 +142,10 @@ PEAK_BYTES = 3.35e12
 # conv3+IN in fp32 multiplies in the same split (design "tf32x3"), within
 # the same 2e-4 of the plain version as its earlier FMA design.
 # K4s: each output's error relative to its largest value (fp32 sums over
-# up to 9 * 128 terms, or a batch's pixels for the weight gradient).
+# up to 9 * 128 terms, or a batch's pixels for the weight gradient); the
+# fp32 dgrad and wgrad (design "tf32x3") are held to the same bounds as
+# the FMA design before them, and report their error against float64
+# too.
 TOL = {"augment_batch": 0.0, "instance_norm": 1e-4,
        "instance_norm_bwd": 1e-4, "conv3_in_act": 2e-4, "conv7": 1e-4,
        "conv7_dgrad": 1e-4, "conv7_wgrad": 1e-4, "conv3s2": 1e-5,
@@ -156,7 +161,8 @@ TOL_BF16 = {name: 1.0 for name in TOL} | {"conv3_in_act": 2.0,
                                           "augment_batch": 0.0}
 # kernels whose every case must also repeat bit for bit
 REPEAT_BIT_EQUAL = ("augment_batch", "instance_norm_bwd", "conv3_in_act",
-                    "conv7_dgrad", "attention_fwd", "attention_bwd")
+                    "conv7_dgrad", "conv3s2_dgrad", "conv3s2_wgrad",
+                    "attention_fwd", "attention_bwd")
 # design "tf32x3": the kernel's error against float64 at most this many
 # times the plain version's (fp32 on the FMA cores), so that the split keeps
 # fp32's order of error
@@ -211,9 +217,10 @@ SOURCES = {
 # that launch each design, and its source. Which design a dtype ran is read
 # from the functions its profiled training step launched (``designs_run``);
 # every other kernel has one design, "fma", in SOURCES. The earlier FMA
-# designs of the fp32 conv3+IN and of the attention kernels, and the
-# earlier six-launch norm backward, are gone from the source: their names
-# stay here so that a step that launched them fails.
+# designs of the fp32 conv3+IN, of the attention kernels and of K4s's fp32
+# dgrad and wgrad, and the earlier six-launch norm backward, are gone from
+# the source: their names stay here so that a step that launched them
+# fails.
 DESIGNS = {
     "conv3_in_act": {
         "fma": ("conv3_gemm_kernel", "src/uig_torch/csrc/conv3_in.cu"),
@@ -238,11 +245,15 @@ DESIGNS = {
     "conv3s2_dgrad": {
         "fma": ("conv_dgrad_kernel", "src/uig_torch/csrc/conv3s2.cu"),
         "wgmma": ("conv_dgrad_wgmma_kernel",
-                  "src/uig_torch/csrc/conv3s2_tc.cu")},
+                  "src/uig_torch/csrc/conv3s2_tc.cu"),
+        "tf32x3": (("conv_wsplit_kernel", "conv_dgrad_tf32_kernel"),
+                   "src/uig_torch/csrc/conv3s2_tf32.cu")},
     "conv3s2_wgrad": {
         "fma": ("conv_wgrad_kernel", "src/uig_torch/csrc/conv3s2.cu"),
         "wgmma": ("conv_wgrad_wgmma_kernel",
-                  "src/uig_torch/csrc/conv3s2_tc.cu")},
+                  "src/uig_torch/csrc/conv3s2_tc.cu"),
+        "tf32x3": ("conv_wgrad_tf32_kernel",
+                   "src/uig_torch/csrc/conv3s2_tf32.cu")},
     "attention_fwd": {
         "fma": ("attn_fwd_kernel", "src/uig_torch/csrc/attention.cu"),
         "tf32x3": ("attn_fwd_tc_kernel", "src/uig_torch/csrc/attention.cu")},
@@ -260,7 +271,7 @@ DESIGNS = {
 STEP_DESIGNS = {
     "float32": {"instance_norm_bwd": "two_pass", "conv3_in_act": "tf32x3",
                 "conv3s2": "fma", "conv7_dgrad": "fma",
-                "conv3s2_dgrad": "fma", "conv3s2_wgrad": "fma"},
+                "conv3s2_dgrad": "tf32x3", "conv3s2_wgrad": "tf32x3"},
     "bfloat16": {"instance_norm_bwd": "two_pass", "conv3_in_act": "wgmma",
                  "conv3s2": "wgmma", "conv7_dgrad": "wgmma",
                  "conv3s2_dgrad": "wgmma", "conv3s2_wgrad": "wgmma"}}
@@ -544,6 +555,29 @@ def conv3_in_fp64(x, w, b, g, be, relu):
     return (torch.relu(y) if relu else y).permute(0, 2, 3, 1)
 
 
+def conv_dgrad_fp64(dy, w, size, stride, pad):
+    """The input gradient of the zero-padded strided conv in float64, NHWC:
+    dy (B, Ho, Wo, F), w (k, k, C, F) -> dx (B, H, W, C), (H, W) = size."""
+    import torch
+
+    dx = torch.nn.grad.conv2d_input(
+        (dy.shape[0], w.shape[2]) + tuple(size),
+        w.double().permute(3, 2, 0, 1), dy.double().permute(0, 3, 1, 2),
+        stride=stride, padding=pad)
+    return dx.permute(0, 2, 3, 1)
+
+
+def conv_wgrad_fp64(x, dy, k, stride, pad):
+    """Its weight gradient in float64: x (B, H, W, C), dy -> dw (k, k, C,
+    F)."""
+    import torch
+
+    dw = torch.nn.grad.conv2d_weight(
+        x.double().permute(0, 3, 1, 2), (dy.shape[3], x.shape[3], k, k),
+        dy.double().permute(0, 3, 1, 2), stride=stride, padding=pad)
+    return dw.permute(2, 3, 1, 0)
+
+
 def attention_fp64(q, k, v, do=None):
     """Attention in float64: o, or (dq, dk, dv) for the output gradient
     ``do``."""
@@ -586,7 +620,8 @@ def kernel_cases(dev, dtype: str = "float32"):
     from uig_torch.kernels.norm import _instance_norm_fwd
 
     dt = getattr(torch, dtype)
-    isz = 4.0 if dtype == "float32" else 2.0
+    f32 = dtype == "float32"
+    isz = 4.0 if f32 else 2.0
     g = torch.Generator(device="cpu").manual_seed(SEED)
     g_dev = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -692,9 +727,9 @@ def kernel_cases(dev, dtype: str = "float32"):
                     w.permute(3, 2, 0, 1), b.to(dt)), weight=ga, bias=be,
                     eps=1e-5),
                 nbytes, flops,
-                design="tf32x3" if dtype == "float32" else "",
+                design="tf32x3" if f32 else "",
                 fp64=(lambda x=x, relu=relu: conv3_in_fp64(
-                    x, w, b, ga, be, relu)) if dtype == "float32" else None)
+                    x, w, b, ga, be, relu)) if f32 else None)
         del x
     # the 7x7 head: forward, dgrad, wgrad at both batches, and the forward
     # with zeros padding at a smaller shape (not on the path)
@@ -762,7 +797,9 @@ def kernel_cases(dev, dtype: str = "float32"):
                        torch.nn.grad.conv2d_input(shape, wt, dyn, stride=2,
                                                   padding=1),
                        isz * (dy.numel() + w.numel() + x.numel()), flops,
-                       check=_rel_check)
+                       check=_rel_check, design="tf32x3" if f32 else "",
+                       fp64=(lambda dy=dy, w=w, h=h: conv_dgrad_fp64(
+                           dy, w, (h, h), 2, 1)) if f32 else None)
             yield case("conv3s2_wgrad", label, 2, 0,
                        lambda x=x, dy=dy: conv3s2_wgrad(x, dy),
                        lambda x=x, dy=dy: conv3s2_wgrad_reference(x, dy),
@@ -770,7 +807,9 @@ def kernel_cases(dev, dtype: str = "float32"):
                        torch.nn.grad.conv2d_weight(xn, shape, dyn, stride=2,
                                                    padding=1),
                        isz * (x.numel() + dy.numel() + w.numel()), flops,
-                       check=_rel_check)
+                       check=_rel_check, design="tf32x3" if f32 else "",
+                       fp64=(lambda x=x, dy=dy: conv_wgrad_fp64(
+                           x, dy, 3, 2, 1)) if f32 else None)
             del x, dy, xn, dyn
     xp = randn(2, 66, 66, 64)
     wf = randn(9 * 64, 64, scale=0.05)
@@ -781,8 +820,8 @@ def kernel_cases(dev, dtype: str = "float32"):
     flops = 2.0 * 2 * 64 * 64 * 64 * 9 * 64
     label = "conv_core (2,66,66,64)->64 3x3 VALID (not on the path)"
     # the plain version's weight gradient here is cuDNN's deterministic fp32
-    # VALID wgrad, which read 1.4e-5 of the largest value from the kernel
-    # on an H100 (the stride-2 cases read 1.3e-6 to 1.8e-6): 5e-5
+    # VALID wgrad, which read 1.4e-5 of the largest value from the FMA
+    # kernel on an H100 (the stride-2 cases read 1.3e-6 to 1.8e-6): 5e-5
     core_tol = 5e-5
     yield case("conv3s2", label, 0, 0, lambda: conv_core(xp, wf, 3, 3),
                lambda: conv_core_reference(xp, wf, 3, 3),
@@ -794,13 +833,18 @@ def kernel_cases(dev, dtype: str = "float32"):
                lambda: conv_s2._dgrad_reference(dy, w4, (66, 66), 1, 0),
                lambda: torch.nn.grad.conv2d_input(xn.shape, wt, dyn),
                isz * (xp.numel() + wf.numel() + dy.numel()), flops,
-               check=_rel_check)
+               check=_rel_check, design="tf32x3" if f32 else "",
+               fp64=(lambda: conv_dgrad_fp64(dy, w4, (66, 66), 1, 0))
+               if f32 else None)
     yield case("conv3s2_wgrad", label, 0, 0,
                lambda: conv_s2._wgrad("conv_core", xp, dy, 3, 1, 0),
                lambda: conv_s2._wgrad_reference(xp, dy, 3, 1, 0),
                lambda: torch.nn.grad.conv2d_weight(xn, wt.shape, dyn),
                isz * (xp.numel() + wf.numel() + dy.numel()), flops,
-               check=_rel_check, tol=core_tol)
+               check=_rel_check, tol=core_tol,
+               design="tf32x3" if f32 else "",
+               fp64=(lambda: conv_wgrad_fp64(xp, dy, 3, 1, 0))
+               if f32 else None)
     del xp, dy, xn, dyn
     if dtype != "float32":
         return

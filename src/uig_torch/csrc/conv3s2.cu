@@ -3,7 +3,7 @@
 // downsamples (d128: 64 -> 128 channels at 256^2, d256: 128 -> 256 at
 // 128^2), and with stride 1 and no padding the generic VALID conv.
 //   fwd:   x (B, H, W, C), w (k, k, C, F) [+ bias (F,)] -> y (B, Ho, Wo, F)
-//   dgrad: dy (B, Ho, Wo, F), wt (k, k, F, C) (w transposed) -> dx (B, H, W, C)
+//   dgrad: dy (B, Ho, Wo, F), w (k, k, C, F) -> dx (B, H, W, C)
 //   wgrad: x, dy -> dw (k, k, C, F)
 // with Ho = (H + 2 pad - k) / stride + 1.
 //
@@ -15,42 +15,33 @@
 // lanes fill; here the stride is index arithmetic in the loaders, and no
 // padded or space-to-depth tensor is ever materialized.
 //
-// Bound on this card: fp32 operations. d128 and d256 at batch 16 are each
-// 2 * 16 * 128^2 * 128 * 9 * 64 = 3.87e10 FLOP (dgrad and wgrad the same):
-// 0.58 ms at the H100 SXM data-sheet 67 TFLOP/s fp32 FMA rate (700 W).
+// Bound on this card: d128 and d256 at batch 16 are each 2 * 16 * 128^2 *
+// 128 * 9 * 64 = 3.87e10 FLOP (dgrad and wgrad the same): 0.58 ms at the
+// H100 SXM data-sheet 67 TFLOP/s fp32 FMA rate (700 W), 0.2345 ms as three
+// TF32 products at 495 TFLOP/s, 0.039 ms at the 989 TFLOP/s bf16 rate.
 //
-// Two designs, chosen by the storage type. In bf16 all three run on the
-// tensor cores (wgmma, fp32 accumulators; bound 0.039 ms a path shape at
-// batch 16 at the 989 TFLOP/s bf16 rate): csrc/conv3s2_tc.cu, launched from
-// the entry points below, holds them with their bound and design; its
-// dgrad keeps this file's gather by stride-parity class. This file holds
-// the FMA core, which runs the fp32 forward, input gradient and weight
-// gradient (the serving path is fp32 with TF32 off), and the reduce pass
-// of both weight gradients.
+// Three designs, chosen by the storage type and the function:
+//   - bf16, all three: the tensor cores (wgmma, fp32 accumulators),
+//     csrc/conv3s2_tc.cu;
+//   - fp32 dgrad and wgrad: the tensor cores in the three-term TF32 split
+//     ("tf32x3"), csrc/conv3s2_tf32.cu;
+//   - fp32 forward (the training step's and the serving path's, TF32 off):
+//     this file's FMA core.
+// This file holds the entry points, the FMA forward and the reduce pass of
+// every weight gradient: the weight gradients' first passes write fp32
+// partials (chunks, k k C, F) over ordered pixel chunks, and the reduce
+// sums them in chunk order and rounds once to T, as K4w does. No atomics:
+// repeat runs give the same bits.
 //
 // FMA core: K3's implicit GEMM (csrc/conv3_in.cu): a block computes a
-// 128 x BN tile (BN 128, or 64 when the N side is at most 64), 8 x 8
-// outputs a thread in registers, stepping K by 8 through two fp32 shared
-// tiles. Loads widen T to fp32 four values at a time (C % 4 == 0 and
-// F % 4 == 0, so a run of four never crosses a tap); every sum is an fp32
-// FMA in a fixed order; each output is rounded once to T.
-//   fwd (fp32): M = output pixels of one image, N = F, K = (tap, c), read
-//        straight from the HWIO weights as a (k k C, F) row-major matrix;
-//        the A loader gathers the strided window with zero padding as a
-//        masked load; the bias is added before the store.
-//   dgrad (fp32): the adjoint. A dx pixel (i, j) receives the outputs
-//        whose window holds it: the taps di with stride | (i + pad - di),
-//        which depend only on (i mod stride, j mod stride). A block owns
-//        one such parity class (stride^2 classes, 1 for stride 1): M = the
-//        class's pixels, N = C, K = (tap of the class, o), B the rows of
-//        wt. For the 3x3 stride-2 pad-1 conv the classes have 1 x 1, 1 x 2,
-//        2 x 1 and 2 x 2 taps: a gather in a fixed order, with no atomics
-//        and no zero-stuffed dy, and no multiply by a structural zero.
-//   wgrad (fp32): M = (tap, c) (k k C rows), N = F, K = pixels of the
-//        whole batch. The pixels are cut into chunks; each block sums its
-//        chunk in order into a partial (chunks, k k C, F) in fp32, and a
-//        second pass (also the bf16 wgrad's) sums the partials in chunk
-//        order and rounds once, as K4w does. Repeat runs give the same bits.
+// 128 x BN tile (BN 128, or 64 when F is at most 64), 8 x 8 outputs a
+// thread in registers, stepping K by 8 through two fp32 shared tiles.
+// Loads take four values at a time (C % 4 == 0 and F % 4 == 0, so a run of
+// four never crosses a tap); every sum is an fp32 FMA in a fixed order. M
+// = output pixels of one image, N = F, K = (tap, c), read straight from
+// the HWIO weights as a (k k C, F) row-major matrix; the A loader gathers
+// the strided window with zero padding as a masked load; the bias is added
+// before the store.
 #include <cuda_runtime.h>
 
 #include "dtype.cuh"
@@ -59,7 +50,6 @@ namespace {
 
 constexpr int kBM = 128;      // GEMM rows per block
 constexpr int kBK = 8;        // K step
-constexpr int kMaxTaps = 49;  // k <= 7
 
 // The thread's 8 x 8 outputs: rows tm*4 + i and 64 + tm*4 + i, columns
 // tn*4 + j and BN/2 + tn*4 + j (i, j < 4) of the block's kBM x BN tile.
@@ -189,202 +179,6 @@ __global__ void __launch_bounds__(2 * BN)
   }
 }
 
-// ---------------------------------------------------------------- dgrad --
-// grid (ceil(ceil(H / s) ceil(W / s) / kBM), ceil(C / BN), B s^2), block
-// 2 BN. Block z = b * s^2 + class, class = (i mod s) * s + (j mod s).
-template <typename T, int BN>
-__global__ void __launch_bounds__(2 * BN)
-    conv_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ wt,
-                      T* __restrict__ dx, int H, int W, int C, int F, int Ho,
-                      int Wo, int k, int stride, int pad) {
-  constexpr int kThreads = 2 * BN;
-  constexpr int kALoads = kBM * kBK / 4 / kThreads;
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][BN];
-  __shared__ int tap_row[kMaxTaps];  // (di k + dj) F: the tap's rows of wt
-  __shared__ int tap_oy[kMaxTaps];   // oy - a for dx row i = s a + pi
-  __shared__ int tap_ox[kMaxTaps];   // ox - e for dx column j = s e + pj
-  __shared__ int n_taps;
-
-  const int tid = threadIdx.x;
-  const int s = stride;
-  const int cls = blockIdx.z % (s * s);
-  const int b = blockIdx.z / (s * s);
-  const int pi = cls / s, pj = cls - pi * s;
-  const int Hc = (H - pi + s - 1) / s, Wc = (W - pj + s - 1) / s;
-  const int M = Hc * Wc;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * BN;
-  if (m0 >= M) return;  // the whole block: this class has fewer pixels
-
-  // the class's taps, rows then columns ascending: the fixed order of sums
-  if (tid == 0) {
-    int nt = 0;
-    for (int di = 0; di < k; ++di) {
-      const int ry = pi + pad - di;
-      if (((ry % s) + s) % s) continue;
-      for (int dj = 0; dj < k; ++dj) {
-        const int rx = pj + pad - dj;
-        if (((rx % s) + s) % s) continue;
-        tap_row[nt] = (di * k + dj) * F;
-        tap_oy[nt] = ry / s;  // exact: s divides ry
-        tap_ox[nt] = rx / s;
-        ++nt;
-      }
-    }
-    n_taps = nt;
-  }
-  __syncthreads();
-  const int K = n_taps * F;
-  const T* dyb = dy + (size_t)b * Ho * Wo * F;
-
-  int a_row[kALoads], a_k[kALoads], a_a[kALoads], a_e[kALoads];
-  bool a_ok[kALoads];
-#pragma unroll
-  for (int q = 0; q < kALoads; ++q) {
-    const int idx = tid + q * kThreads;
-    a_row[q] = idx >> 1;
-    a_k[q] = (idx & 1) * 4;
-    const int m = m0 + a_row[q];
-    a_ok[q] = m < M;
-    a_a[q] = a_ok[q] ? m / Wc : 0;
-    a_e[q] = a_ok[q] ? m - a_a[q] * Wc : 0;
-  }
-  const int b_row = tid / (BN / 4);
-  const int b_col = (tid % (BN / 4)) * 4;
-  const bool b_ok = n0 + b_col < C;
-
-  const int tm = tid / (BN / 8), tn = tid % (BN / 8);
-  float acc[8][8];
-  zero(acc);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-    for (int q = 0; q < kALoads; ++q) {
-      float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-      const int kq = k0 + a_k[q];
-      if (a_ok[q] && kq < K) {
-        const int t = kq / F;
-        const int o = kq - t * F;
-        const int oy = a_a[q] + tap_oy[t];
-        const int ox = a_e[q] + tap_ox[t];
-        if (oy >= 0 && oy < Ho && ox >= 0 && ox < Wo)
-          av = load4(dyb + ((size_t)oy * Wo + ox) * F + o);
-      }
-      put_a(As, a_k[q], a_row[q], av);
-    }
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int kb = k0 + b_row;
-    if (b_ok && kb < K) {
-      const int t = kb / F;
-      const int row = tap_row[t] + (kb - t * F);
-      bv = load4(wt + (size_t)row * C + n0 + b_col);
-    }
-    *reinterpret_cast<float4*>(&Bs[b_row][b_col]) = bv;
-    __syncthreads();
-    mma_step<BN>(As, Bs, acc, tm, tn);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + row_of(i, tm);
-    if (m >= M) continue;
-    const int a = m / Wc, e = m - (m / Wc) * Wc;
-    T* o = dx + (((size_t)b * H + s * a + pi) * W + s * e + pj) * C + n0;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = half ? BN / 2 + tn * 4 : tn * 4;
-      if (n0 + col >= C) continue;
-      const float* v = &acc[i][half * 4];
-      store4(o + col, make_float4(v[0], v[1], v[2], v[3]));
-    }
-  }
-}
-
-// ---------------------------------------------------------------- wgrad --
-// fp32. grid (ceil(k k C / kBM), ceil(F / BN), chunks), block 2 BN. Block
-// z sums pixels [z per_chunk, (z + 1) per_chunk) of the batch's B Ho Wo
-// outputs and writes part[z] as (k k C, F).
-template <int BN>
-__global__ void __launch_bounds__(2 * BN)
-    conv_wgrad_kernel(const float* __restrict__ x,
-                      const float* __restrict__ dy,
-                      float* __restrict__ part, int B, int H, int W, int C,
-                      int F, int Ho, int Wo, int k, int stride, int pad,
-                      int per_chunk) {
-  constexpr int kThreads = 2 * BN;
-  constexpr int kALoads = kBM * kBK / 4 / kThreads;
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Bs[kBK][BN];
-
-  const int tid = threadIdx.x;
-  const int M = k * k * C;
-  const int HWo = Ho * Wo;
-  const int P = B * HWo;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * BN;
-  const int p0 = blockIdx.z * per_chunk;
-  const int p1 = min(p0 + per_chunk, P);
-
-  // A loader: As[pixel][m], four consecutive m (one tap, four channels) of
-  // one pixel a load; the thread's m run is the same at every K step
-  const int a_m = (tid % (kBM / 4)) * 4;
-  const int m = m0 + a_m;
-  const bool m_ok = m < M;
-  const int tap = m_ok ? m / C : 0;
-  const int c = m_ok ? m - tap * C : 0;
-  const int di = tap / k, dj = tap - (tap / k) * k;
-  const int b_row = tid / (BN / 4);
-  const int b_col = (tid % (BN / 4)) * 4;
-  const bool b_ok = n0 + b_col < F;
-
-  const int tm = tid / (BN / 8), tn = tid % (BN / 8);
-  float acc[8][8];
-  zero(acc);
-
-  for (int k0 = p0; k0 < p1; k0 += kBK) {
-#pragma unroll
-    for (int q = 0; q < kALoads; ++q) {
-      const int a_kk = (tid + q * kThreads) / (kBM / 4);
-      const int p = k0 + a_kk;
-      float4 av = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m_ok && p < p1) {
-        const int bb = p / HWo;
-        const int r = p - bb * HWo;
-        const int oy = r / Wo;
-        const int sy = oy * stride + di - pad;
-        const int sx = (r - oy * Wo) * stride + dj - pad;
-        if (sy >= 0 && sy < H && sx >= 0 && sx < W)
-          av = load4(x + (((size_t)bb * H + sy) * W + sx) * C + c);
-      }
-      *reinterpret_cast<float4*>(&As[a_kk][a_m]) = av;
-    }
-    float4 bv = make_float4(0.f, 0.f, 0.f, 0.f);
-    const int p = k0 + b_row;
-    if (b_ok && p < p1) bv = load4(dy + (size_t)p * F + n0 + b_col);
-    *reinterpret_cast<float4*>(&Bs[b_row][b_col]) = bv;
-    __syncthreads();
-    mma_step<BN>(As, Bs, acc, tm, tn);
-    __syncthreads();
-  }
-
-  float* pz = part + (size_t)blockIdx.z * M * F;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int mm = m0 + row_of(i, tm);
-    if (mm >= M) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = half ? BN / 2 + tn * 4 : tn * 4;
-      if (n0 + col >= F) continue;
-      const float* v = &acc[i][half * 4];
-      *reinterpret_cast<float4*>(pz + (size_t)mm * F + n0 + col) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
-  }
-}
-
 // dw[e] = sum over chunks, in order, of part[chunk][e], rounded once to T.
 template <typename T>
 __global__ void conv_wgrad_reduce_kernel(const float* __restrict__ part,
@@ -415,35 +209,6 @@ cudaError_t fwd(const void* x, const void* w, const void* bias, void* y,
   return cudaGetLastError();
 }
 
-template <typename T, int BN>
-cudaError_t dgrad(const void* dy, const void* wt, void* dx, int B, int H,
-                  int W, int C, int F, int k, int stride, int pad,
-                  cudaStream_t stream) {
-  const int Ho = (H + 2 * pad - k) / stride + 1;
-  const int Wo = (W + 2 * pad - k) / stride + 1;
-  const int s = stride;
-  const int mc = ((H + s - 1) / s) * ((W + s - 1) / s);
-  const dim3 grid((mc + kBM - 1) / kBM, (C + BN - 1) / BN, B * s * s);
-  conv_dgrad_kernel<T, BN><<<grid, 2 * BN, 0, stream>>>(
-      static_cast<const T*>(dy), static_cast<const T*>(wt),
-      static_cast<T*>(dx), H, W, C, F, Ho, Wo, k, stride, pad);
-  return cudaGetLastError();
-}
-
-template <int BN>
-cudaError_t wgrad_partials(const void* x, const void* dy, float* part, int B,
-                           int H, int W, int C, int F, int k, int stride,
-                           int pad, int chunks, int per_chunk,
-                           cudaStream_t stream) {
-  const int Ho = (H + 2 * pad - k) / stride + 1;
-  const int Wo = (W + 2 * pad - k) / stride + 1;
-  const dim3 grid((k * k * C + kBM - 1) / kBM, (F + BN - 1) / BN, chunks);
-  conv_wgrad_kernel<BN><<<grid, 2 * BN, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dy), part, B, H,
-      W, C, F, Ho, Wo, k, stride, pad, per_chunk);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t wgrad_reduce(const float* part, void* dw, int n, int chunks,
                          cudaStream_t stream) {
@@ -454,7 +219,8 @@ cudaError_t wgrad_reduce(const float* part, void* dw, int n, int chunks,
 
 }  // namespace
 
-// The tensor-core kernels of csrc/conv3s2_tc.cu.
+// The tensor-core kernels of csrc/conv3s2_tc.cu (bf16) and
+// csrc/conv3s2_tf32.cu (fp32 dgrad and wgrad).
 cudaError_t conv_fwd_bf16_wgmma(const void* x, const void* w,
                                 const void* bias, void* y, int B, int H,
                                 int W, int C, int F, int k, int stride,
@@ -466,6 +232,14 @@ cudaError_t conv_wgrad_bf16_wgmma(const void* x, const void* dy, float* part,
 cudaError_t conv_dgrad_bf16_wgmma(const void* dy, const void* wt, void* dx,
                                   int B, int H, int W, int C, int F, int k,
                                   int stride, int pad, cudaStream_t stream);
+cudaError_t conv_dgrad_fp32_tf32(const void* dy, const void* w, float* ws,
+                                 void* dx, int B, int H, int W, int C, int F,
+                                 int k, int stride, int pad,
+                                 cudaStream_t stream);
+cudaError_t conv_wgrad_fp32_tf32(const void* x, const void* dy, float* part,
+                                 int B, int H, int W, int C, int F, int k,
+                                 int stride, int pad, int chunks,
+                                 int per_chunk, cudaStream_t stream);
 
 // x: (B, H, W, C); w: HWIO (k, k, C, F) = a (k k C, F) matrix; bias: (F,)
 // or null; y: (B, Ho, Wo, F); all fp32 (FMA core), or all bf16 when
@@ -485,42 +259,39 @@ extern "C" cudaError_t uig_conv_fwd(const void* x, const void* w,
                             stream);
 }
 
-// dy: (B, Ho, Wo, F); wt: (k, k, F, C), the forward's w with its last two
-// axes swapped; dx: (B, H, W, C); all fp32 (FMA core), or all bf16 when
-// is_bf16 (wgmma).
-extern "C" cudaError_t uig_conv_dgrad(const void* dy, const void* wt,
-                                      void* dx, int B, int H, int W, int C,
-                                      int F, int k, int stride, int pad,
-                                      int is_bf16, cudaStream_t stream) {
+// dy: (B, Ho, Wo, F); dx: (B, H, W, C). fp32 (tf32x3): w is the forward's
+// HWIO (k, k, C, F) and ws a (2, k k C, Fp) fp32 scratch for its split
+// planes, Fp = F rounded up to 32. bf16 when is_bf16 (wgmma): w is wt (k,
+// k, F, C), the forward's w with its last two axes swapped, and ws null.
+extern "C" cudaError_t uig_conv_dgrad(const void* dy, const void* w,
+                                      float* ws, void* dx, int B, int H,
+                                      int W, int C, int F, int k, int stride,
+                                      int pad, int is_bf16,
+                                      cudaStream_t stream) {
   if (bad_shape(C, F, k, stride, pad)) return cudaErrorInvalidValue;
   if (is_bf16)
-    return conv_dgrad_bf16_wgmma(dy, wt, dx, B, H, W, C, F, k, stride, pad,
+    return conv_dgrad_bf16_wgmma(dy, w, dx, B, H, W, C, F, k, stride, pad,
                                  stream);
-  return C <= 64 ? dgrad<float, 64>(dy, wt, dx, B, H, W, C, F, k, stride,
-                                    pad, stream)
-                 : dgrad<float, 128>(dy, wt, dx, B, H, W, C, F, k, stride,
-                                     pad, stream);
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  return conv_dgrad_fp32_tf32(dy, w, ws, dx, B, H, W, C, F, k, stride, pad,
+                              stream);
 }
 
-// x: (B, H, W, C), dy: (B, Ho, Wo, F), dw: (k, k, C, F); all fp32 (FMA
-// core), or all bf16 (wgmma). part: (chunks, k k C, F) fp32 scratch with
+// x: (B, H, W, C), dy: (B, Ho, Wo, F), dw: (k, k, C, F); all fp32
+// (tf32x3), or all bf16 (wgmma). part: (chunks, k k C, F) fp32 scratch with
 // chunks * per_chunk >= B Ho Wo, the chunking of conv_s2._wgrad_chunks for
-// the type's tiles.
+// the type's stages.
 extern "C" cudaError_t uig_conv_wgrad(const void* x, const void* dy,
                                       float* part, void* dw, int B, int H,
                                       int W, int C, int F, int k, int stride,
                                       int pad, int chunks, int per_chunk,
                                       int is_bf16, cudaStream_t stream) {
   if (bad_shape(C, F, k, stride, pad)) return cudaErrorInvalidValue;
-  cudaError_t err;
-  if (is_bf16)
-    err = conv_wgrad_bf16_wgmma(x, dy, part, B, H, W, C, F, k, stride, pad,
-                                chunks, per_chunk, stream);
-  else
-    err = F <= 64 ? wgrad_partials<64>(x, dy, part, B, H, W, C, F, k, stride,
-                                       pad, chunks, per_chunk, stream)
-                  : wgrad_partials<128>(x, dy, part, B, H, W, C, F, k, stride,
-                                        pad, chunks, per_chunk, stream);
+  const cudaError_t err =
+      is_bf16 ? conv_wgrad_bf16_wgmma(x, dy, part, B, H, W, C, F, k, stride,
+                                      pad, chunks, per_chunk, stream)
+              : conv_wgrad_fp32_tf32(x, dy, part, B, H, W, C, F, k, stride,
+                                     pad, chunks, per_chunk, stream);
   if (err != cudaSuccess) return err;
   const int n = k * k * C * F;
   return is_bf16 ? wgrad_reduce<bf16>(part, dw, n, chunks, stream)

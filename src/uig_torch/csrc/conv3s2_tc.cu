@@ -2,8 +2,10 @@
 // the weight gradient of the square k x k conv with zero padding and a
 // stride over NHWC bf16 (the generator's 3x3 stride-2 pad-1 downsamples
 // d128: 64 -> 128 channels at 256^2, d256: 128 -> 256 at 128^2; with stride
-// 1 and no padding the generic VALID conv). The fp32 kernels stay on the FMA
-// core of csrc/conv3s2.cu, whose entry points launch these.
+// 1 and no padding the generic VALID conv). In fp32 the forward runs the FMA
+// core of csrc/conv3s2.cu and the dgrad and wgrad the three-term TF32 split
+// of csrc/conv3s2_tf32.cu; csrc/conv3s2.cu's entry points launch all three
+// designs.
 //   fwd:   x (B, H, W, C), w (k, k, C, F) [+ bias (F,)] -> y (B, Ho, Wo, F)
 //   dgrad: dy (B, Ho, Wo, F), wt (k, k, F, C) -> dx (B, H, W, C)
 //   wgrad: x, dy (B, Ho, Wo, F) -> dw (k, k, C, F)
@@ -43,8 +45,8 @@
 //          64 channels of the tap), B is the HWIO weight as a (k k C, F)
 //          row-major matrix, N-major (imm-trans-b). Epilogue: acc + bias in
 //          fp32, one round to nearest even, masked store of the edge.
-//   dgrad: the adjoint, gathered by stride-parity class as the FMA dgrad of
-//          csrc/conv3s2.cu: a dx pixel (i, j) receives the outputs whose
+//   dgrad: the adjoint, gathered by stride-parity class as the fp32 dgrad
+//          of csrc/conv3s2_tf32.cu: a dx pixel (i, j) receives the outputs whose
 //          window holds it, through the taps di with stride | (i + pad -
 //          di), which depend only on (i mod s, j mod s). A block owns one
 //          class: M = the class's dx pixels of the whole batch, N = C, K =

@@ -3,8 +3,8 @@
 // (K3's 3x3 conv). PTX glue for cp.async, mbarriers, TMA and wgmma, the
 // 128-byte-swizzled tile layout, the loader of the B operand, and the
 // mainloop that every one of those kernels runs; host helpers for the TMA
-// map and the launch variants. csrc/conv3_in_tf32.cu (K3's fp32 conv) uses
-// the PTX glue and host helpers with a ring of its own.
+// map and the launch variants. csrc/tf32_wgmma.cuh builds the fp32
+// kernels' ring (K3's conv, K4s's dgrad) on the PTX glue and host helpers.
 //
 // Layout: every shared tile is 64 rows of 128 bytes (64 bf16) in 1024-byte
 // atoms of 8 rows, 16-byte piece j of row r at piece j ^ (r % 8), as TMA's

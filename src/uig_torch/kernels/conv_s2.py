@@ -19,9 +19,16 @@ fp32 from the widened inputs and round once):
   * ``conv3s2_wgrad(x, dy)``: its weight gradient, (3, 3, Cin, Cout) in x's
     type.
 
-Two designs, chosen by the type: in bf16 all three run on the tensor
-cores (``wgmma``, fp32 accumulators, ``csrc/conv3s2_tc.cu``); in fp32 they
-run fp32 FMAs (``csrc/conv3s2.cu``).
+Three designs, chosen by the type and the launch:
+
+  * fp32 dgrad and wgrad, "tf32x3": the tensor cores in the three-term TF32
+    split (``wgmma``, ``csrc/conv3s2_tf32.cu``); the dgrad reads the
+    forward's HWIO weight through hi/lo planes that a split kernel writes
+    into a scratch allocated here;
+  * fp32 forward, "fma": fp32 FMAs (``csrc/conv3s2.cu``), as fp32 serving
+    wants with TF32 off;
+  * bf16, all three, "wgmma": the tensor cores on bf16 products
+    (``csrc/conv3s2_tc.cu``).
 
 ``conv_core(xp, w_flat, kh, kw)`` is JAX's generic square VALID stride-1
 conv with flat (kh kw Cin, Cout) weights, differentiable, through the same
@@ -38,16 +45,15 @@ import torch.nn.functional as F
 from uig_torch.kernels import _build
 from uig_torch.kernels._check import cuda_operand, on_cpu, storage_type
 
-# wgrad blocks in all. FMA core (fp32, csrc/conv3s2.cu): 4 per SM on 132
-# SMs, tiles of _BM (k k C) rows x 64 or 128 of F, K stepped by _BK pixels.
-# wgmma (bf16, csrc/conv3s2_tc.cu): the 2 blocks an SM holds at once (97 KB
-# of shared memory each), one wave; a block owns two slices of _TC_SLICE
-# channels of one tap x _TC_BN of F, and sums its chunk _TC_BK pixels a
-# stage.
-_WGRAD_BLOCKS = 528
-_BM, _BK = 128, 8
-_TC_WGRAD_BLOCKS = 264
-_TC_SLICE, _TC_BN, _TC_BK = 64, 128, 64
+# wgrad blocks in all. Both designs give a block two slices of _SLICE
+# channels of one tap x _BN of F. wgmma (bf16, csrc/conv3s2_tc.cu): the 2
+# blocks an SM holds at once (97 KB of shared memory each), one wave, each
+# summing its chunk _TC_BK pixels a stage. tf32x3 (fp32,
+# csrc/conv3s2_tf32.cu): one block an SM (209 KB), two waves at most,
+# _TF_BK pixels a stage.
+_WGRAD_BLOCKS = 264
+_SLICE, _BN = 64, 128
+_TC_BK, _TF_BK = 64, 32
 MAX_K = 7
 
 
@@ -134,31 +140,31 @@ def _dgrad(name, dy, w, size, stride: int, pad: int) -> torch.Tensor:
     _channels(name, cin, cout, k)
     t = storage_type(name, "dy", dy)
     cuda_operand(name, "w", w, dtypes=(t,))
-    wt = w.permute(0, 1, 3, 2).contiguous()  # (k, k, Cout, Cin)
+    if t == torch.bfloat16:  # wgmma reads wt (k, k, Cout, Cin), no scratch
+        wk, ws = w.permute(0, 1, 3, 2).contiguous(), None
+    else:  # tf32x3: w as it lies, its hi/lo planes (2, k k Cin, Cout_p)
+        wk = w
+        ws = torch.empty((2, k * k * cin, -(-cout // 32) * 32),
+                         device=dy.device, dtype=torch.float32)
     dx = torch.empty((nb, h, wd, cin), device=dy.device, dtype=t)
     with torch.cuda.device(dy.device):
-        _build.launch("uig_conv_dgrad", dy, wt, dx, nb, h, wd, cin, cout, k,
-                      stride, pad, t == torch.bfloat16)
+        _build.launch("uig_conv_dgrad", dy, wk, ws, dx, nb, h, wd, cin, cout,
+                      k, stride, pad, t == torch.bfloat16)
     return dx
 
 
 def _wgrad_chunks(k: int, cin: int, cout: int, pixels: int,
                   bf16: bool) -> tuple[int, int]:
     """(chunks, pixels per chunk) of the weight gradient's ordered pixel
-    chunks: chunk z sums pixels [z per, min((z + 1) per, pixels)). About
-    _WGRAD_BLOCKS blocks in all on the FMA core (fp32), _TC_WGRAD_BLOCKS on
-    wgmma (bf16), whose chunks are whole stages of _TC_BK pixels."""
-    if bf16:
-        slices = k * k * -(-cin // _TC_SLICE)
-        tiles = -(-slices // 2) * -(-cout // _TC_BN)
-        stages = -(-pixels // _TC_BK)
-        chunks = max(1, min(stages, -(-_TC_WGRAD_BLOCKS // tiles)))
-        per = _TC_BK * -(-stages // chunks)
-    else:
-        tiles = -(-(k * k * cin) // _BM) * -(-cout // (64 if cout <= 64
-                                                       else 128))
-        chunks = max(1, min(-(-pixels // _BK), -(-_WGRAD_BLOCKS // tiles)))
-        per = -(-pixels // chunks)
+    chunks: chunk z sums pixels [z per, min((z + 1) per, pixels)), each
+    chunk but the last whole stages of the design's pixels. About
+    _WGRAD_BLOCKS blocks in all on wgmma (bf16), at most _WGRAD_BLOCKS on
+    tf32x3 (fp32)."""
+    tiles = -(-(k * k * -(-cin // _SLICE)) // 2) * -(-cout // _BN)
+    bk, blocks = ((_TC_BK, -(-_WGRAD_BLOCKS // tiles)) if bf16
+                  else (_TF_BK, _WGRAD_BLOCKS // tiles))
+    stages = -(-pixels // bk)
+    per = bk * -(-stages // max(1, min(stages, blocks)))
     return -(-pixels // per), per
 
 

@@ -15,7 +15,16 @@ Tolerances, each relative to the largest value of the JAX output compared:
     (2^-8), and to JAX's within 8 ulps (2^-5).
 
 ``PadConv`` routes to ``conv3s2`` exactly the 3x3 stride-2 pad-1 zero-padded
-convs on even planes with channel counts that are multiples of 4."""
+convs on even planes with channel counts that are multiples of 4.
+
+The fp32 CUDA dgrad and wgrad multiply in the three-term TF32 split on the
+tensor cores; ``test_tf32x3_grads_match_jax`` emulates their arithmetic in
+torch (the K stages, each stage's products in the split, partial sums of
+the kernels' depth added in fp32, the weight gradient's pixel chunks summed
+in order) and holds it to JAX's VJP within the fp32 tolerance, on the
+results ``test_conv3s2_matches_jax`` computes (one cached JAX call a case)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,13 +32,20 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_attention import _mm3
 from uig.kernels.conv_pallas import conv3s2_s2d, conv_core as jax_conv_core
 from uig_torch.kernels import (conv3s2, conv3s2_act, conv3s2_dgrad,
                                conv3s2_wgrad, conv_core)
+from uig_torch.kernels.conv_s2 import _TF_BK, _wgrad_chunks
 from uig_torch.models.layers import PadConv
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2 * 2.0 ** -8)}
+# K stages a partial sum in csrc/conv3s2_tf32.cu: 32 channels of F a stage
+# in the dgrad (UIG_K4S_DGRAD_DEPTH), 32 pixels in the wgrad
+# (UIG_K4S_WGRAD_DEPTH)
+K4S_DGRAD_DEPTH = 1
+K4S_WGRAD_DEPTH = 2
 
 
 def _close(got: torch.Tensor, want, rel: float, what: str) -> None:
@@ -47,17 +63,25 @@ def _arrays(seed, *shapes, scale=1.0):
             for s in shapes]
 
 
-@pytest.mark.parametrize("dtype,shape,cout", [
-    ("float32", (2, 16, 16, 8), 16), ("bfloat16", (2, 16, 16, 8), 16),
-    ("float32", (1, 12, 20, 4), 8)])
-def test_conv3s2_matches_jax(dtype, shape, cout):
-    jdt, tdt, rel = DTYPES[dtype]
+@functools.lru_cache(maxsize=None)
+def _jax_conv3s2(dtype, shape, cout):
+    """The inputs of a ``test_conv3s2_matches_jax`` case (numpy, fp32) and
+    JAX's output and VJP (dx, dw, db) on them, computed once a case."""
+    jdt = DTYPES[dtype][0]
     x, w, b, dy = _arrays(4, shape, (3, 3, shape[3], cout), (cout,),
                           (shape[0], shape[1] // 2, shape[2] // 2, cout))
     w, b = w * 0.1, b * 0.1
     jx, jw, jb, jdy = (jnp.asarray(a, jdt) for a in (x, w, b, dy))
     want, vjp = jax.vjp(conv3s2_s2d, jx, jw, jb)
-    wdx, wdw, wdb = vjp(jdy)
+    return (x, w, b, dy), (want, *vjp(jdy))
+
+
+@pytest.mark.parametrize("dtype,shape,cout", [
+    ("float32", (2, 16, 16, 8), 16), ("bfloat16", (2, 16, 16, 8), 16),
+    ("float32", (1, 12, 20, 4), 8)])
+def test_conv3s2_matches_jax(dtype, shape, cout):
+    _, tdt, rel = DTYPES[dtype]
+    (x, w, b, dy), (want, wdx, wdw, wdb) = _jax_conv3s2(dtype, shape, cout)
     tx, tw, tb, tdy = (torch.from_numpy(a).to(tdt) for a in (x, w, b, dy))
     got = conv3s2(tx, tw, tb)
     assert got.dtype == tdt
@@ -74,6 +98,76 @@ def test_conv3s2_matches_jax(dtype, shape, cout):
     _close(gb, exact, 2.0 ** -8 if dtype == "bfloat16" else rel, "db")
     _close(gb, wdb, 2.0 ** -5 if dtype == "bfloat16" else rel,
            "autograd db against JAX")
+
+
+def _partials(stages, depth):
+    """The sum of ``stages`` (pairs of matrices) as the kernels form it:
+    each stage's product in the three-term split, ``depth`` stages a
+    partial, the partials added in order in fp32."""
+    total = 0.0
+    for k, (a, b) in enumerate(stages):
+        acc = _mm3(a, b) if k % depth == 0 else acc + _mm3(a, b)
+        if k % depth == depth - 1 or k == len(stages) - 1:
+            total = total + acc
+    return total
+
+
+def _dgrad_tf32x3(dy, w):
+    """conv3s2's dx as csrc/conv3s2_tf32.cu forms it: by stride-parity class
+    (i mod 2, j mod 2) of dx, K = the class's taps (rows, then columns,
+    ascending) x 32-channel chunks of F; A the dy pixels at the tap's
+    offset, zero outside."""
+    nb, ho, wo, f = dy.shape
+    c = w.shape[2]
+    dyp = torch.nn.functional.pad(dy, (0, 0, 1, 1, 1, 1))
+    dx = torch.zeros(nb, 2 * ho, 2 * wo, c)
+    for pi in range(2):
+        for pj in range(2):
+            stages = []
+            for di in range(3):
+                for dj in range(3):
+                    if (pi + 1 - di) % 2 or (pj + 1 - dj) % 2:
+                        continue
+                    oy, ox = (pi + 1 - di) // 2 + 1, (pj + 1 - dj) // 2 + 1
+                    a = dyp[:, oy:oy + ho, ox:ox + wo].reshape(-1, f)
+                    stages += [(a[:, o:o + 32], w[di, dj, :, o:o + 32].T)
+                               for o in range(0, f, 32)]
+            dx[:, pi::2, pj::2] = _partials(stages, K4S_DGRAD_DEPTH).reshape(
+                nb, ho, wo, c)
+    return dx
+
+
+def _wgrad_tf32x3(x, dy):
+    """conv3s2's dw as csrc/conv3s2_tf32.cu forms it: for each tap, K = the
+    batch's pixels in ``_wgrad_chunks``'s ordered chunks of 32-pixel
+    stages, each chunk's partial sum, and the chunks added in order (the
+    reduce pass)."""
+    nb, ho, wo, f = dy.shape
+    c = x.shape[3]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    d = dy.reshape(-1, f)
+    chunks, per = _wgrad_chunks(3, c, f, d.shape[0], False)
+    dw = torch.zeros(3, 3, c, f)
+    for di in range(3):
+        for dj in range(3):
+            a = xp[:, di:di + 2 * ho:2, dj:dj + 2 * wo:2].reshape(-1, c)
+            total = 0.0
+            for z in range(chunks):
+                span = range(z * per, min((z + 1) * per, d.shape[0]), _TF_BK)
+                total = total + _partials(
+                    [(a[p:p + _TF_BK].T, d[p:p + _TF_BK]) for p in span],
+                    K4S_WGRAD_DEPTH)
+            dw[di, dj] = total
+    return dw
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 16, 16, 8), 16),
+                                        ((1, 12, 20, 4), 8)])
+def test_tf32x3_grads_match_jax(shape, cout):
+    (x, w, _, dy), (_, wdx, wdw, _) = _jax_conv3s2("float32", shape, cout)
+    tx, tw, tdy = map(torch.from_numpy, (x, w, dy))
+    _close(_dgrad_tf32x3(tdy, tw), wdx, 1e-5, "dx")
+    _close(_wgrad_tf32x3(tx, tdy), wdw, 1e-5, "dw")
 
 
 @pytest.mark.parametrize("dtype,kh,cin,cout,h", [
@@ -153,7 +247,7 @@ def test_padconv_downsample_runs_conv3s2(monkeypatch):
                                    rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["fma", "wgmma"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["tf32x3", "wgmma"])
 @pytest.mark.parametrize("k,cin,cout,pixels", [
     (3, 64, 128, 16 * 128 * 128), (3, 128, 256, 16 * 64 * 64),
     (3, 64, 128, 2 * 128 * 128), (3, 8, 12, 2 * 9 * 15), (3, 4, 4, 4),
@@ -162,14 +256,14 @@ def test_wgrad_chunks_cover_every_pixel_once_in_order(bf16, k, cin, cout,
                                                       pixels):
     """The weight gradient's pixel chunks, as ``_wgrad`` hands them to the
     kernel: chunk z sums [z per, min((z + 1) per, pixels)); together they
-    are 0 .. pixels - 1, each once and in order, none empty; on wgmma each
-    chunk but the last is whole stages of 64 pixels."""
-    from uig_torch.kernels.conv_s2 import _TC_BK, _wgrad_chunks
+    are 0 .. pixels - 1, each once and in order, none empty; each chunk
+    but the last is whole stages: 64 pixels on wgmma (bf16), 32 on tf32x3
+    (fp32)."""
+    from uig_torch.kernels.conv_s2 import _TC_BK
 
     chunks, per = _wgrad_chunks(k, cin, cout, pixels, bf16)
     spans = [range(z * per, min((z + 1) * per, pixels))
              for z in range(chunks)]
     assert all(len(s) for s in spans)
     assert [p for s in spans for p in s] == list(range(pixels))
-    if bf16:
-        assert per % _TC_BK == 0
+    assert per % (_TC_BK if bf16 else _TF_BK) == 0

@@ -22,7 +22,9 @@ is right.
 Attention: the output and dq/dk/dv within 1e-5 of their largest value (fp32
 softmax sums over at most 300 keys in another order), the log-sum-exp
 within 1e-5. K4s (the 3x3 stride-2 conv and the VALID conv): within 1e-5 of
-the largest value (sums over at most 9 * 36 terms, or the batch's pixels).
+the largest value (sums over at most 9 * 36 terms, or the batch's pixels);
+its fp32 dgrad and wgrad, in the three-term TF32 split, are held to the
+same 1e-5 at the path's widths and at ragged VALID shapes.
 
 bf16: every kernel against its plain version in bf16 (both sum in fp32
 from the same bf16 values and round once, in another order) within 1 bf16
@@ -30,6 +32,8 @@ ulp of the plain output's largest magnitude, 2^(floor(log2 M) - 7); the
 fused conv3+IN within 2, since it rounds twice in series; the norm
 backward's dgamma/dbeta (fp32) within 1e-4 relative.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -387,6 +391,63 @@ def test_conv3s2_kernels(dev, shape, cout):
     _rel_close(dw, conv3s2_wgrad_reference(x, dy), rel=1e-5)
     assert torch.equal(dw, conv3s2_wgrad(x, dy))
     assert torch.equal(dx, conv3s2_dgrad(dy, w))
+
+
+@pytest.mark.parametrize("nb,h,cin,cout", [(2, 256, 64, 128),
+                                            (2, 128, 128, 256)],
+                         ids=["d128", "d256"])
+def test_conv3s2_fp32_grads_at_path_widths(dev, nb, h, cin, cout):
+    """The fp32 dgrad and wgrad (tf32x3) at the downsamples' widths: one
+    parity class per tap count, N = C of 64 (m64n64) and 128, the wgrad's
+    chunks of 32-pixel stages; repeats are bit-equal."""
+    x = _randn(dev, nb, h, h, cin)
+    w = _randn(dev, 3, 3, cin, cout, scale=0.05, seed=1)
+    dy = _randn(dev, nb, h // 2, h // 2, cout, seed=2)
+    dx, dw = conv3s2_dgrad(dy, w), conv3s2_wgrad(x, dy)
+    _rel_close(dx, conv3s2_dgrad_reference(dy, w), rel=1e-5)
+    _rel_close(dw, conv3s2_wgrad_reference(x, dy), rel=1e-5)
+    assert torch.equal(dx, conv3s2_dgrad(dy, w))
+    assert torch.equal(dw, conv3s2_wgrad(x, dy))
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 132), (8, 68), (12, 36), (36, 12),
+                                      (68, 8), (132, 4)])
+def test_conv_core_fp32_grads_ragged(dev, cin, cout):
+    """The fp32 dgrad and wgrad of the 5x5 VALID conv at channel counts
+    that fill no 32-channel chunk or 64/128-wide tile: zero-filled chunks,
+    the B planes' rows past C, the masked edges; repeats are bit-equal."""
+    from uig_torch.kernels import conv_s2
+
+    xp = _randn(dev, 2, 13, 11, cin)
+    w = _randn(dev, 5, 5, cin, cout, scale=0.05, seed=1)
+    dy = _randn(dev, 2, 9, 7, cout, seed=2)
+    dx = conv_s2._dgrad("conv_core", dy, w, (13, 11), 1, 0)
+    dw = conv_s2._wgrad("conv_core", xp, dy, 5, 1, 0)
+    _rel_close(dx, conv_s2._dgrad_reference(dy, w, (13, 11), 1, 0), rel=1e-5)
+    _rel_close(dw, conv_s2._wgrad_reference(xp, dy, 5, 1, 0), rel=1e-5)
+    assert torch.equal(dx, conv_s2._dgrad("conv_core", dy, w, (13, 11), 1, 0))
+    assert torch.equal(dw, conv_s2._wgrad("conv_core", xp, dy, 5, 1, 0))
+
+
+def test_conv3s2_fp32_backward_launches_the_split_kernels(dev):
+    """The fp32 backward of the downsample runs the tf32x3 functions and
+    none of the FMA dgrad and wgrad that they replaced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _randn(dev, 2, 16, 16, 8)
+    w = _randn(dev, 3, 3, 8, 16, scale=0.1, seed=1)
+    b = _randn(dev, 16, scale=0.1, seed=2)
+    ct = _randn(dev, 2, 8, 8, 16, seed=3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _grads(conv3s2_act, (x, w, b), ct)
+        torch.cuda.synchronize()
+    # "void (anonymous namespace)::f<64>(...)" -> f
+    fns = {m.group(1) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           for m in [re.search(r"(\w+)[<(]", e.name)] if m}
+    assert {"conv_wsplit_kernel", "conv_dgrad_tf32_kernel",
+            "conv_wgrad_tf32_kernel", "conv_wgrad_reduce_kernel"} <= fns, fns
+    assert not fns & {"conv_dgrad_kernel", "conv_wgrad_kernel"}, fns
 
 
 def test_conv3s2_function(dev):

@@ -97,10 +97,12 @@ def test_chip_smoke_counts_launches_by_function():
 @pytest.mark.parametrize("ran", ["fma", "wgmma"])
 def test_chip_smoke_reads_the_design_that_ran(ran):
     """The CycleGAN step: each kernel of DESIGNS in one design, no
-    attention. "fma": the fp32 step (the conv kernels on the FMA cores but
-    K3, in the TF32 split); "wgmma": the bf16 step. The norm backward runs
-    its two-pass design in both; a step that launches another design's
-    function, or one design's function too few times, fails."""
+    attention. "fma": the fp32 step (K3 and K4s's dgrad and wgrad in the
+    TF32 split, "tf32x3"; K4s's forward and K4d on the FMA cores);
+    "wgmma": the bf16 step. The norm backward runs its two-pass design in
+    both; a step that launches another design's function (the removed FMA
+    dgrad and wgrad of K4s among them), or one design's function too few
+    times, fails."""
     cs = _chip_smoke()
     assert set(cs.DESIGNS) == {"conv3_in_act", "conv7_dgrad", "conv3s2",
                                "conv3s2_dgrad", "conv3s2_wgrad",
@@ -110,6 +112,8 @@ def test_chip_smoke_reads_the_design_that_ran(ran):
     assert set(want) == {name for name in cs.DESIGNS if cs.PER_STEP[name]}
     assert want["conv3_in_act"] == ("tf32x3" if ran == "fma" else "wgmma")
     assert want["conv3s2"] == ran
+    assert want["conv3s2_dgrad"] == want["conv3s2_wgrad"] == (
+        "tf32x3" if ran == "fma" else "wgmma")
     calls = {fn: cs.PER_STEP[name] for name, d in want.items()
              for fn in cs.design_functions(name, d)}
     assert cs.designs_run(calls, "train", expect=want) == want

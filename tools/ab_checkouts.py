@@ -2,18 +2,17 @@
 unpacked with ``git archive``) on one card, each checkout in its own
 process with its own build:
 
-- outputs at the training step's shapes that must be bit-identical: K3 in
-  bf16, K4s's forward, dgrad and wgrad in bf16 and its dgrad in fp32, K4d
-  (the 7x7 head's dgrad, fp32, at both step batches), K2f in both dtypes,
-  K1 in both dtypes, and the attention kernels K5f and K5b at the VQGAN
-  shapes; K3 in fp32, whose design may differ between the checkouts, is
-  reported as its largest difference and not held;
-- the SASS of the bf16 wgmma kernels of ``conv3_in_tc.cu`` and
-  ``conv3s2_tc.cu`` and of every kernel of ``attention.cu``, compiled from
-  each checkout with the same nvcc flags and compared instruction by
-  instruction (the kernels' anonymous-namespace prefix left out of their
-  names): those of ``conv3s2_tc.cu`` and ``attention.cu`` must match;
-  ``conv3_in_tc.cu``'s are reported, its outputs held bit-identical above;
+- outputs at the training step's shapes that must be bit-identical: every
+  CycleGAN kernel in both dtypes (K1, K2f, K2b, K3, K4f, K4d, K4w and K4s's
+  forward, dgrad and wgrad) and the attention kernels K5f and K5b at the
+  VQGAN shapes, except the outputs in ``REPORTED``: K4s's fp32 dgrad and
+  wgrad, whose design differs from the parent's (the three-term TF32 split
+  against FMAs), are reported as their largest difference and not held;
+- the SASS of the bf16 wgmma kernels of ``conv3_in_tc.cu``,
+  ``conv3s2_tc.cu`` and ``conv7_bwd_tc.cu`` and of every kernel of
+  ``attention.cu``, compiled from each checkout with the same nvcc flags
+  and compared instruction by instruction (the kernels' anonymous-namespace
+  prefix left out of their names): all must match;
 - the ``cyclegan256_dp`` training step, timed in fp32 and in bf16, and the
   ``vqgan512`` step (fp32, union batch 8, D on from the first step), in
   turns (this, other, other, this).
@@ -42,11 +41,13 @@ OVERRIDES = {"float32": ["model.compute_dtype=float32", "loss.lambda_lpips=0"],
 VQ_OVERRIDES = OVERRIDES["float32"] + ["loss.vq_disc_start=0"]
 VQ_BATCH, VQ_TIMED = 4, 5  # per domain: the step trains on a union of 8
 # outputs reported as their largest difference, not held bit-identical
-REPORTED = ("conv3_in_act float32 relu=True", "conv3_in_act float32 relu=False")
+REPORTED = tuple(f"conv3s2_{g} float32 {h} {cin}->{cout}" for g in
+                 ("dgrad", "wgrad") for h, cin, cout in ((256, 64, 128),
+                                                         (128, 128, 256)))
 # (source, the kernels compared: a substring of the name, whether their
 # SASS must match)
-SASS = (("conv3_in_tc.cu", "wgmma", False), ("conv3s2_tc.cu", "wgmma", True),
-        ("attention.cu", "", True))
+SASS = (("conv3_in_tc.cu", "wgmma", True), ("conv3s2_tc.cu", "wgmma", True),
+        ("conv7_bwd_tc.cu", "wgmma", True), ("attention.cu", "", True))
 
 
 def worker(out: Path) -> None:
@@ -58,8 +59,10 @@ def worker(out: Path) -> None:
     from uig_torch.config import apply_overrides, get_preset
     from uig_torch.kernels import (attention_bwd, attention_fwd,
                                    augment_batch, conv3_in_act, conv3s2,
-                                   conv3s2_dgrad, conv3s2_wgrad, conv7_dgrad,
-                                   instance_norm)
+                                   conv3s2_dgrad, conv3s2_wgrad, conv7,
+                                   conv7_dgrad, conv7_wgrad, instance_norm,
+                                   instance_norm_bwd)
+    from uig_torch.kernels.norm import _instance_norm_fwd
     from uig_torch.serving import exact_fp32
     from uig_torch.train import CycleGANTrainer, VQGANTrainer
 
@@ -75,27 +78,32 @@ def worker(out: Path) -> None:
         x, w = randn(BATCH, 64, 64, 256), randn(3, 3, 256, 256, scale=0.02)
         b, g, be = randn(256, scale=0.02), randn(256, scale=0.1) + 1, \
             randn(256, scale=0.1)
+        dyn = randn(BATCH, 64, 64, 256)
         for dt in (torch.float32, torch.bfloat16):
+            t = str(dt)[6:]
             for relu in (True, False):
-                outs[f"conv3_in_act {str(dt)[6:]} relu={relu}"] = \
+                outs[f"conv3_in_act {t} relu={relu}"] = \
                     conv3_in_act(x.to(dt), w.to(dt), b, g, be,
                                  relu=relu).cpu()
-            outs[f"instance_norm {str(dt)[6:]}"] = instance_norm(
+            outs[f"instance_norm {t}"] = instance_norm(
                 x.to(dt), g, be, relu=True).cpu()
+            stats = _instance_norm_fwd(x.to(dt), g, be, 1e-5, True)[1]
+            for name, v in zip(("dx", "dgamma", "dbeta"), instance_norm_bwd(
+                    x.to(dt), g, be, dyn.to(dt), stats, relu=True)):
+                outs[f"instance_norm_bwd {name} {t}"] = v.cpu()
         for h, cin, cout in ((256, 64, 128), (128, 128, 256)):
             xs = randn(BATCH, h, h, cin)
             dy = randn(BATCH, h // 2, h // 2, cout)
             wd = randn(3, 3, cin, cout, scale=0.05)
             bd = randn(cout, scale=0.05)
-            outs[f"conv3s2_dgrad {h} {cin}->{cout}"] = conv3s2_dgrad(dy,
-                                                                     wd).cpu()
-            bf = torch.bfloat16
-            outs[f"conv3s2 bf16 {h} {cin}->{cout}"] = conv3s2(
-                xs.to(bf), wd.to(bf), bd.to(bf)).cpu()
-            outs[f"conv3s2_dgrad bf16 {h} {cin}->{cout}"] = conv3s2_dgrad(
-                dy.to(bf), wd.to(bf)).cpu()
-            outs[f"conv3s2_wgrad bf16 {h} {cin}->{cout}"] = conv3s2_wgrad(
-                xs.to(bf), dy.to(bf)).cpu()
+            for dt in (torch.float32, torch.bfloat16):
+                key = f"{str(dt)[6:]} {h} {cin}->{cout}"
+                outs[f"conv3s2 {key}"] = conv3s2(
+                    xs.to(dt), wd.to(dt), bd.to(dt)).cpu()
+                outs[f"conv3s2_dgrad {key}"] = conv3s2_dgrad(
+                    dy.to(dt), wd.to(dt)).cpu()
+                outs[f"conv3s2_wgrad {key}"] = conv3s2_wgrad(
+                    xs.to(dt), dy.to(dt)).cpu()
         for nb in (4, 8):
             q, k, v, do = (randn(nb, 1024, 512) for _ in range(4))
             o, lse = attention_fwd(q, k, v)
@@ -105,10 +113,18 @@ def worker(out: Path) -> None:
                                    attention_bwd(q, k, v, o, lse, do)):
                     outs[f"attention_bwd {name} {nb}"] = t.cpu()
             del q, k, v, do, o, lse
-        w7 = randn(7, 7, 64, 3, scale=0.02)
+        w7, b7 = randn(7, 7, 64, 3, scale=0.02), randn(3, scale=0.02)
         for nb in (2 * BATCH, BATCH):
-            outs[f"conv7_dgrad {nb} reflect"] = conv7_dgrad(
-                randn(nb, 256, 256, 3), w7, "reflect").cpu()
+            x7, dy7 = randn(nb, 256, 256, 64), randn(nb, 256, 256, 3)
+            for dt in (torch.float32, torch.bfloat16):
+                key = f"{str(dt)[6:]} {nb} reflect"
+                outs[f"conv7 {key}"] = conv7(x7.to(dt), w7.to(dt), b7.to(dt),
+                                             "reflect").cpu()
+                outs[f"conv7_dgrad {key}"] = conv7_dgrad(
+                    dy7.to(dt), w7.to(dt), "reflect").cpu()
+                outs[f"conv7_wgrad {key}"] = conv7_wgrad(
+                    x7.to(dt), dy7.to(dt), "reflect").cpu()
+            del x7, dy7
     u8 = torch.from_numpy(rng.integers(0, 256, (BATCH, 286, 286, 3),
                                        dtype=np.uint8)).to(dev)
     oy, ox = (torch.from_numpy(rng.integers(0, 31, BATCH)) for _ in range(2))
