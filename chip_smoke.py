@@ -16,8 +16,11 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    function (a yardstick the port never calls), and the least time the card
    could take (bound). Also the library convs of the fused conv3+IN
    backward, timed with their bound.
-   Every CycleGAN kernel runs twice: in fp32 and in bf16 (tolerances in
-   bf16 ulps of the output's largest magnitude, ``TOL_BF16``). The cases
+   Every kernel runs twice: in fp32 and in bf16 (tolerances in bf16 ulps
+   of the output's largest magnitude, ``TOL_BF16``; the bf16 attention
+   kernels are also held bit-equal to the fp32 kernels on the widened
+   inputs, rounded once, and those within the fp32 gate of the plain
+   version, ``_attention_bf16_check``). The cases
    of design "tf32x3" (fp32 on the tensor cores in the three-term TF32
    split: the attention kernels, the fused conv3+IN and K4s's input and
    weight gradients) also report the
@@ -72,6 +75,10 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    ``VQ_TRAIN_STEPS`` steps on a fixed batch with finite metrics and a
    falling ``rec``; step
    time, img/s, peak memory and one profiled step.
+7b. vqgan_train_bf16: the same for ``vqgan512`` as published, bf16 compute,
+   with only ``loss.vq_disc_start=0``; its batch-1 check takes the step
+   four ways as 3b's does (``compare_card_cpu_bf16``);
+   ``VQ_BF16_TRAIN_STEPS`` steps.
 
 Then one ``kernels`` line (every kernel with its launches on its own path:
 one CycleGAN training step and translate apply, or one VQGAN training step
@@ -82,8 +89,8 @@ and bound summed over that step; the top level is the fp32 step's, and
 tensor cores, "tf32x3" (the fp32 conv3+IN and K4s dgrad/wgrad), or
 "fma", read from the
 functions that the dtype's profiled training step launched and held to
-``STEP_DESIGNS``; "tf32x3" for the attention kernels, read from the VQGAN
-step's profile), the nvidia-smi line, and, last,
+``STEP_DESIGNS``; "tf32x3" for the attention kernels, read from each
+dtype's VQGAN step's profile), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -335,16 +342,21 @@ PER_STEP = {"augment_batch": 2, "instance_norm": 32,
             "attention_bwd": 0}
 DTYPE_NAMES = ("float32", "bfloat16")
 
-# Timed repeats, cut so that the whole run, with the bf16 phase, stays near
-# the length of the run before it (~200 s of command time on an H100): the
-# kernel cases' CUDA-event repeats, the fp32 CycleGAN and the VQGAN steps.
-# The bf16 CycleGAN phase keeps 20 steps.
+# Timed repeats, cut so that the whole run stays well inside its time
+# limit (~211 s of command time on an H100 before the bf16 VQGAN phase):
+# the kernel cases' CUDA-event repeats, the fp32 CycleGAN and the fp32
+# VQGAN steps (shrink VQ_TRAIN_STEPS first if the run grows). The bf16
+# CycleGAN phase keeps 20 steps, the bf16 VQGAN phase VQ_BF16_TRAIN_STEPS.
 KERNEL_ITERS = 10
 FP32_TRAIN_STEPS = 10
 VQ_TRAIN_STEPS = 6
+VQ_BF16_TRAIN_STEPS = 10
 
 VQ_PRESET = "vqgan512"
 VQ_OVERRIDES = TRAIN_OVERRIDES + ["loss.vq_disc_start=0"]
+# vqgan512 as published (bf16 compute, no LPIPS term), with D and the
+# adaptive weight on from the first step
+VQ_OVERRIDES_BF16 = ["loss.vq_disc_start=0"]
 VQ_BATCH = 4  # per domain: the step trains on the union batch of 8
 # launches in one reconstruct apply of vqgan512: 4 attention blocks (2 in
 # the encoder, 2 in the decoder), each one K5f.
@@ -401,16 +413,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str = "float32",
+def bound_ms(nbytes: float, flops, dtype: str = "float32",
              design: str = "") -> tuple[float, str]:
     """The least time for the work, in ms, and what bounds it. ``flops``
     counts the function's own products; design "tf32x3" runs each as three
-    TF32 products at the TF32 rate."""
-    if design == "tf32x3":
-        flops, peak = 3.0 * flops, PEAK_TF32_FLOPS
+    TF32 products at the TF32 rate. In bf16 the attention kernels (design
+    "tf32x3") give ``flops`` as (products of two bf16 operands, products of
+    an fp32 and a bf16 operand): the first count at the bf16 rate, the
+    second as two TF32 terms each at the TF32 rate."""
+    if design == "tf32x3" and dtype == "bfloat16":
+        pair, mixed = flops
+        tf = pair / PEAK_BF16_FLOPS + 2.0 * mixed / PEAK_TF32_FLOPS
+    elif design == "tf32x3":
+        tf = 3.0 * flops / PEAK_TF32_FLOPS
     else:
-        peak = PEAK_FP32_FLOPS if dtype == "float32" else PEAK_BF16_FLOPS
-    tb, tf = nbytes / PEAK_BYTES, flops / peak
+        tf = flops / (PEAK_FP32_FLOPS if dtype == "float32"
+                      else PEAK_BF16_FLOPS)
+    tb = nbytes / PEAK_BYTES
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -507,6 +526,36 @@ def _multi_rel_check(outs, refs):
     return max(errs), max(rels), {}
 
 
+def _attention_bf16_check(name, widened_kernel, widened_plain):
+    """bf16 attention (K5f, K5b): each bf16 output within TOL_BF16 ulps of
+    the plain version's largest magnitude; the fp32 kernel on the widened
+    inputs within the fp32 gate (TOL, of each output's largest value) of
+    the plain version there; and each output of the bf16 kernel bit-equal
+    to that fp32 kernel's, rounded once (the forward's fp32 o unrounded): a
+    bf16 operand is exact in TF32, so the bf16 design drops only products
+    with exact zeros. ``checked`` is the larger error as a fraction of its
+    limit, so that 1 is the limit of each."""
+    import torch
+
+    def check(out, ref):
+        outs, refs = _outputs(out), _outputs(ref)
+        wk, wp = _outputs(widened_kernel()), _outputs(widened_plain())
+        n = len(wk)
+        err = max(max_err(o, r) for o, r in zip(outs[:n], refs[:n]))
+        ulps = max(max_err(o, r) / bf16_ulp(r.abs().max().item())
+                   for o, r in zip(outs[:n], refs[:n]))
+        rel32 = max(max_err(a, b) / max(b.abs().max().item(), 1e-30)
+                    for a, b in zip(wk, wp))
+        pairs = list(zip(outs[:n], wk)) + list(zip(outs[n:], wk))
+        if not all(torch.equal(o, w.to(o.dtype)) for o, w in pairs):
+            raise AssertionError(f"{name} bfloat16: not bit-equal to the "
+                                 f"fp32 kernel on the widened inputs")
+        return err, max(ulps / TOL_BF16[name], rel32 / TOL[name]), {
+            "bf16_ulps": ulps, "fp32_kernel_widened_rel_err": rel32,
+            "bit_equal_fp32_kernel_widened": True}
+    return check
+
+
 def _case(name, label, step, apply, fn, plain, lib, nbytes, flops,
           check=_abs_check, path="cyclegan", dtype="float32", tol=None,
           design="", fp64=None):
@@ -597,8 +646,7 @@ def kernel_cases(dev, dtype: str = "float32"):
     """Yield one case per kernel and shape of the training step and the
     translate apply of its path (CycleGAN, or VQGAN for attention) in
     ``dtype``: calls per training step and per translate apply, the kernel,
-    its plain version, a library call, bytes and flops. The attention
-    kernels run in fp32 only."""
+    its plain version, a library call, bytes and flops."""
     import torch
     import torch.nn.functional as F
 
@@ -846,38 +894,70 @@ def kernel_cases(dev, dtype: str = "float32"):
                fp64=(lambda: conv_wgrad_fp64(xp, dy, 3, 1, 0))
                if f32 else None)
     del xp, dy, xn, dyn
-    if dtype != "float32":
-        return
 
-    # K5f at the reconstruct apply's batch 4 and the VQGAN step's union
-    # batch 8, K5b at the step's: (B, 1024, 512), the 32² latent grid of a
-    # 512² image at 512 channels
+    # K5f at the reconstruct apply's batch 4 (where _key_splits takes two
+    # key ranges and the combine kernel) and the VQGAN step's union batch
+    # 8, K5b at the step's: (B, 1024, 512), the 32² latent grid of a 512²
+    # image at 512 channels. In bf16 the fp32 kernel on the widened inputs
+    # and the plain version there are the check's yardsticks; the batch-4
+    # forward is on no bf16 path (the reconstruct apply runs fp32).
     n, d = 1024, 512
-    for nb, per_step, per_apply in ((VQ_BATCH, 0, 4), (2 * VQ_BATCH, 4, 0)):
+    for nb, per_step, per_apply in ((VQ_BATCH, 0, 4 if f32 else 0),
+                                    (2 * VQ_BATCH, 4, 0)):
         q, k, v, do = (randn(nb, n, d) for _ in range(4))
         label = f"({nb},{n},{d})"
-        yield case("attention_fwd", label, per_step, per_apply,
-                   lambda q=q, k=k, v=v: attention_fwd(q, k, v)[0],
-                   lambda q=q, k=k, v=v: attention_reference(q, k, v),
-                   lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                       q, k, v),
-                   4.0 * (4 * q.numel() + nb * n), 4.0 * nb * n * n * d,
-                   check=_rel_check, path="vqgan", design="tf32x3",
-                   fp64=lambda q=q, k=k, v=v: attention_fp64(q, k, v))
+        w32 = [t.float() for t in (q, k, v, do)]
+        if f32:
+            yield case("attention_fwd", label, per_step, per_apply,
+                       lambda q=q, k=k, v=v: attention_fwd(q, k, v)[0],
+                       lambda q=q, k=k, v=v: attention_reference(q, k, v),
+                       lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                           q, k, v),
+                       4.0 * (4 * q.numel() + nb * n), 4.0 * nb * n * n * d,
+                       check=_rel_check, path="vqgan", design="tf32x3",
+                       fp64=lambda q=q, k=k, v=v: attention_fp64(q, k, v))
+        else:  # (o, o32): the output and the backward's fp32 residual
+            yield case("attention_fwd", label, per_step, per_apply,
+                       lambda q=q, k=k, v=v: attention_fwd(q, k, v)[::2],
+                       lambda w=w32: (lambda o: (o.to(torch.bfloat16), o))(
+                           attention_reference(*w[:3])),
+                       lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                           q, k, v),
+                       2.0 * 4 * q.numel() + 4.0 * (q.numel() + nb * n),
+                       (2.0 * nb * n * n * d, 2.0 * nb * n * n * d),
+                       check=_attention_bf16_check(
+                           "attention_fwd",
+                           lambda w=w32: attention_fwd(*w[:3])[0],
+                           lambda w=w32: attention_reference(*w[:3])),
+                       path="vqgan", design="tf32x3")
         if not per_step:
             continue
-        o, lse = attention_fwd(q, k, v)
+        _, lse, o32 = attention_fwd(q, k, v)
         ql, kl, vl = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         ol = F.scaled_dot_product_attention(ql, kl, vl)
-        yield case("attention_bwd", label, per_step, 0,
-                   lambda: attention_bwd(q, k, v, o, lse, do),
-                   lambda: attention_bwd_reference(q, k, v, do),
-                   lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
-                                               retain_graph=True),
-                   4.0 * (8 * q.numel() + nb * n), 10.0 * nb * n * n * d,
-                   check=_multi_rel_check, path="vqgan", design="tf32x3",
-                   fp64=lambda: attention_fp64(q, k, v, do))
+        lib = (lambda: torch.autograd.grad(ol, (ql, kl, vl), do,
+                                           retain_graph=True))
+        if f32:
+            yield case("attention_bwd", label, per_step, 0,
+                       lambda: attention_bwd(q, k, v, o32, lse, do),
+                       lambda: attention_bwd_reference(q, k, v, do), lib,
+                       4.0 * (8 * q.numel() + nb * n), 10.0 * nb * n * n * d,
+                       check=_multi_rel_check, path="vqgan", design="tf32x3",
+                       fp64=lambda: attention_fp64(q, k, v, do))
+        else:
+            _, lse32, o32_32 = attention_fwd(*w32[:3])
+            yield case("attention_bwd", label, per_step, 0,
+                       lambda: attention_bwd(q, k, v, o32, lse, do),
+                       lambda: attention_bwd_reference(q, k, v, do), lib,
+                       2.0 * 7 * q.numel() + 4.0 * (q.numel() + nb * n),
+                       (4.0 * nb * n * n * d, 6.0 * nb * n * n * d),
+                       check=_attention_bf16_check(
+                           "attention_bwd",
+                           lambda: attention_bwd(*w32[:3], o32_32, lse32,
+                                                 w32[3]),
+                           lambda: attention_bwd_reference(*w32)),
+                       path="vqgan", design="tf32x3")
 
 
 def conv3_backward_parts(dev):
@@ -1183,7 +1263,8 @@ def _norm_gap(x: dict, y: dict, net: str, scale: float) -> float:
                      for k in y if k.startswith(net + "/")) ** 0.5 / scale)
 
 
-def compare_card_cpu_bf16(cfg, a, b, loss_keys, phase) -> dict:
+def compare_card_cpu_bf16(trainer_cls, cfg, a, b, loss_keys, phase,
+                          grad_metrics=()) -> dict:
     """The bf16 step at batch 1, full width, from one state and one set of
     draws, four ways: A16 on the card with the kernels; B16 on the card with
     the plain versions, through the same cuDNN convs; C16 on the CPU with
@@ -1195,22 +1276,24 @@ def compare_card_cpu_bf16(cfg, a, b, loss_keys, phase) -> dict:
     exactly 0, so a largest-element gap reads the kinks; it is printed
     too). Each loss is one scalar, whose bf16 and fp32 values can agree
     by chance: B16 and C16 are held to A16 within LOSS_RTOL_BF16 of its
-    value, and A32's gap is printed. The update is checked
+    value, and A32's gap is printed. ``grad_metrics`` are metrics made from
+    gradients (the VQGAN adaptive weight, and the loss it scales): gated as
+    the gradients are, B16 within A32's relative gap and C16 within twice
+    it, with LOSS_RTOL_BF16 as the floor. The update is checked
     as in fp32: Adam and the EMA on the card from A16's gradients against
     the CPU's from the same gradients, within 1e-5."""
     import torch
 
     from uig_torch import kernels as K
     from uig_torch.config import apply_overrides
-    from uig_torch.train import CycleGANTrainer
 
     cfg1 = apply_overrides(cfg, ["data.batch_size=1"])
     cfg1_32 = apply_overrides(cfg1, ["model.compute_dtype=float32"])
-    card, cpu = CycleGANTrainer(cfg1), CycleGANTrainer(cfg1, device="cpu")
-    card32 = CycleGANTrainer(cfg1_32)
+    card, cpu = trainer_cls(cfg1), trainer_cls(cfg1, device="cpu")
+    card32 = trainer_cls(cfg1_32)
     s0 = cpu.init_state(SEED + 5)
-    # the same parameters (init draws from the seed), fp32 pools
-    s0_32 = CycleGANTrainer(cfg1_32, device="cpu").init_state(SEED + 5)
+    # the same parameters (init draws from the seed); fp32 pools
+    s0_32 = trainer_cls(cfg1_32, device="cpu").init_state(SEED + 5)
     batch = (a[:1], b[:1])
     draws = cpu.draw(s0, 1, a.shape[1], a.shape[2])
     out = {}
@@ -1251,8 +1334,13 @@ def compare_card_cpu_bf16(cfg, a, b, loss_keys, phase) -> dict:
         if gaps["A16_B16"] > floor or gaps["A16_C16"] > 2 * floor:
             bad[f"{net}_grad"] = gaps
     for k in loss_keys:
-        ab, ac = (out[f"loss_rel_err_A16_{p}"][k] for p in ("B16", "C16"))
-        if max(ab, ac) > LOSS_RTOL_BF16:
+        ab, ac, a32 = (out[f"loss_rel_err_A16_{p}"][k]
+                       for p in ("B16", "C16", "A32"))
+        if k in grad_metrics:
+            if ab > max(a32, LOSS_RTOL_BF16) or \
+                    ac > max(2 * a32, LOSS_RTOL_BF16):
+                bad[k] = (ab, ac, a32)
+        elif max(ab, ac) > LOSS_RTOL_BF16:
             bad[k] = (ab, ac)
 
     s_chk = s0.clone()
@@ -1323,7 +1411,7 @@ def phase_train(dev, overrides=TRAIN_OVERRIDES, phase: str = "train",
             compare_card_cpu(CycleGANTrainer, cfg, a, b, loss_keys,
                              "card_vs_cpu_batch1")
         else:
-            compare_card_cpu_bf16(cfg, a, b, loss_keys,
+            compare_card_cpu_bf16(CycleGANTrainer, cfg, a, b, loss_keys,
                                   f"{phase}_card_vs_cpu_batch1")
 
         if tr.perceptual_fn is not None:
@@ -1732,23 +1820,30 @@ def phase_vqgan_slice(weights: str) -> dict:
     return launches
 
 
-def phase_vqgan_train() -> dict:
+def phase_vqgan_train(overrides=VQ_OVERRIDES, phase: str = "vqgan_train",
+                      steps: int = VQ_TRAIN_STEPS) -> tuple:
+    """The VQGAN training step of ``VQ_PRESET`` with ``overrides``: the
+    main path's launches, 3 steps twice byte-identical, the batch-1
+    card-vs-CPU check of its dtype, ``steps`` steps finite with a falling
+    ``rec`` and timed, and a profiled step. Returns the step's launches
+    and the design each attention kernel ran."""
     import torch
 
     from uig_torch import kernels as K
     from uig_torch.config import apply_overrides, get_preset
     from uig_torch.train import VQGANTrainer
 
-    cfg = apply_overrides(get_preset(VQ_PRESET), VQ_OVERRIDES)
+    cfg = apply_overrides(get_preset(VQ_PRESET), overrides)
     load = cfg.data.load_size
     rng = np.random.default_rng(SEED + 8)
     a, b = (rng.integers(0, 256, (VQ_BATCH, load, load, 3), dtype=np.uint8)
             for _ in range(2))
     tr = VQGANTrainer(cfg)
     state0 = tr.init_state(SEED)
-    out = {"phase": "vqgan_train", "preset": VQ_PRESET,
-           "overrides": VQ_OVERRIDES, "batch_per_domain": VQ_BATCH,
-           "union_batch": 2 * VQ_BATCH, "image": cfg.model.image_size}
+    out = {"phase": phase, "preset": VQ_PRESET, "overrides": overrides,
+           "compute_dtype": cfg.model.compute_dtype,
+           "batch_per_domain": VQ_BATCH, "union_batch": 2 * VQ_BATCH,
+           "image": cfg.model.image_size}
     torch.use_deterministic_algorithms(True)
     try:
         # the main path's run: one step, with every count at 0 before it
@@ -1774,18 +1869,23 @@ def phase_vqgan_train() -> dict:
         out["state_tensors_compared"] = len(ta)
         del run_a, run_b, ta, tb
 
-        compare_card_cpu(VQGANTrainer, cfg, a, b,
-                         ("g_loss", "d_loss", "rec", "codebook", "g_adv",
-                          "perplexity", "lambda_adapt"),
-                         "vqgan_card_vs_cpu_batch1",
-                         grad_metrics=("lambda_adapt", "g_loss"))
+        loss_keys = ("g_loss", "d_loss", "rec", "codebook", "g_adv",
+                     "perplexity", "lambda_adapt")
+        if cfg.model.compute_dtype == "float32":
+            compare_card_cpu(VQGANTrainer, cfg, a, b, loss_keys,
+                             "vqgan_card_vs_cpu_batch1",
+                             grad_metrics=("lambda_adapt", "g_loss"))
+        else:
+            compare_card_cpu_bf16(VQGANTrainer, cfg, a, b, loss_keys,
+                                  f"{phase}_card_vs_cpu_batch1",
+                                  grad_metrics=("lambda_adapt", "g_loss"))
 
         # steps on the fixed batch: finite, falling rec, timing
         st = state0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times, hist = [], []
-        for _ in range(VQ_TRAIN_STEPS):
+        for _ in range(steps):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -1810,9 +1910,9 @@ def phase_vqgan_train() -> dict:
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         emit(out)
         prof = profile_call(lambda: tr.train_step(st, (a, b)),
-                            "vqgan_train_profile", calls=True)
+                            f"{phase}_profile", calls=True)
         calls = prof.pop("calls")
-        prof["designs"] = designs_run(calls, "vqgan_train", VQ_PER_STEP,
+        prof["designs"] = designs_run(calls, phase, VQ_PER_STEP,
                                       VQ_STEP_DESIGNS)
         prof["design_calls"] = design_calls(calls)
         emit(prof)
@@ -1925,16 +2025,21 @@ def main() -> int:
         vq_apply_launches = phase_vqgan_slice(vq_weights)
     torch.cuda.empty_cache()
     vq_step_launches, vq_designs = phase_vqgan_train()
+    torch.cuda.empty_cache()
+    vq_bf16_launches, vq_bf16_designs = phase_vqgan_train(
+        VQ_OVERRIDES_BF16, "vqgan_train_bf16", VQ_BF16_TRAIN_STEPS)
     kernels = []
     for name in PER_STEP:
         if name.startswith("attention"):
-            dtypes = ("float32",)
-            step_l = {"float32": vq_step_launches}
-            kind_of = {"float32": vq_designs}
+            dtypes = DTYPE_NAMES
+            step_l = {"float32": vq_step_launches,
+                      "bfloat16": vq_bf16_launches}
+            kind_of = {"float32": vq_designs, "bfloat16": vq_bf16_designs}
             apply_l = vq_apply_launches
             per = (f"one {VQ_PRESET} training step at union batch "
-                   f"{2 * VQ_BATCH}; per reconstruct apply at batch "
-                   f"{VQ_BATCH}")
+                   f"{2 * VQ_BATCH} (fp32: vqgan_train; bf16: "
+                   f"vqgan_train_bf16); per reconstruct apply at batch "
+                   f"{VQ_BATCH} (fp32)")
         else:
             dtypes = DTYPE_NAMES
             step_l = {"float32": step_launches, "bfloat16": bf16_launches}

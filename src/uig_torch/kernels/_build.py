@@ -34,8 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: every entry point ends with the stream and returns
-# cudaError_t; the int before the stream is is_bf16 (the storage type), or
-# for the attention forward the number of key ranges (1 or 2).
+# cudaError_t; the int before the stream is is_bf16 (the storage type).
 SIGNATURES = {
     "uig_instance_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                               _I, _I, _P],
@@ -53,9 +52,10 @@ SIGNATURES = {
                        _P],
     "uig_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _P],
-    "uig_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "uig_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                          _P],
     "uig_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _I, _F, _P],
+                          _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

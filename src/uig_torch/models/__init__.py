@@ -11,13 +11,13 @@ from uig_torch.models.vqgan import VQGANGenerator
 def model_dtype(model_cfg, dtype_field: str) -> torch.dtype:
     """The torch dtype of ``model_cfg.<dtype_field>`` (``eval_dtype`` for
     serving, ``compute_dtype`` for training). float32 always; bfloat16 for
-    training the ResNet (CycleGAN) family. bf16 serving and VQGAN in bf16
-    raise: both are on the ROADMAP."""
+    training (CycleGAN and VQGAN). bf16 serving raises: it is on the
+    ROADMAP."""
     name = getattr(model_cfg, dtype_field)
     if name == "float32":
         return torch.float32
     if name == "bfloat16" and dtype_field == "compute_dtype" \
-            and model_cfg.kind == "cyclegan":
+            and model_cfg.kind in ("cyclegan", "vqgan"):
         return torch.bfloat16
     if name == "bfloat16" and dtype_field == "eval_dtype":
         why = "bf16 serving is not ported yet (ROADMAP: bf16 serving)"
@@ -25,7 +25,7 @@ def model_dtype(model_cfg, dtype_field: str) -> torch.dtype:
         why = (f"kind={model_cfg.kind!r} trains in float32 only (ROADMAP: "
                f"{model_cfg.kind} in bf16)")
     else:
-        why = "the port runs float32 and, for training CycleGAN, bfloat16"
+        why = "the port runs float32 and, for training, bfloat16"
     raise NotImplementedError(
         f"model.{dtype_field}={name!r}: {why}; pass "
         f"model.{dtype_field}=float32")
@@ -54,7 +54,7 @@ def generator_from_config(model_cfg, dtype_field: str = "eval_dtype"):
             embed_dim=m.vq_embed_dim, codebook_size=m.vq_codebook_size,
             out_channels=m.out_channels,
             attn_resolutions=m.vq_attn_resolutions, resolution=m.image_size,
-            in_channels=m.in_channels)
+            in_channels=m.in_channels, dtype=dtype)
     raise NotImplementedError(
         f"model.kind={m.kind!r}: the port has cyclegan and vqgan only")
 

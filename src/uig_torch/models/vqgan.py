@@ -9,7 +9,12 @@ resolutions, a middle (block, attention, block), then GroupNorm, swish and a
 commitment losses and the codebook perplexity. The decoder mirrors the
 encoder with nearest 2x upsampling and ends in a tanh.
 
-Activations are NHWC fp32. Parameters keep flax's auto-names and layouts
+Activations are NHWC in the compute ``dtype``, fp32 or bf16, with the JAX
+modules' explicit casts: the encoder and decoder cast their input to it;
+convs, GroupNorm, swish, the attention, nearest-up, the residual adds and
+tanh run in it; the quantizer computes in fp32 and returns its
+straight-through output in its input's dtype. Parameters are fp32 in both.
+They keep flax's auto-names and layouts
 (``encoder.VQResBlock_3.GN_1.GroupNorm_0.scale``, ``quantizer.codebook``,
 conv kernels HWIO), so converting a flax tree is a rename. Convs are
 ``layers.Conv`` (flax's "SAME" padding); the attention is the K5f/K5b
@@ -32,7 +37,11 @@ GN_EPS = 1e-6
 
 
 def _swish(x: torch.Tensor) -> torch.Tensor:
-    return F.silu(x)
+    """x sigmoid(x). In bf16 as JAX computes ``x * jax.nn.sigmoid(x)``:
+    sigmoid as 1 / (1 + exp(-x)), each of the four ops rounded to bf16."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
 
 
 def _gn_moments(xg: torch.Tensor, eps: float):
@@ -45,40 +54,55 @@ def _gn_moments(xg: torch.Tensor, eps: float):
 
 
 class _GroupNorm(torch.autograd.Function):
-    """Forward in flax's order, y = (x - mean) * (rstd * scale) + bias; the
-    backward by the closed form, keeping only x and the (B, G) moments."""
+    """Forward in flax's order, y = (x - mean) * (rstd * scale) + bias, in
+    fp32 from x widened, rounded once to ``dtype``; the backward by the
+    closed form in fp32, keeping only x (in its own dtype) and the (B, G)
+    moments. dscale and dbias are fp32; dx has x's dtype, and in bf16 it
+    is rounded as JAX's VJP of flax's GroupNorm rounds it (``backward``)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, groups, eps):
+    def forward(ctx, x, scale, bias, groups, eps, dtype):
         b, h, w, c = x.shape
-        xg = x.reshape(b, h * w, groups, c // groups)
+        xg = x.reshape(b, h * w, groups, c // groups).to(torch.float32)
         mean, rstd = _gn_moments(xg, eps)
         sg = scale.reshape(groups, c // groups)
         y = (xg - mean) * (rstd * sg) + bias.reshape(groups, c // groups)
         ctx.save_for_backward(x, scale, mean, rstd)
         ctx.groups = groups
-        return y.reshape(b, h, w, c)
+        return y.reshape(b, h, w, c).to(dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, scale, mean, rstd = ctx.saved_tensors
         b, h, w, c = x.shape
         shape = (b, h * w, ctx.groups, c // ctx.groups)
-        xhat = (x.reshape(shape) - mean) * rstd
-        dyg = dy.reshape(shape)
+        xhat = (x.reshape(shape).to(torch.float32) - mean) * rstd
+        dyg = dy.reshape(shape).to(torch.float32)
         g = dyg * scale.reshape(shape[2:])
-        dx = rstd * (g - g.mean(dim=(1, 3), keepdim=True)
-                     - xhat * (g * xhat).mean(dim=(1, 3), keepdim=True))
+        if x.dtype == torch.float32:
+            dx = rstd * (g - g.mean(dim=(1, 3), keepdim=True)
+                         - xhat * (g * xhat).mean(dim=(1, 3), keepdim=True))
+        else:
+            # JAX's cotangent of x sums its two uses in x's dtype: the
+            # direct path g rstd and the statistics' path, each rounded
+            # once, then added (and rounded) in bf16
+            stats = -rstd * (g.mean(dim=(1, 3), keepdim=True)
+                             + xhat * (g * xhat).mean(dim=(1, 3), keepdim=True))
+            dx = (g * rstd).to(x.dtype) + stats.to(x.dtype)
         dscale = (dyg * xhat).sum(dim=(0, 1)).reshape(c)
         dbias = dyg.sum(dim=(0, 1)).reshape(c)
-        return dx.reshape(b, h, w, c), dscale, dbias, None, None
+        return (dx.reshape(b, h, w, c).to(x.dtype), dscale, dbias, None, None,
+                None)
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               groups: int, eps: float = GN_EPS) -> torch.Tensor:
-    """flax ``nn.GroupNorm`` over NHWC x: contiguous channel groups,
-    statistics over (H, W, C / groups)."""
-    return _GroupNorm.apply(x.contiguous(), scale, bias, groups, eps)
+               groups: int, eps: float = GN_EPS,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+    """flax ``nn.GroupNorm(dtype=dtype, param_dtype=float32)`` over NHWC x:
+    contiguous channel groups, fp32 statistics over (H, W, C / groups), the
+    output in ``dtype`` (x's by default)."""
+    return _GroupNorm.apply(x.contiguous(), scale, bias, groups, eps,
+                            x.dtype if dtype is None else dtype)
 
 
 class _GroupNormParams(nn.Module):
@@ -89,30 +113,32 @@ class _GroupNormParams(nn.Module):
 
 
 class GN(nn.Module):
-    """The JAX ``GN``: ``nn.GroupNorm(min(32, C), epsilon=1e-6)``."""
+    """The JAX ``GN``: ``nn.GroupNorm(min(32, C), epsilon=1e-6,
+    dtype=dtype)``."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.groups = min(32, features)
+        self.groups, self.dtype = min(32, features), dtype
         self.GroupNorm_0 = _GroupNormParams(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.GroupNorm_0
-        return group_norm(x, p.scale, p.bias, self.groups)
+        return group_norm(x, p.scale, p.bias, self.groups, dtype=self.dtype)
 
 
 class VQResBlock(nn.Module):
     """[GN swish conv3 GN swish conv3] + skip (a 1x1 conv when the width
     changes)."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.GN_0 = GN(in_features)
-        self.Conv_0 = Conv(in_features, features, 3)
-        self.GN_1 = GN(features)
-        self.Conv_1 = Conv(features, features, 3)
+        self.GN_0 = GN(in_features, dtype)
+        self.Conv_0 = Conv(in_features, features, 3, dtype=dtype)
+        self.GN_1 = GN(features, dtype)
+        self.Conv_1 = Conv(features, features, 3, dtype=dtype)
         if in_features != features:
-            self.Conv_2 = Conv(in_features, features, 1)
+            self.Conv_2 = Conv(in_features, features, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.Conv_0(_swish(self.GN_0(x)))
@@ -126,11 +152,12 @@ class AttnBlock(nn.Module):
     """x + proj(attention(q, k, v)) over the h*w tokens, single head at the
     full width C; q, k, v and proj are 1x1 convs of GN(x)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.GN_0 = GN(features)
+        self.GN_0 = GN(features, dtype)
         for i in range(4):
-            self.add_module(f"Conv_{i}", Conv(features, features, 1))
+            self.add_module(f"Conv_{i}", Conv(features, features, 1,
+                                              dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -144,10 +171,12 @@ class AttnBlock(nn.Module):
 class _Ladder(nn.Module):
     """A module list under flax's auto-names (``Conv_0``, ``VQResBlock_2``,
     ...) and the plan that applies it: module names, and ``"swish"``,
-    ``"up"`` (nearest 2x) or ``"tanh"`` between them."""
+    ``"up"`` (nearest 2x) or ``"tanh"`` between them, all in ``dtype``,
+    which the input is cast to."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype):
         super().__init__()
+        self.dtype = dtype
         self._counts: dict = {}
         self.plan: list[str] = []
 
@@ -159,7 +188,7 @@ class _Ladder(nn.Module):
         self.plan.append(f"{kind}_{i}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x.to(torch.float32)
+        h = x.to(self.dtype)
         for step in self.plan:
             if step == "swish":
                 h = _swish(h)
@@ -176,26 +205,28 @@ class VQGANEncoder(_Ladder):
     def __init__(self, base_features: int = 128,
                  channel_mults: tuple[int, ...] = (1, 1, 2, 2, 4),
                  embed_dim: int = 256, attn_resolutions: tuple[int, ...] = (32,),
-                 resolution: int = 512, in_channels: int = 3):
-        super().__init__()
-        self._add(Conv(in_channels, base_features, 3))
+                 resolution: int = 512, in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dtype)
+        dt = dtype
+        self._add(Conv(in_channels, base_features, 3, dtype=dt))
         h, res = base_features, resolution
         for i, mult in enumerate(channel_mults):
             f = base_features * mult
-            self._add(VQResBlock(h, f))
-            self._add(VQResBlock(f, f))
+            self._add(VQResBlock(h, f, dt))
+            self._add(VQResBlock(f, f, dt))
             h = f
             if res in attn_resolutions:
-                self._add(AttnBlock(f))
+                self._add(AttnBlock(f, dt))
             if i < len(channel_mults) - 1:  # downsample between stages
-                self._add(Conv(f, f, 3, stride=2))
+                self._add(Conv(f, f, 3, stride=2, dtype=dt))
                 res = -(-res // 2)
-        self._add(VQResBlock(h, h))
-        self._add(AttnBlock(h))
-        self._add(VQResBlock(h, h))
-        self._add(GN(h))
+        self._add(VQResBlock(h, h, dt))
+        self._add(AttnBlock(h, dt))
+        self._add(VQResBlock(h, h, dt))
+        self._add(GN(h, dt))
         self.plan.append("swish")
-        self._add(Conv(h, embed_dim, 1))
+        self._add(Conv(h, embed_dim, 1, dtype=dt))
         self.latent_resolution = res
 
 
@@ -203,28 +234,30 @@ class VQGANDecoder(_Ladder):
     def __init__(self, base_features: int = 128,
                  channel_mults: tuple[int, ...] = (1, 1, 2, 2, 4),
                  out_channels: int = 3, attn_resolutions: tuple[int, ...] = (32,),
-                 latent_resolution: int = 32, embed_dim: int = 256):
-        super().__init__()
+                 latent_resolution: int = 32, embed_dim: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dtype)
+        dt = dtype
         f = base_features * channel_mults[-1]
-        self._add(Conv(embed_dim, f, 3))
-        self._add(VQResBlock(f, f))
-        self._add(AttnBlock(f))
-        self._add(VQResBlock(f, f))
+        self._add(Conv(embed_dim, f, 3, dtype=dt))
+        self._add(VQResBlock(f, f, dt))
+        self._add(AttnBlock(f, dt))
+        self._add(VQResBlock(f, f, dt))
         h, res = f, latent_resolution
         for i, mult in reversed(list(enumerate(channel_mults))):
             f = base_features * mult
-            self._add(VQResBlock(h, f))
-            self._add(VQResBlock(f, f))
+            self._add(VQResBlock(h, f, dt))
+            self._add(VQResBlock(f, f, dt))
             h = f
             if res in attn_resolutions:
-                self._add(AttnBlock(f))
+                self._add(AttnBlock(f, dt))
             if i > 0:  # upsample between stages
                 self.plan.append("up")
-                self._add(Conv(f, f, 3))
+                self._add(Conv(f, f, 3, dtype=dt))
                 res *= 2
-        self._add(GN(h))
+        self._add(GN(h, dt))
         self.plan.append("swish")
-        self._add(Conv(h, out_channels, 3))
+        self._add(Conv(h, out_channels, 3, dtype=dt))
         self.plan.append("tanh")
 
 
@@ -271,20 +304,23 @@ class VectorQuantizer(nn.Module):
 
 class VQGANGenerator(nn.Module):
     """Encoder + VectorQuantizer + Decoder. ``forward(x)`` gives
-    ``(reconstruction, VQOutput)``; ``decode_codes`` is the latent-space
-    sampling path."""
+    ``(reconstruction, VQOutput)``, the reconstruction in ``dtype``;
+    ``decode_codes`` is the latent-space sampling path."""
 
     def __init__(self, base_features: int = 128,
                  channel_mults: tuple[int, ...] = (1, 1, 2, 2, 4),
                  embed_dim: int = 256, codebook_size: int = 1024,
                  out_channels: int = 3, attn_resolutions: tuple[int, ...] = (32,),
-                 resolution: int = 512, in_channels: int = 3):
+                 resolution: int = 512, in_channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.encoder = VQGANEncoder(base_features, channel_mults, embed_dim,
-                                    attn_resolutions, resolution, in_channels)
+                                    attn_resolutions, resolution, in_channels,
+                                    dtype)
         self.decoder = VQGANDecoder(base_features, channel_mults, out_channels,
                                     attn_resolutions,
-                                    self.encoder.latent_resolution, embed_dim)
+                                    self.encoder.latent_resolution, embed_dim,
+                                    dtype)
         self.quantizer = VectorQuantizer(codebook_size, embed_dim)
 
     def forward(self, x: torch.Tensor):

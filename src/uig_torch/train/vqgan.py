@@ -29,9 +29,17 @@ domains: each step concatenates the augmented A and B halves. One
 As in the CycleGAN trainer, every gradient is taken at the state's
 parameters before any update (``_grads``, then ``_update``), the state is
 updated in place, the draws come from (seed, step) or are passed in, and on
-the card the step runs fp32 without TF32 and with deterministic algorithms.
+the card the step runs without TF32 and with deterministic algorithms
+(``serving.exact_fp32``, in bf16 ``serving.exact_bf16``).
+``model.compute_dtype`` is float32 or bfloat16 (the preset's default): in
+bf16 the augmented batches, the generator's and D's activations and the
+reconstruction are bf16, with JAX's explicit casts; parameters and their
+gradients, Adam, the EMA, the quantizer and its codebook terms, the losses
+and the adaptive weight's gradient norms are fp32. ``translate`` and
+``decode_codes`` run a generator in ``model.eval_dtype`` (float32; bf16
+serving is refused).
 LPIPS is built and passed as in the CycleGAN trainer (``perceptual_fn``).
-Not ported yet, and refused: bf16 compute, ``model.fused_applies``,
+Not ported yet, and refused: ``model.fused_applies``,
 ``opt.grad_accum > 1``, ``model.remat``, weight decay, gradient clipping
 and SGD.
 """
@@ -50,7 +58,7 @@ from uig_torch.models import (PatchDiscriminator, generator_from_config,
                               model_dtype)
 from uig_torch.runtime import resolve_device
 from uig_torch.runtime.prng import step_generator
-from uig_torch.serving import exact_fp32
+from uig_torch.serving import exact_bf16, exact_fp32
 from uig_torch.train import losses as L
 from uig_torch.train.ema import ema_update
 from uig_torch.train.state import (Adam, VQGANState, normal_init, tree_leaves,
@@ -96,12 +104,19 @@ class VQGANTrainer:
         self.perceptual_fn = (trainer_lpips(cfg, self.device)
                               if perceptual_fn is None else perceptual_fn)
         m = cfg.model
+        self.dtype = model_dtype(m, "compute_dtype")
+        self._precision = (exact_fp32 if self.dtype == torch.float32
+                           else exact_bf16)
         self.generator = generator_from_config(
             m, "compute_dtype").to(self.device)
+        # translate's generator, in model.eval_dtype (the same parameters)
+        self.eval_generator = (
+            self.generator if model_dtype(m, "eval_dtype") == self.dtype
+            else generator_from_config(m, "eval_dtype").to(self.device))
         self.discriminator = PatchDiscriminator(
             base_features=m.d_base_features, n_layers=m.d_layers, norm=m.norm,
-            in_channels=m.out_channels).to(self.device)
-        for mod in (self.generator, self.discriminator):
+            in_channels=m.out_channels, dtype=self.dtype).to(self.device)
+        for mod in (self.generator, self.eval_generator, self.discriminator):
             mod.requires_grad_(False)
         # the decoder's final conv kernel: the adaptive weight's leaf
         last = max((s for s in self.generator.decoder.plan
@@ -145,15 +160,18 @@ class VQGANTrainer:
         return functional_call(self.discriminator, params, (x,))
 
     def _input(self, batch, aug) -> torch.Tensor:
+        """The batch in the compute dtype: uint8 augmented by the kernel
+        into it, floats cast to it, as in JAX."""
         x = torch.as_tensor(batch).to(self.device)
         if x.dtype != torch.uint8:  # pre-augmented floats, as in JAX
-            return x.to(torch.float32)
+            return x.to(self.dtype)
         crop = self.cfg.model.image_size
         if self.cfg.data.augment == "none":
-            return center_crop_normalize(x, crop)
+            return center_crop_normalize(x, crop, self.dtype)
         oy, ox, flip = aug
         return augment_batch(x.contiguous(), torch.as_tensor(oy),
-                             torch.as_tensor(ox), torch.as_tensor(flip), crop)
+                             torch.as_tensor(ox), torch.as_tensor(flip), crop,
+                             self.dtype)
 
     def train_step(self, state: VQGANState, batch, draws: dict | None = None):
         """One step on ``batch = (a, b)``: uint8 (B, load, load, C) arrays or
@@ -175,7 +193,7 @@ class VQGANTrainer:
         loss, m = self.cfg.loss, self.cfg.model
         on = state.step >= loss.vq_disc_start
         dev = self.device
-        with exact_fp32():
+        with self._precision():
             x = torch.cat([self._input(batch[0], draws["aug_a"]),
                            self._input(batch[1], draws["aug_b"])], 0)
 
@@ -246,17 +264,15 @@ class VQGANTrainer:
         (``model.eval_dtype`` float32, no gradient)."""
         if direction != "a2b":
             raise ValueError(f"VQGAN has one direction, a2b; got {direction!r}")
-        model_dtype(self.cfg.model, "eval_dtype")
         with torch.inference_mode(), exact_fp32():
-            return functional_call(self.generator, ema["a2b"],
+            return functional_call(self.eval_generator, ema["a2b"],
                                    (x.to(self.device, torch.float32),))[0]
 
     def decode_codes(self, ema: dict, codes: torch.Tensor) -> torch.Tensor:
         """codes (B, h, w) -> the EMA decoder's images of those codewords."""
-        model_dtype(self.cfg.model, "eval_dtype")
         p = ema["a2b"]
         dec = {k[len("decoder."):]: t for k, t in p.items()
                if k.startswith("decoder.")}
         with torch.inference_mode(), exact_fp32():
             z = p["quantizer.codebook"][codes.to(self.device).long()]
-            return functional_call(self.generator.decoder, dec, (z,))
+            return functional_call(self.eval_generator.decoder, dec, (z,))

@@ -30,7 +30,8 @@ bf16: every kernel against its plain version in bf16 (both sum in fp32
 from the same bf16 values and round once, in another order) within 1 bf16
 ulp of the plain output's largest magnitude, 2^(floor(log2 M) - 7); the
 fused conv3+IN within 2, since it rounds twice in series; the norm
-backward's dgamma/dbeta (fp32) within 1e-4 relative.
+backward's dgamma/dbeta (fp32) within 1e-4 relative. The bf16 attention
+kernels are also held bit-equal to the fp32 kernels on the widened inputs.
 """
 
 import re
@@ -332,7 +333,8 @@ def test_attention_kernels(dev, shape):
     others, on an H100's 132 SMs); repeats are bit-equal (no atomics)."""
     q, k, v, do = (_randn(dev, *shape, seed=i) for i in range(4))
     before = (attention_fwd.launches, attention_bwd.launches)
-    o, lse = attention_fwd(q, k, v)
+    o, lse, o32 = attention_fwd(q, k, v)
+    assert o32 is o
     _rel_close(o, attention_reference(q, k, v), rel=1e-5)
     logits = torch.bmm(q, k.transpose(1, 2)) / shape[-1] ** 0.5
     _close(lse, torch.logsumexp(logits, -1))
@@ -512,6 +514,69 @@ def _ulps_close(kernel_out, plain_out, ulps=1.0):
     ulp = 2.0 ** (np.floor(np.log2(max(m, 1e-30))) - 7)
     err = (kernel_out.float() - plain_out.float()).abs().max().item()
     assert err <= ulps * ulp, (err, ulp)
+
+
+# D % 8 == 0 (a 16-byte copy holds 8 bf16 values); the fp32 cases' ragged
+# N and D of 8 to 512, and the VQGAN grid at the reconstruct apply's batch
+# 4 (two key ranges) and the step's union batch 8 (one)
+_ATTN_BF16_SHAPES = [(1, 37, 64), (2, 300, 256), (1, 70, 512), (3, 33, 40),
+                     (2, 45, 8), (2, 129, 128), (9, 1024, 64),
+                     (4, 1024, 512), (8, 1024, 512)]
+
+
+@pytest.mark.parametrize("shape", _ATTN_BF16_SHAPES, ids=str)
+def test_attention_kernels_bf16(dev, shape):
+    """bf16 K5f and K5b: o and dq/dk/dv within 1 bf16 ulp of the plain
+    versions; bit-equal to the fp32 kernels on the widened inputs, rounded
+    once (the forward's fp32 o and lse unrounded), since a bf16 operand is
+    exact in TF32 and the bf16 design drops only products with exact
+    zeros; those fp32 outputs within 1e-5 of the plain fp32 versions;
+    repeats bit-equal; one launch each, counted under the fp32 names."""
+    w = [_randn(dev, *shape, seed=i).to(BF).float() for i in range(4)]
+    q, k, v, do = (t.to(BF) for t in w)
+    before = (attention_fwd.launches, attention_bwd.launches)
+    o, lse, o32 = attention_fwd(q, k, v)
+    got = attention_bwd(q, k, v, o32, lse, do)
+    assert (attention_fwd.launches, attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert o.dtype == BF and o32.dtype == lse.dtype == torch.float32
+    _ulps_close(o, attention_reference(q, k, v))
+    for g, r in zip(got, attention_bwd_reference(q, k, v, do)):
+        _ulps_close(g, r)
+    o_f, lse_f, _ = attention_fwd(*w[:3])
+    assert torch.equal(o32, o_f) and torch.equal(lse, lse_f)
+    assert torch.equal(o, o_f.to(BF))
+    _rel_close(o_f, attention_reference(*w[:3]), rel=1e-5)
+    for g, g_f, r in zip(got, attention_bwd(*w[:3], o_f, lse_f, w[3]),
+                         attention_bwd_reference(*w)):
+        assert torch.equal(g, g_f.to(BF))
+        _rel_close(g_f, r, rel=1e-5)
+    assert torch.equal(o, attention_fwd(q, k, v)[0])
+    for g, again in zip(got, attention_bwd(q, k, v, o32, lse, do)):
+        assert torch.equal(g, again)
+
+
+def test_attention_function_bf16(dev):
+    q, k, v, ct = (_randn(dev, 2, 50, 32, seed=i).to(BF) for i in range(4))
+    got = _grads(attention, (q, k, v), ct)
+    want = _grads(attention_reference, (q, k, v), ct)
+    for u, w in zip(got, want):
+        _ulps_close(u, w)
+
+
+def test_attention_refuses_what_it_cannot_take_bf16(dev):
+    """D = 4 in bf16 (no 16-byte copy of a row), mixed storage types and a
+    bf16 residual raise on the card: no plain fallback."""
+    x = _randn(dev, 1, 8, 4).to(BF)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attention_fwd(x, x, x)
+    x = _randn(dev, 1, 8, 16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention_fwd(x.to(BF), x, x.to(BF))
+    q = x.to(BF)
+    _, lse, o32 = attention_fwd(q, q, q)
+    with pytest.raises(TypeError, match="o32"):
+        attention_bwd(q, q, q, o32.to(BF), lse, q)
 
 
 def test_augment_bf16(dev):

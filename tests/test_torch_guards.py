@@ -49,6 +49,34 @@ def test_import_leaves_jax_out_and_builds_nothing():
                    cwd=str(ROOT), timeout=120)
 
 
+def test_vqgan_trains_in_bf16_and_serves_in_fp32():
+    """vqgan512 as published trains in bf16 (its compute dtype is the
+    default's); serving stays fp32, and a bf16 eval_dtype is refused."""
+    import torch
+
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.models import model_dtype
+    from uig_torch.train import VQGANTrainer
+
+    cfg = get_preset("vqgan512")
+    assert model_dtype(cfg.model, "compute_dtype") == torch.bfloat16
+    small = apply_overrides(cfg, [
+        "model.image_size=32", "data.load_size=36",
+        "model.vq_base_features=16", "model.vq_channel_mults=(1,2)",
+        "model.vq_embed_dim=8", "model.vq_codebook_size=32",
+        "model.vq_attn_resolutions=(16,)", "model.d_layers=2"])
+    tr = VQGANTrainer(small, device="cpu")
+    assert tr.dtype == tr.generator.encoder.dtype == torch.bfloat16
+    assert tr.discriminator.dtype == torch.bfloat16
+    assert tr.eval_generator.encoder.dtype == torch.float32
+    state = tr.init_state(0)
+    x = torch.zeros(1, 32, 32, 3)
+    assert tr.translate(state.ema, x).dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="eval_dtype"):
+        VQGANTrainer(apply_overrides(small, ["model.eval_dtype=bfloat16"]),
+                     device="cpu")
+
+
 def test_resolve_device():
     import torch
 
@@ -152,6 +180,47 @@ def test_chip_smoke_reads_the_attention_design():
             cs.designs_run(bad, "vqgan_train", cs.VQ_PER_STEP)
     bound, by = cs.bound_ms(1.0, 495e9, design="tf32x3")
     assert by == "operations" and abs(bound - 3.0) < 1e-12
+
+
+def test_chip_smoke_bf16_attention_bound_and_check():
+    """The bf16 attention bound counts a product of two bf16 operands at the
+    bf16 rate and each TF32 term of an fp32-by-bf16 product at the TF32
+    rate: K5f 0.043 ms and K5b 0.122 ms a launch at (8, 1024, 512). The
+    check passes outputs that are the fp32 computation on the widened
+    inputs, rounded (the plain versions on the CPU), and fails one that
+    is not."""
+    import torch
+
+    from uig_torch.kernels import (attention_bwd, attention_bwd_reference,
+                                   attention_fwd, attention_reference)
+
+    cs = _chip_smoke()
+    prod = 2.0 * 8 * 1024 * 1024 * 512
+    fwd, by = cs.bound_ms(0.0, (prod, prod), "bfloat16", "tf32x3")
+    bwd, _ = cs.bound_ms(0.0, (2 * prod, 3 * prod), "bfloat16", "tf32x3")
+    assert by == "operations"
+    assert abs(4 * fwd - 0.1737) < 1e-3 and abs(4 * bwd - 0.4860) < 1e-3
+    gen = torch.Generator().manual_seed(0)
+    w = [torch.randn(2, 40, 16, generator=gen).to(torch.bfloat16).float()
+         for _ in range(4)]
+    q, k, v, do = (t.to(torch.bfloat16) for t in w)
+    fwd_check = cs._attention_bf16_check(
+        "attention_fwd", lambda: attention_fwd(*w[:3])[0],
+        lambda: attention_reference(*w[:3]))
+    out = attention_fwd(q, k, v)[::2]
+    ref = (attention_reference(q, k, v), attention_reference(*w[:3]))
+    _, checked, extra = fwd_check(out, ref)
+    assert checked <= 1.0 and extra["bit_equal_fp32_kernel_widened"]
+    bwd_check = cs._attention_bf16_check(
+        "attention_bwd",
+        lambda: attention_bwd(*w[:3], attention_fwd(*w[:3])[0],
+                              attention_fwd(*w[:3])[1], w[3]),
+        lambda: attention_bwd_reference(*w))
+    got = attention_bwd_reference(q, k, v, do)
+    assert bwd_check(got, got)[1] <= 1.0
+    moved = (got[0], got[1], torch.nextafter(got[2], torch.ones_like(got[2])))
+    with pytest.raises(AssertionError, match="bit-equal"):
+        bwd_check(moved, got)
 
 
 def test_chip_smoke_lists_the_wgmma_kernels_ptxas():

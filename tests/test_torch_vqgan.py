@@ -20,7 +20,35 @@ within 1e-4 of its largest value: both sides take flax's
 E[x^2] - E[x]^2, whose cancellation turns the sums' different rounding
 into an error of a few ulp(100) / var (read: up to 3.7e-5 of the largest
 value, over three seeds).
+
+bf16 (``compute_dtype=bfloat16``, the preset's): the same weights and
+input through flax with ``dtype=bfloat16`` and the port in bf16. The port
+takes JAX's explicit casts and rounds each op where JAX's jaxpr rounds it
+(GroupNorm and swish alone are held to that below), but XLA on the CPU
+fuses across those roundings where its excess-precision rule lets it: in
+a VQResBlock it takes GN's x - mean from the conv's unrounded bias add
+while it takes GN's moments from the rounded one. So the two packages
+round at other places, each a draw of bf16 noise, and no elementwise bound
+of fp32's kind applies. The basis is the gap between bf16 and fp32, as in
+``chip_smoke.py``'s bf16 card-vs-CPU gate: each module's output (every
+GN, conv, VQResBlock and AttnBlock, the encoder, the decoder and the
+reconstruction), in bf16, within twice the distance of the port's fp32
+output from flax's bf16 output, in the Euclidean norm (two independent
+bf16 roundings sit sqrt(2) apart; read: 0.92 to 1.11 of that distance).
+Codes: bf16 latents of the two packages differ by bf16 noise, so a latent
+whose two nearest codewords are that close may take either code; codes
+must agree wherever the gap between them exceeds what the latents'
+difference can move it (``chip_smoke._code_agreement``, the card-vs-CPU
+gate), and such latents must be most of them. The codebook terms and
+perplexity within 2^-6 relative, a few bf16 ulps of their inputs. GroupNorm alone: y and dx within one bf16 ulp of their
+largest magnitude (each rounds fp32 values that agree to ~1e-5, dx as
+JAX's VJP rounds it: the direct and the statistics' path each rounded,
+then added in bf16), dscale and dbias (fp32) as in fp32. Swish alone:
+bit-equal to JAX's x * sigmoid(x) in bf16.
 """
+
+import importlib.util
+import pathlib
 
 import flax.linen as fnn
 import jax
@@ -31,6 +59,7 @@ import torch
 from flax import traverse_util
 
 from uig.models.vqgan import GN as JaxGN
+from uig.models.vqgan import _swish as jax_swish
 from uig.models.vqgan import VectorQuantizer as JaxVQ
 from uig.models.vqgan import VQGANGenerator as JaxGenerator
 from uig_torch.config import apply_overrides, get_preset
@@ -38,7 +67,7 @@ from uig_torch.convert import (flax_from_generator_state,
                                generator_state_from_flax, seeded_flax)
 from uig_torch.models import generator_from_config
 from uig_torch.models.layers import Conv
-from uig_torch.models.vqgan import GN, VectorQuantizer
+from uig_torch.models.vqgan import GN, VectorQuantizer, _swish
 
 OVERRIDES = ["model.image_size=32", "data.load_size=32",
              "model.vq_base_features=16", "model.vq_channel_mults=(1,2)",
@@ -56,16 +85,46 @@ MODULES = (
     + ["encoder", "decoder"])
 
 
+RTOL_BF16 = 2.0 ** -6
+
+
 def _cfg():
     return apply_overrides(get_preset("vqgan512"), OVERRIDES)
 
 
-def _jax_generator():
+def _jax_generator(dtype=jnp.float32):
     m = _cfg().model
     return JaxGenerator(
         base_features=m.vq_base_features, channel_mults=m.vq_channel_mults,
         embed_dim=m.vq_embed_dim, codebook_size=m.vq_codebook_size,
-        attn_resolutions=m.vq_attn_resolutions, attn_impl="pallas")
+        attn_resolutions=m.vq_attn_resolutions, attn_impl="pallas",
+        dtype=dtype)
+
+
+def _apply_with_hooks(model, x):
+    """(recon, vq, {module name: output}) of the port's ``model`` on x."""
+    outs, hooks = {}, []
+    for name, mod in model.named_modules():
+        if name in MODULES:
+            hooks.append(mod.register_forward_hook(
+                lambda m, i, o, name=name: outs.__setitem__(name, o)))
+    with torch.no_grad():
+        recon, vq = model(torch.from_numpy(x))
+    for h in hooks:
+        h.remove()
+    return recon, vq, outs
+
+
+def _jax_apply(gen, params, x):
+    """(recon, vq, {module name: output}) of flax ``gen``, one jitted apply
+    with ``capture_intermediates``."""
+    (recon, vq), inter = jax.jit(lambda p, x: gen.apply(
+        p, x, capture_intermediates=True, mutable=["intermediates"]))(
+            params, jnp.asarray(x))
+    inter = {".".join(k[:-1]): np.asarray(v[0], np.float32) for k, v in
+             traverse_util.flatten_dict(inter["intermediates"]).items()
+             if k[-1] == "__call__" and ".".join(k[:-1]) in MODULES}
+    return recon, vq, inter
 
 
 def _to_jax(flat: dict) -> dict:
@@ -95,27 +154,15 @@ def run():
     x = raw.astype(np.float32) * np.float32(2.0 / 255.0) - np.float32(1.0)
     gen = _jax_generator()
     params = _to_jax(flat)
-    (recon, vq), inter = jax.jit(lambda p, x: gen.apply(
-        p, x, capture_intermediates=True, mutable=["intermediates"]))(
-            params, jnp.asarray(x))
-    inter = {".".join(k[:-1]): np.asarray(v[0]) for k, v in
-             traverse_util.flatten_dict(inter["intermediates"]).items()
-             if k[-1] == "__call__" and ".".join(k[:-1]) in MODULES}
+    recon, vq, inter = _jax_apply(gen, params, x)
     codes = np.asarray(vq.codes)
     decoded = np.asarray(jax.jit(lambda p, c: gen.apply(
         p, c, method=JaxGenerator.decode_codes))(params, jnp.asarray(codes)))
 
-    outs, hooks = {}, []
-    for name, mod in model.named_modules():
-        if name in MODULES:
-            hooks.append(mod.register_forward_hook(
-                lambda m, i, o, name=name: outs.__setitem__(name, o)))
+    p_recon, p_vq, outs = _apply_with_hooks(model, x)
     with torch.no_grad():
-        p_recon, p_vq = model(torch.from_numpy(x))
         p_decoded = model.decode_codes(torch.from_numpy(codes.copy()))
         p_enc = model.encode(torch.from_numpy(x))
-    for h in hooks:
-        h.remove()
     return {"flat": flat, "params": params, "raw": raw, "x": x,
             "jax": {"recon": np.asarray(recon), "vq": vq, "inter": inter,
                     "decoded": decoded},
@@ -287,3 +334,113 @@ def test_kind_dispatch_and_refusals():
     with pytest.raises(NotImplementedError, match="float32"):
         generator_from_config(
             apply_overrides(cfg, ["model.eval_dtype=bfloat16"]).model)
+
+
+# ------------------------------------------------------------------ bf16 --
+
+
+@pytest.fixture(scope="module")
+def run16(run):
+    """flax with dtype=bfloat16 and the port in bf16 on ``run``'s weights
+    and input."""
+    recon, vq, inter = _jax_apply(_jax_generator(jnp.bfloat16), run["params"],
+                                  run["x"])
+    cfg = apply_overrides(_cfg(), ["model.compute_dtype=bfloat16"])
+    model = generator_from_config(cfg.model, "compute_dtype")
+    model.load_state_dict(generator_state_from_flax(run["flat"], model))
+    p_recon, p_vq, outs = _apply_with_hooks(model, run["x"])
+    return {"jax": {"recon": np.asarray(recon, np.float32), "vq": vq,
+                    "inter": inter},
+            "port": {"recon": p_recon, "vq": p_vq, "inter": outs}}
+
+
+def _within_fp32_gap(got16, got32, want, what):
+    """The port's bf16 output within twice the distance of its fp32 output
+    from flax's bf16 output, in the Euclidean norm."""
+    assert got16.dtype == torch.bfloat16, what
+    d16 = np.linalg.norm(got16.float().numpy().astype(np.float64) - want)
+    d32 = np.linalg.norm(got32.numpy().astype(np.float64) - want)
+    assert d16 <= 2 * d32, f"{what}: bf16 gap {d16:.4g} > 2 x fp32 gap " \
+        f"{d32:.4g}"
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_bf16_module_outputs(run, run16, name):
+    _within_fp32_gap(run16["port"]["inter"][name],
+                     run["port"]["inter"][name], run16["jax"]["inter"][name],
+                     name)
+
+
+def _code_agreement():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._code_agreement
+
+
+def test_bf16_generator(run, run16, capsys):
+    jvq, pvq = run16["jax"]["vq"], run16["port"]["vq"]
+    agree = _code_agreement()(
+        run16["port"]["inter"]["encoder"],
+        torch.from_numpy(run16["jax"]["inter"]["encoder"]), pvq.codes,
+        torch.from_numpy(np.array(jvq.codes)),
+        torch.from_numpy(run["flat"]["params/quantizer/codebook"]))
+    with capsys.disabled():
+        print(f"\nbf16 codes: {agree}")
+    assert agree["differ_checked"] == 0
+    assert agree["checked"] > agree["latents"] // 2
+    assert pvq.quantized.dtype == torch.bfloat16
+    _within_fp32_gap(run16["port"]["recon"], run["port"]["recon"],
+                     run16["jax"]["recon"], "recon")
+    for k in ("codebook_loss", "commitment_loss", "perplexity"):
+        assert getattr(pvq, k).dtype == torch.float32
+        np.testing.assert_allclose(float(getattr(pvq, k)),
+                                   float(getattr(jvq, k)), rtol=RTOL_BF16)
+
+
+@pytest.mark.parametrize("shift", [0.0, 10.0], ids=["centred", "mean10"])
+def test_group_norm_bf16_matches_flax(shift):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((rng.standard_normal((2, 4, 5, 64)) + shift)
+                         .astype(np.float32)).to(torch.bfloat16)
+    scale = (1 + 0.1 * rng.standard_normal(64)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(64)).astype(np.float32)
+    dy = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)
+                          ).to(torch.bfloat16)
+    params = {"params": {"GroupNorm_0": {"scale": jnp.asarray(scale),
+                                         "bias": jnp.asarray(bias)}}}
+    y, vjp = jax.vjp(lambda x, p: JaxGN(jnp.bfloat16).apply(p, x),
+                     jnp.asarray(x.float().numpy(), jnp.bfloat16), params)
+    dx, dp = vjp(jnp.asarray(dy.float().numpy(), jnp.bfloat16))
+    gn = GN(64, torch.bfloat16)
+    gn.GroupNorm_0.scale.data = torch.from_numpy(scale)
+    gn.GroupNorm_0.bias.data = torch.from_numpy(bias)
+    xt = x.clone().requires_grad_(True)
+    yt = gn(xt)
+    got = torch.autograd.grad(yt, [xt, gn.GroupNorm_0.scale,
+                                   gn.GroupNorm_0.bias], dy)
+    assert yt.dtype == got[0].dtype == torch.bfloat16
+    for g, w, what in ((yt.detach(), y, "y"), (got[0], dx, "dx")):
+        w = np.asarray(w, np.float32)
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(w).max())) - 7)
+        err = np.abs(g.float().numpy() - w).max()
+        assert err <= ulp, f"{what}: {err / ulp} bf16 ulps"
+    rel = REL if shift == 0 else 1e-4
+    for g, w, what in zip(got[1:], (dp["params"]["GroupNorm_0"]["scale"],
+                                    dp["params"]["GroupNorm_0"]["bias"]),
+                          ("dscale", "dbias")):
+        assert g.dtype == torch.float32
+        _close(g.numpy(), w, what, rel)
+
+
+def test_swish_bf16_matches_jax():
+    x = np.random.default_rng(6).standard_normal(4096).astype(np.float32) * 4
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    want = np.asarray(jax.jit(jax_swish)(jnp.asarray(xt.float().numpy(),
+                                                     jnp.bfloat16)),
+                      np.float32)
+    got = _swish(xt)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)

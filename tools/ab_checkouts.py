@@ -12,7 +12,11 @@ process with its own build:
   ``conv3s2_tc.cu`` and ``conv7_bwd_tc.cu`` and of every kernel of
   ``attention.cu``, compiled from each checkout with the same nvcc flags
   and compared instruction by instruction (the kernels' anonymous-namespace
-  prefix left out of their names): all must match;
+  prefix left out of their names; ``attention.cu``'s kernels by their
+  identifier, so that a plain kernel and the fp32 instantiation of the
+  same kernel as a template on the storage type meet): all must match;
+  kernels only this checkout has (the bf16 instantiations) are listed as
+  new;
 - the ``cyclegan256_dp`` training step, timed in fp32 and in bf16, and the
   ``vqgan512`` step (fp32, union batch 8, D on from the first step), in
   turns (this, other, other, this).
@@ -106,7 +110,7 @@ def worker(out: Path) -> None:
                     xs.to(dt), dy.to(dt)).cpu()
         for nb in (4, 8):
             q, k, v, do = (randn(nb, 1024, 512) for _ in range(4))
-            o, lse = attention_fwd(q, k, v)
+            o, lse = attention_fwd(q, k, v)[:2]  # fp32: o is the residual
             outs[f"attention_fwd {nb}"] = o.cpu()
             if nb == 8:
                 for name, t in zip(("dq", "dk", "dv"),
@@ -193,8 +197,19 @@ def sass(checkout: Path, tmp: Path) -> dict:
             m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?;)", ln)
             if name is not None and m:
                 fns[name].append(m.group(1))
-        out[src] = {k: v for k, v in fns.items() if key in k}
+        out[src] = {_sass_key(src, k): v for k, v in fns.items() if key in k}
     return out
+
+
+def _sass_key(src: str, name: str) -> str:
+    """A compiled kernel's name for the comparison: as it is, but for
+    ``attention.cu``'s kernels their identifier, with the template
+    arguments of a bf16 instantiation after it (the fp32 instantiation of
+    a kernel templated on the storage type takes the plain kernel's key)."""
+    m = re.search(r"(attn_[a-z0-9_]*?_kernel)(I.*?EE)?", name)
+    if src != "attention.cu" or m is None:
+        return name
+    return m.group(1) + (f" {m.group(2)}" if "bfloat16" in name else "")
 
 
 def run(checkout: Path, out: Path) -> dict:
@@ -242,10 +257,13 @@ def main() -> int:
                                           for k, v in times.items()}}),
                   flush=True)
         mine, theirs = sass(ROOT, Path(tmp)), sass(other, Path(tmp))
-    sass_same = {f"{src} {k}": v == theirs[src].get(k)
-                 for src in mine for k, v in mine[src].items()}
+    sass_same = {f"{src} {k}": v == theirs[src][k]
+                 for src in mine for k, v in mine[src].items()
+                 if k in theirs[src]}
     sass_same.update({f"{src} {k}": False for src in theirs
                       for k in theirs[src] if k not in mine[src]})
+    sass_new = [f"{src} {k}" for src in mine for k in mine[src]
+                if k not in theirs[src]]
     same = {k: torch.equal(v, outputs["other"][k])
             for k, v in outputs["this"].items() if k not in REPORTED}
     differ = {k: (outputs["this"][k].double()
@@ -253,7 +271,8 @@ def main() -> int:
               for k in REPORTED}
     required = [src for src, _, must in SASS if must]
     print(json.dumps({"bit_identical": same, "sass_identical": sass_same,
-                      "max_abs_difference": differ}), flush=True)
+                      "sass_new": sass_new, "max_abs_difference": differ}),
+          flush=True)
     return 0 if all(same.values()) and all(
         v for k, v in sass_same.items() if k.split()[0] in required) else 1
 

@@ -168,8 +168,8 @@ size_t dkdv_smem(int D) {
 
 }  // namespace
 
-// The arguments of uig_attention_bwd; only the first B Np^2 floats of ds
-// are used (dS^T).
+// The arguments of uig_attention_bwd for fp32 (o is the forward's fp32
+// output); only the first B Np^2 floats of ds are used (dS^T).
 extern "C" cudaError_t uig_attention_bwd_dkdv(
     const float* q, const float* k, const float* v, const float* o,
     const float* lse, const float* dout, float* delta, float* ds, float* dq,
@@ -177,8 +177,8 @@ extern "C" cudaError_t uig_attention_bwd_dkdv(
     cudaStream_t stream) {
   const int rows = B * N, per_block = kThreads / 32;
   const int Np = (N + kScoreTile - 1) / kScoreTile * kScoreTile;
-  attn_delta_kernel<<<(rows + per_block - 1) / per_block, kThreads, 0,
-                      stream>>>(o, dout, delta, rows, D);
+  attn_delta_kernel<float><<<(rows + per_block - 1) / per_block, kThreads, 0,
+                             stream>>>(o, dout, delta, rows, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = dkdv_smem(D);
@@ -190,7 +190,7 @@ extern "C" cudaError_t uig_attention_bwd_dkdv(
                         stream>>>(q, k, v, dout, lse, delta, ds, dk, dv, N, D,
                                   Np, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_gemm(attn_dq_tc_kernel, gemm_smem(),
+  return launch_gemm(attn_dq_tc_kernel<float>, gemm_smem<float>(),
                      dim3((D + kGN - 1) / kGN, (N + kGR - 1) / kGR, B), k, ds,
                      dq, N, D, Np, scale, stream);
 }

@@ -61,11 +61,14 @@ def build_designs() -> tuple[ctypes.CDLL, str]:
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{log}")
     dll = ctypes.CDLL(str(lib))
-    for name, sig in (("uig_attention_fwd", "uig_attention_fwd"),
-                      ("uig_attention_bwd_dkdv", "uig_attention_bwd")):
-        fn = getattr(dll, name)
-        fn.argtypes = _build.SIGNATURES[sig]
-        fn.restype = ctypes.c_int
+    fwd = getattr(dll, "uig_attention_fwd")
+    fwd.argtypes = _build.SIGNATURES["uig_attention_fwd"]
+    fwd.restype = ctypes.c_int
+    # uig_attention_bwd's arguments without is_bf16 (fp32 only)
+    dkdv = getattr(dll, "uig_attention_bwd_dkdv")
+    dkdv.argtypes = (_build.SIGNATURES["uig_attention_bwd"][:-2]
+                     + [ctypes.c_void_p])
+    dkdv.restype = ctypes.c_int
     return dll, log
 
 
@@ -146,8 +149,8 @@ def main() -> int:
                     lse = torch.empty(nb, n, device=dev)
                     part = (torch.empty(2 * nb * n * (d + 1), device=dev)
                             if splits == 2 else None)
-                    launch("uig_attention_fwd", q, k, v, o, lse, part, nb, n,
-                           d, _scale(d), splits)
+                    launch("uig_attention_fwd", q, k, v, o, lse, part, None,
+                           nb, n, d, _scale(d), splits, False)
                     return o
                 return run
 
@@ -167,7 +170,7 @@ def main() -> int:
                      "port_ranges": _key_splits(dev, nb, n),
                      "bound_ms": bms, "variants": lines})
 
-            o, lse = attention_fwd(q, k, v)
+            o, lse, _ = attention_fwd(q, k, v)
 
             def dkdv(q=q, k=k, v=v, o=o, lse=lse, do=do, nb=nb):
                 grads = tuple(torch.empty_like(q) for _ in range(3))
