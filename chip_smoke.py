@@ -1277,11 +1277,20 @@ def compare_card_cpu_bf16(trainer_cls, cfg, a, b, loss_keys, phase,
     too). Each loss is one scalar, whose bf16 and fp32 values can agree
     by chance: B16 and C16 are held to A16 within LOSS_RTOL_BF16 of its
     value, and A32's gap is printed. ``grad_metrics`` are metrics made from
-    gradients (the VQGAN adaptive weight, and the loss it scales): gated as
-    the gradients are, B16 within A32's relative gap and C16 within twice
-    it, with LOSS_RTOL_BF16 as the floor. The update is checked
-    as in fp32: Adam and the EMA on the card from A16's gradients against
-    the CPU's from the same gradients, within 1e-5."""
+    gradients (the VQGAN adaptive weight, a ratio of two gradient norms at
+    the last kernel, and the loss it scales): B16 within the larger of
+    A32's relative gap and twice the A16-A32 gap of the last kernel's
+    gradient (| |a| - |b| | <= |a - b| for each norm), C16 within twice
+    that, with LOSS_RTOL_BF16 as the floor. Each gate must be able to fail:
+    a zero gradient (1.0 of the norm) and a doubled gradient metric (1.0
+    relative) lie over its limits, or the check fails. Where the generator
+    has a quantizer (the VQGAN), B16, C16 and A32 take A16's codes (``pin_codes``): latents
+    within rounding of two codewords take either code in any two runs, and
+    such a flip moves the gradients as far as bf16 does; each run's own
+    codes must agree with A16's outside that margin (``_code_agreement``).
+    The update is checked as in fp32: Adam and the EMA on the card from
+    A16's gradients against the CPU's from the same gradients, within
+    1e-5."""
     import torch
 
     from uig_torch import kernels as K
@@ -1298,26 +1307,62 @@ def compare_card_cpu_bf16(trainer_cls, cfg, a, b, loss_keys, phase,
     draws = cpu.draw(s0, 1, a.shape[1], a.shape[2])
     out = {}
 
-    s_a = s0.to(card.device)
-    ga, ma = card._grads(s_a, batch, draws)
-    card._update(s_a, ga)
-    with plain_versions():
-        K.reset_launch_counts()
-        gb, mb = card._grads(s0.to(card.device), batch, draws)
-        if any(K.launch_counts().values()):
-            raise AssertionError(f"plain run launched {K.launch_counts()}")
-    g32, m32 = card32._grads(s0_32.to(card32.device), batch, draws)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    gc, mc = cpu._grads(s0.clone(), batch, draws)
-    out["cpu_grads_s"] = time.perf_counter() - t1
+    seen, hooks, run = {}, [], [None]
+    pin = hasattr(card.generator, "quantizer")
+    if pin:
+        from torch.func import functional_call
+
+        from uig_torch.models.vqgan import pin_codes
+        for tr in (card, cpu, card32):
+            hooks.append(tr.generator.quantizer.register_forward_hook(
+                lambda m, i, o: seen.__setitem__(run[0], (
+                    i[0].detach().float().cpu(), o.codes.cpu()))))
+
+    def pinned(tr, name):
+        run[0] = name
+        if not pin:
+            return contextlib.nullcontext()
+        return pin_codes(tr.generator.quantizer, seen["A16"][1])
+
+    try:
+        s_a = s0.to(card.device)
+        run[0] = "A16"
+        ga, ma = card._grads(s_a, batch, draws)
+        card._update(s_a, ga)
+        with plain_versions(), pinned(card, "B16"):
+            K.reset_launch_counts()
+            gb, mb = card._grads(s0.to(card.device), batch, draws)
+            if any(K.launch_counts().values()):
+                raise AssertionError(f"plain run launched "
+                                     f"{K.launch_counts()}")
+        with pinned(card32, "A32"):
+            g32, m32 = card32._grads(s0_32.to(card32.device), batch, draws)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with pinned(cpu, "C16"):
+            gc, mc = cpu._grads(s0.clone(), batch, draws)
+        out["cpu_grads_s"] = time.perf_counter() - t1
+    finally:
+        for h in hooks:
+            h.remove()
+    bad = {}
+    if pin:
+        cb = s0.g_params["quantizer.codebook"]
+        z_a, codes_a = seen["A16"]
+        for name in ("B16", "C16", "A32"):
+            z = seen[name][0]
+            own = functional_call(cpu.generator.quantizer, {"codebook": cb},
+                                  (z,)).codes
+            agree = _code_agreement(z_a, z, codes_a, own, cb)
+            out[f"codes_A16_{name}"] = agree
+            if agree["differ_checked"]:
+                bad[f"codes_A16_{name}"] = agree
 
     runs = {"B16": mb, "C16": mc, "A32": m32}
     for pair, m in runs.items():
         out[f"loss_rel_err_A16_{pair}"] = {k: _rel(ma[k], m[k])
                                            for k in loss_keys}
     fa, fb, fc, f32 = (flat_grads(g) for g in (ga, gb, gc, g32))
-    bad = {}
     for net in ("g", "d"):
         leaves = {k: t for k, t in fc.items() if k.startswith(net + "/")}
         norm = sum((t.double() ** 2).sum().item()
@@ -1331,15 +1376,23 @@ def compare_card_cpu_bf16(trainer_cls, cfg, a, b, loss_keys, phase,
             out[f"{net}_grad_{pair}_max"] = grad_gap(x, y, net, top)[0]
         out[f"{net}_grad_norm_gap"] = gaps
         floor = gaps["A16_A32"]
-        if gaps["A16_B16"] > floor or gaps["A16_C16"] > 2 * floor:
+        # a zero gradient reads 1.0 on both: the gate must refuse it
+        if gaps["A16_B16"] > floor or gaps["A16_C16"] > 2 * floor \
+                or 2 * floor >= 1.0:
             bad[f"{net}_grad"] = gaps
+    if grad_metrics:
+        w = f"g/{card.last_kernel}"
+        out["last_kernel_grad_gap_A16_A32"] = float(
+            (fa[w].double() - f32[w].double()).norm() / f32[w].double().norm())
     for k in loss_keys:
         ab, ac, a32 = (out[f"loss_rel_err_A16_{p}"][k]
                        for p in ("B16", "C16", "A32"))
         if k in grad_metrics:
-            if ab > max(a32, LOSS_RTOL_BF16) or \
-                    ac > max(2 * a32, LOSS_RTOL_BF16):
-                bad[k] = (ab, ac, a32)
+            lim = max(a32, 2 * out["last_kernel_grad_gap_A16_A32"],
+                      LOSS_RTOL_BF16)
+            # doubled, a metric reads 1.0 relative: the gate must refuse it
+            if ab > lim or ac > 2 * lim or 2 * lim >= 1.0:
+                bad[k] = (ab, ac, lim)
         elif max(ab, ac) > LOSS_RTOL_BF16:
             bad[k] = (ab, ac)
 

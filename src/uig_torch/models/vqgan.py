@@ -24,6 +24,7 @@ arithmetic (``group_norm``).
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -36,12 +37,36 @@ from uig_torch.models.layers import Conv, nearest_up2
 GN_EPS = 1e-6
 
 
+def _sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
+    """sigmoid as XLA expands ``logistic`` in bf16: 1 / (1 + exp(-x)), each
+    of the four ops rounded to bf16."""
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+class _SwishBF16(torch.autograd.Function):
+    """x sigmoid(x) in bf16, keeping only x for the backward, which
+    recomputes the sigmoid with the forward's roundings and then takes
+    JAX's VJP of ``x * jax.nn.sigmoid(x)`` op by op, each rounded to bf16:
+    dx = dy s + (x dy)(s (1 - s))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * _sigmoid_bf16(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, = ctx.saved_tensors
+        s = _sigmoid_bf16(x)
+        return dy * s + (x * dy) * (s * (1.0 - s))
+
+
 def _swish(x: torch.Tensor) -> torch.Tensor:
-    """x sigmoid(x). In bf16 as JAX computes ``x * jax.nn.sigmoid(x)``:
-    sigmoid as 1 / (1 + exp(-x)), each of the four ops rounded to bf16."""
+    """x sigmoid(x): ``F.silu`` in fp32; in bf16 as JAX rounds it
+    (``_SwishBF16``)."""
     if x.dtype == torch.float32:
         return F.silu(x)
-    return x * torch.reciprocal(1.0 + torch.exp(-x))
+    return _SwishBF16.apply(x)
 
 
 def _gn_moments(xg: torch.Tensor, eps: float):
@@ -55,13 +80,13 @@ def _gn_moments(xg: torch.Tensor, eps: float):
 
 class _GroupNorm(torch.autograd.Function):
     """Forward in flax's order, y = (x - mean) * (rstd * scale) + bias, in
-    fp32 from x widened, rounded once to ``dtype``; the backward by the
+    fp32 from x widened, rounded once to x's dtype; the backward by the
     closed form in fp32, keeping only x (in its own dtype) and the (B, G)
     moments. dscale and dbias are fp32; dx has x's dtype, and in bf16 it
     is rounded as JAX's VJP of flax's GroupNorm rounds it (``backward``)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, groups, eps, dtype):
+    def forward(ctx, x, scale, bias, groups, eps):
         b, h, w, c = x.shape
         xg = x.reshape(b, h * w, groups, c // groups).to(torch.float32)
         mean, rstd = _gn_moments(xg, eps)
@@ -69,7 +94,7 @@ class _GroupNorm(torch.autograd.Function):
         y = (xg - mean) * (rstd * sg) + bias.reshape(groups, c // groups)
         ctx.save_for_backward(x, scale, mean, rstd)
         ctx.groups = groups
-        return y.reshape(b, h, w, c).to(dtype)
+        return y.reshape(b, h, w, c).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -91,18 +116,15 @@ class _GroupNorm(torch.autograd.Function):
             dx = (g * rstd).to(x.dtype) + stats.to(x.dtype)
         dscale = (dyg * xhat).sum(dim=(0, 1)).reshape(c)
         dbias = dyg.sum(dim=(0, 1)).reshape(c)
-        return (dx.reshape(b, h, w, c).to(x.dtype), dscale, dbias, None, None,
-                None)
+        return dx.reshape(b, h, w, c).to(x.dtype), dscale, dbias, None, None
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               groups: int, eps: float = GN_EPS,
-               dtype: torch.dtype | None = None) -> torch.Tensor:
-    """flax ``nn.GroupNorm(dtype=dtype, param_dtype=float32)`` over NHWC x:
-    contiguous channel groups, fp32 statistics over (H, W, C / groups), the
-    output in ``dtype`` (x's by default)."""
-    return _GroupNorm.apply(x.contiguous(), scale, bias, groups, eps,
-                            x.dtype if dtype is None else dtype)
+               groups: int, eps: float = GN_EPS) -> torch.Tensor:
+    """flax ``nn.GroupNorm(dtype=x.dtype, param_dtype=float32)`` over NHWC
+    x: contiguous channel groups, fp32 statistics over (H, W, C / groups),
+    the output in x's dtype."""
+    return _GroupNorm.apply(x.contiguous(), scale, bias, groups, eps)
 
 
 class _GroupNormParams(nn.Module):
@@ -114,7 +136,8 @@ class _GroupNormParams(nn.Module):
 
 class GN(nn.Module):
     """The JAX ``GN``: ``nn.GroupNorm(min(32, C), epsilon=1e-6,
-    dtype=dtype)``."""
+    dtype=dtype)``, on x already in ``dtype`` (the ladder's compute
+    dtype)."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -122,8 +145,10 @@ class GN(nn.Module):
         self.GroupNorm_0 = _GroupNormParams(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != self.dtype:
+            raise TypeError(f"GN in {self.dtype} given {x.dtype}")
         p = self.GroupNorm_0
-        return group_norm(x, p.scale, p.bias, self.groups, dtype=self.dtype)
+        return group_norm(x, p.scale, p.bias, self.groups)
 
 
 class VQResBlock(nn.Module):
@@ -274,6 +299,7 @@ class VectorQuantizer(nn.Module):
         super().__init__()
         self.codebook_size, self.embed_dim = codebook_size, embed_dim
         self.codebook = nn.Parameter(torch.zeros(codebook_size, embed_dim))
+        self.pinned: torch.Tensor | None = None  # see pin_codes
 
     def embed(self, codes: torch.Tensor) -> torch.Tensor:
         """codes (...) -> (..., D) codebook vectors."""
@@ -284,9 +310,12 @@ class VectorQuantizer(nn.Module):
         z32 = z.to(torch.float32)
         flat = z32.reshape(-1, self.embed_dim)
         # argmin_k |z - e_k|^2 by one (BHW, K) matmul; ties take the first
-        d = ((flat ** 2).sum(1, keepdim=True) - 2.0 * flat @ cb.T
-             + (cb ** 2).sum(1)[None, :])
-        codes = torch.argmin(d, dim=1)
+        if self.pinned is None:
+            d = ((flat ** 2).sum(1, keepdim=True) - 2.0 * flat @ cb.T
+                 + (cb ** 2).sum(1)[None, :])
+            codes = torch.argmin(d, dim=1)
+        else:
+            codes = self.pinned.reshape(-1).to(flat.device, torch.int64)
         # the gather as a one-hot product: exact in fp32, and its backward
         # (one_hot^T @ g) sums each codeword's gradient in a fixed order
         onehot = F.one_hot(codes, self.codebook_size).to(torch.float32)
@@ -300,6 +329,20 @@ class VectorQuantizer(nn.Module):
         return VQOutput(quant_st.to(z.dtype), codebook_loss, commitment,
                         codes.reshape(z.shape[:-1]).to(torch.int32),
                         perplexity)
+
+
+@contextlib.contextmanager
+def pin_codes(quantizer: VectorQuantizer, codes):
+    """Within the block, ``quantizer`` gives its latents ``codes`` (B, h, w)
+    in place of their nearest codewords. Two implementations whose encoders
+    round apart pick other codes for the latents that lie within rounding
+    of two codewords; pinned to one choice, the rest of their steps can be
+    compared."""
+    quantizer.pinned = torch.as_tensor(codes)
+    try:
+        yield
+    finally:
+        quantizer.pinned = None
 
 
 class VQGANGenerator(nn.Module):

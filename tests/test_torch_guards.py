@@ -277,3 +277,66 @@ def test_chip_smoke_norm_bwd_check_bounds_dgamma_dbeta_by_the_kink(case):
         (dx, dg, db), ref)
     assert extra["dx_elements_at_relu_kink"] == 1
     assert (checked > tol) == (case == "past_the_bound"), checked
+
+
+VQ_TINY = ["model.image_size=32", "data.load_size=36", "data.batch_size=2",
+           "model.vq_base_features=16", "model.vq_channel_mults=(1,2)",
+           "model.vq_embed_dim=8", "model.vq_codebook_size=32",
+           "model.vq_attn_resolutions=(16,)", "loss.lambda_lpips=0",
+           "loss.vq_disc_start=0"]
+
+
+@pytest.mark.parametrize("fault", ["none", "zero_g"])
+def test_chip_smoke_bf16_vqgan_gate_pins_codes_and_refuses_zero(fault,
+                                                               monkeypatch):
+    """``compare_card_cpu_bf16`` with CPU trainers in place of the card's
+    (a tiny bf16 VQGAN): B16, C16 and A32 take A16's codes, each run's own
+    codes agree with them outside the margin, and a zero G gradient from
+    A16 is refused."""
+    import numpy as np
+    import torch
+
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.train import VQGANTrainer
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    runs = []
+
+    class OnCPU(VQGANTrainer):
+        def __init__(self, cfg, device="cpu"):
+            super().__init__(cfg, device="cpu")
+
+        def _grads(self, state, batch, draws):
+            grads, m = super()._grads(state, batch, draws)
+            if fault == "zero_g" and not runs:  # A16, the first run
+                grads["g"] = {k: torch.zeros_like(v)
+                              for k, v in grads["g"].items()}
+            runs.append(self.dtype)
+            return grads, m
+
+    cfg = apply_overrides(get_preset("vqgan512"), VQ_TINY)
+    rng = np.random.default_rng(0)
+    a, b = (rng.integers(0, 256, (2, 36, 36, 3), dtype=np.uint8)
+            for _ in range(2))
+    keys = ("g_loss", "d_loss", "rec", "codebook", "g_adv", "perplexity",
+            "lambda_adapt")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        if fault == "zero_g":
+            with pytest.raises(AssertionError, match="g_grad"):
+                cs.compare_card_cpu_bf16(OnCPU, cfg, a, b, keys, "tiny",
+                                         ("lambda_adapt", "g_loss"))
+            return
+        out = cs.compare_card_cpu_bf16(OnCPU, cfg, a, b, keys, "tiny",
+                                       ("lambda_adapt", "g_loss"))
+    finally:
+        torch.set_num_threads(threads)
+    assert runs == [torch.bfloat16, torch.bfloat16, torch.float32,
+                    torch.bfloat16]
+    for name in ("B16", "C16", "A32"):
+        agree = out[f"codes_A16_{name}"]
+        assert agree["differ_checked"] == 0, agree
+    # the fp32 step, pinned to the bf16 codes, differs where bf16 rounds
+    assert 0 < out["g_grad_norm_gap"]["A16_A32"] < 0.5
