@@ -22,8 +22,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    inputs, rounded once, and those within the fp32 gate of the plain
    version, ``_attention_bf16_check``). The cases
    of design "tf32x3" (fp32 on the tensor cores in the three-term TF32
-   split: the attention kernels, the fused conv3+IN and K4s's input and
-   weight gradients) also report the
+   split: the attention kernels, the fused conv3+IN and K4s's forward,
+   input and weight gradients) also report the
    kernel's and the plain version's error against float64 on the card,
    the kernel's at most ``FP64_ERR_OVER_PLAIN`` times the plain version's,
    and the CUDA kernels the yardstick launched. The norm backward's cases
@@ -56,7 +56,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    twice and must come out byte-identical; two images through the same model
    on the CPU (plain versions) must agree within 1 uint8 step; each apply
    must launch instance norm 5 times, conv3+IN 18 times, conv7 once and
-   the stride-2 conv twice.
+   the stride-2 conv twice, and a profiled apply must run each in the
+   design ``SLICE_DESIGNS`` names (both downsamples in "tf32x3").
 5. serve: the HTTP server on the card answers 12 concurrent PNG requests,
    each equal to a direct ``Translator`` call, and reports its /stats.
 
@@ -86,8 +87,8 @@ and reconstruct apply for the attention kernels; its error, and its times
 and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
 ``train_bf16`` step, with the design each dtype launched: "wgmma" on the
-tensor cores, "tf32x3" (the fp32 conv3+IN and K4s dgrad/wgrad), or
-"fma", read from the
+tensor cores, "mma" (the bf16 7x7 head), "tf32x3" (the fp32 conv3+IN
+and K4s), or "fma", read from the
 functions that the dtype's profiled training step launched and held to
 ``STEP_DESIGNS``; "tf32x3" for the attention kernels, read from each
 dtype's VQGAN step's profile), the nvidia-smi line, and, last,
@@ -127,11 +128,11 @@ BATCH = 8
 SEED = 0
 # H100 SXM data-sheet peaks (at 700 W): fp32 outside the tensor cores, bf16
 # and TF32 dense on the tensor cores, HBM3. A bf16 case's bound counts the
-# tensor-core rate, which only the kernels of design "wgmma" use; the others
-# compute in fp32 FMAs. The attention kernels, the fp32 conv3+IN and K4s's
-# fp32 dgrad and wgrad (design "tf32x3") multiply fp32 on the tensor cores
-# in the three-term TF32 split: their bound counts 3 TF32 flops per fp32
-# flop at the TF32 rate.
+# tensor-core rate, which only the kernels of designs "wgmma" and "mma"
+# use; the others compute in fp32 FMAs. The attention kernels, the fp32
+# conv3+IN and K4s's fp32 forward, dgrad and wgrad (design "tf32x3")
+# multiply fp32 on the tensor cores in the three-term TF32 split: their
+# bound counts 3 TF32 flops per fp32 flop at the TF32 rate.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
@@ -150,9 +151,9 @@ PEAK_BYTES = 3.35e12
 # the same 2e-4 of the plain version as its earlier FMA design.
 # K4s: each output's error relative to its largest value (fp32 sums over
 # up to 9 * 128 terms, or a batch's pixels for the weight gradient); the
-# fp32 dgrad and wgrad (design "tf32x3") are held to the same bounds as
-# the FMA design before them, and report their error against float64
-# too.
+# fp32 forward, dgrad and wgrad (design "tf32x3") are held to the same
+# bounds as the FMA design before them, and report their error against
+# float64 too.
 TOL = {"augment_batch": 0.0, "instance_norm": 1e-4,
        "instance_norm_bwd": 1e-4, "conv3_in_act": 2e-4, "conv7": 1e-4,
        "conv7_dgrad": 1e-4, "conv7_wgrad": 1e-4, "conv3s2": 1e-5,
@@ -168,8 +169,8 @@ TOL_BF16 = {name: 1.0 for name in TOL} | {"conv3_in_act": 2.0,
                                           "augment_batch": 0.0}
 # kernels whose every case must also repeat bit for bit
 REPEAT_BIT_EQUAL = ("augment_batch", "instance_norm_bwd", "conv3_in_act",
-                    "conv7_dgrad", "conv3s2_dgrad", "conv3s2_wgrad",
-                    "attention_fwd", "attention_bwd")
+                    "conv7", "conv7_dgrad", "conv3s2", "conv3s2_dgrad",
+                    "conv3s2_wgrad", "attention_fwd", "attention_bwd")
 # design "tf32x3": the kernel's error against float64 at most this many
 # times the plain version's (fp32 on the FMA cores), so that the split keeps
 # fp32's order of error
@@ -225,9 +226,9 @@ SOURCES = {
 # from the functions its profiled training step launched (``designs_run``);
 # every other kernel has one design, "fma", in SOURCES. The earlier FMA
 # designs of the fp32 conv3+IN, of the attention kernels and of K4s's fp32
-# dgrad and wgrad, and the earlier six-launch norm backward, are gone from
-# the source: their names stay here so that a step that launched them
-# fails.
+# forward, dgrad and wgrad, the bf16 instantiation of the 7x7 head's FMA
+# kernel, and the earlier six-launch norm backward, are gone from the
+# source: their names stay here so that a step that launched them fails.
 DESIGNS = {
     "conv3_in_act": {
         "fma": ("conv3_gemm_kernel", "src/uig_torch/csrc/conv3_in.cu"),
@@ -242,9 +243,14 @@ DESIGNS = {
                      "src/uig_torch/csrc/instance_norm_bwd.cu"),
         "two_pass": (("in_bwd_sums_kernel", "in_bwd_dx_kernel"),
                      "src/uig_torch/csrc/instance_norm_bwd.cu")},
+    "conv7": {
+        "fma": ("conv7_kernel", "src/uig_torch/csrc/conv7.cu"),
+        "mma": ("conv7_mma_kernel", "src/uig_torch/csrc/conv7_tc.cu")},
     "conv3s2": {
         "fma": ("conv_fwd_kernel", "src/uig_torch/csrc/conv3s2.cu"),
-        "wgmma": ("conv_fwd_wgmma_kernel", "src/uig_torch/csrc/conv3s2_tc.cu")},
+        "wgmma": ("conv_fwd_wgmma_kernel", "src/uig_torch/csrc/conv3s2_tc.cu"),
+        "tf32x3": (("conv_fwd_wsplit_kernel", "conv_fwd_tf32_kernel"),
+                   "src/uig_torch/csrc/conv3s2_tf32.cu")},
     "conv7_dgrad": {
         "fma": ("conv7_dgrad_kernel", "src/uig_torch/csrc/conv7_bwd.cu"),
         "wgmma": ("conv7_dgrad_wgmma_kernel",
@@ -277,10 +283,10 @@ DESIGNS = {
 # compute dtype (CycleGAN), and in the VQGAN step.
 STEP_DESIGNS = {
     "float32": {"instance_norm_bwd": "two_pass", "conv3_in_act": "tf32x3",
-                "conv3s2": "fma", "conv7_dgrad": "fma",
+                "conv7": "fma", "conv3s2": "tf32x3", "conv7_dgrad": "fma",
                 "conv3s2_dgrad": "tf32x3", "conv3s2_wgrad": "tf32x3"},
     "bfloat16": {"instance_norm_bwd": "two_pass", "conv3_in_act": "wgmma",
-                 "conv3s2": "wgmma", "conv7_dgrad": "wgmma",
+                 "conv7": "mma", "conv3s2": "wgmma", "conv7_dgrad": "wgmma",
                  "conv3s2_dgrad": "wgmma", "conv3s2_wgrad": "wgmma"}}
 VQ_STEP_DESIGNS = {"instance_norm_bwd": "two_pass",
                    "attention_fwd": "tf32x3", "attention_bwd": "tf32x3"}
@@ -341,6 +347,10 @@ PER_STEP = {"augment_batch": 2, "instance_norm": 32,
             "conv3s2_dgrad": 8, "conv3s2_wgrad": 8, "attention_fwd": 0,
             "attention_bwd": 0}
 DTYPE_NAMES = ("float32", "bfloat16")
+# The design each kernel of DESIGNS runs in one translate apply (fp32
+# serving, PER_APPLY launches), read from a profiled apply.
+SLICE_DESIGNS = {"conv3_in_act": "tf32x3", "conv7": "fma",
+                 "conv3s2": "tf32x3"}
 
 # Timed repeats, cut so that the whole run stays well inside its time
 # limit (~211 s of command time on an H100 before the bf16 VQGAN phase):
@@ -604,6 +614,18 @@ def conv3_in_fp64(x, w, b, g, be, relu):
     return (torch.relu(y) if relu else y).permute(0, 2, 3, 1)
 
 
+def conv_fwd_fp64(x, w, b, stride, pad):
+    """The zero-padded strided conv + bias in float64, NHWC: x (B, H, W,
+    C), w (k, k, C, F), b (F,) or None -> y (B, Ho, Wo, F)."""
+    import torch.nn.functional as F
+
+    y = F.conv2d(x.double().permute(0, 3, 1, 2),
+                 w.double().permute(3, 2, 0, 1),
+                 None if b is None else b.double(), stride=stride,
+                 padding=pad)
+    return y.permute(0, 2, 3, 1)
+
+
 def conv_dgrad_fp64(dy, w, size, stride, pad):
     """The input gradient of the zero-padded strided conv in float64, NHWC:
     dy (B, Ho, Wo, F), w (k, k, C, F) -> dx (B, H, W, C), (H, W) = size."""
@@ -837,7 +859,9 @@ def kernel_cases(dev, dtype: str = "float32"):
                        lambda xn=xn, wt=wt, b=b: F.conv2d(
                            xn, wt, b, stride=2, padding=1),
                        isz * (x.numel() + w.numel() + cout + dy.numel()),
-                       flops, check=_rel_check)
+                       flops, check=_rel_check, design="tf32x3" if f32 else "",
+                       fp64=(lambda x=x, w=w, b=b: conv_fwd_fp64(
+                           x, w, b, 2, 1)) if f32 else None)
             yield case("conv3s2_dgrad", label, 2, 0,
                        lambda dy=dy, w=w: conv3s2_dgrad(dy, w),
                        lambda dy=dy, w=w: conv3s2_dgrad_reference(dy, w),
@@ -875,7 +899,9 @@ def kernel_cases(dev, dtype: str = "float32"):
                lambda: conv_core_reference(xp, wf, 3, 3),
                lambda: F.conv2d(xn, wt),
                isz * (xp.numel() + wf.numel() + dy.numel()), flops,
-               check=_rel_check)
+               check=_rel_check, design="tf32x3" if f32 else "",
+               fp64=(lambda: conv_fwd_fp64(xp, w4, None, 1, 0))
+               if f32 else None)
     yield case("conv3s2_dgrad", label, 0, 0,
                lambda: conv_s2._dgrad("conv_core", dy, w4, (66, 66), 1, 0),
                lambda: conv_s2._dgrad_reference(dy, w4, (66, 66), 1, 0),
@@ -1658,7 +1684,12 @@ def phase_slice(weights: str):
           "generator_ms_per_batch": gen_ms,
           "generator_img_per_s": 1e3 * BATCH / gen_ms,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    emit(profile_call(lambda: tr(raw), "profile"))
+    prof = profile_call(lambda: tr(raw), "profile", calls=True)
+    calls = prof.pop("calls")
+    prof["designs"] = designs_run(calls, "slice", PER_APPLY,
+                                  expect=SLICE_DESIGNS)
+    prof["design_calls"] = design_calls(calls)
+    emit(prof)
     return tr, launches
 
 
@@ -2057,7 +2088,8 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "build_seconds": build_s, "build_cached": _build.build_info["cached"],
           "ptxas": ptxas[:12], "ptxas_wgmma": wgmma_ptxas(log),
-          "ptxas_tf32x3": wgmma_ptxas(log, ("_tc_kernel", "tf32"))})
+          "ptxas_tf32x3": wgmma_ptxas(log, ("_tc_kernel", "tf32")),
+          "ptxas_mma": wgmma_ptxas(log, "_mma_kernel")})
     dev = torch.device("cuda", 0)
     totals = phase_kernels(dev)
     step_launches, designs = phase_train(dev, steps=FP32_TRAIN_STEPS)

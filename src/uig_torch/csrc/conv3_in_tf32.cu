@@ -64,35 +64,11 @@ __device__ __forceinline__ int mirror(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-// wt: (2, F, 9 Cp), hi and lo of W^T from w (9C, F). grid (ceil(F / 32),
-// 9 Cp / 32), block (32, 8): a 32-channel chunk of one tap x 32 columns
-// through a shared tile, read along F and written along K.
+// wt: (2, F, 9 Cp), hi and lo of W^T from w (9C, F) (wt_split_tile).
 __global__ void conv3_wt_split_kernel(const float* __restrict__ w,
                                       float* __restrict__ wt, int C, int F,
                                       int Cp) {
-  __shared__ float tile[32][33];
-  const int chunks = Cp / 32;
-  const int j = blockIdx.y;
-  const int tap = j / chunks;
-  const int c0 = (j - tap * chunks) * 32;
-  const int n0 = blockIdx.x * 32;
-  const int tx = threadIdx.x;
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int c = c0 + i, n = n0 + tx;
-    tile[i][tx] = c < C && n < F ? w[((size_t)tap * C + c) * F + n] : 0.f;
-  }
-  __syncthreads();
-  const size_t k = (size_t)9 * Cp;
-  const size_t plane = (size_t)F * k;
-  for (int i = threadIdx.y; i < 32; i += 8) {
-    const int n = n0 + i;
-    if (n >= F) continue;
-    uint32_t hi, lo;
-    split_tf32(tile[chunk_channel(tx)][i], hi, lo);
-    const size_t o = (size_t)n * k + (size_t)j * 32 + tx;
-    wt[o] = __uint_as_float(hi);
-    wt[plane + o] = __uint_as_float(lo);
-  }
+  wt_split_tile(w, wt, 9, C, F, Cp);
 }
 
 // grid (ceil(H W / 128), ceil(F / 128), B), block 256, kTfSmem dynamic.

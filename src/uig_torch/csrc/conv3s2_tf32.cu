@@ -1,10 +1,11 @@
-// K4s's fp32 input and weight gradients on Hopper's tensor cores, in the
-// three-term TF32 split (csrc/tf32_wgmma.cuh states the numerics): the
-// adjoints of the square k x k conv with zero padding and a stride over
-// NHWC fp32, for the generator's 3x3 stride-2 pad-1 downsamples (d128: 64
-// -> 128 channels at 256^2, d256: 128 -> 256 at 128^2; 8 launches of each
-// a fp32 training step of cyclegan256_dp) and, with stride 1 and no
-// padding, the generic VALID conv.
+// K4s's fp32 forward, input and weight gradients on Hopper's tensor cores,
+// in the three-term TF32 split (csrc/tf32_wgmma.cuh states the numerics):
+// the square k x k conv with zero padding and a stride over NHWC fp32 and
+// its adjoints, for the generator's 3x3 stride-2 pad-1 downsamples (d128:
+// 64 -> 128 channels at 256^2, d256: 128 -> 256 at 128^2; 8 launches of
+// each a fp32 training step of cyclegan256_dp, 2 forwards a translate
+// apply) and, with stride 1 and no padding, the generic VALID conv.
+//   fwd:   x (B, H, W, C), w (k, k, C, F) [+ bias (F,)] -> y (B, Ho, Wo, F)
 //   dgrad: dy (B, Ho, Wo, F), w (k, k, C, F) -> dx (B, H, W, C)
 //   wgrad: x (B, H, W, C), dy -> part (chunks, k k C, F), summed in chunk
 //          order by csrc/conv3s2.cu's conv_wgrad_reduce_kernel
@@ -14,9 +15,30 @@
 // Bound on this card (H100 SXM data sheet, 700 W): each path shape at batch
 // 16 is 2 * 16 * 128^2 * 128 * 9 * 64 = 3.87e10 FLOP; as 3 TF32 products
 // at 495 TFLOP/s that is 0.2345 ms, against d128's 201 MB (0.060 ms at
-// 3.35 TB/s): operations bound both. On fp32 FMAs (67 TFLOP/s) the same
-// FLOPs take 0.578 ms, so the products run on the tensor cores.
+// 3.35 TB/s): operations bound all three. On fp32 FMAs (67 TFLOP/s) the
+// same FLOPs take 0.578 ms, so the products run on the tensor cores.
 //
+// fwd: an implicit GEMM on K3's ring (tf32_ring, 4 stages, one block an
+//   SM): M = 128 output pixels of one image a block (two consumer
+//   warpgroups of 64 rows), N = F (BN = 64 where F <= 64, else 128), K =
+//   (tap, 32-channel chunk of C), 9 taps x 2 or 4 chunks at d128 and d256.
+//   A rows are x at the tap's strided window, 32 channels in a 128-byte
+//   row, gathered by cp.async into the 128B swizzle with zero fill for the
+//   padding, for rows past the image's pixels and for the channels missing
+//   from a ragged last chunk, and split in registers while the previous
+//   stage's products run (K3's gather, with zeros for reflect's mirror and
+//   the stride in the index). B: tf32 wgmma reads K-major operands only,
+//   and the HWIO weight read as (k k C, F) is N-major, so
+//   conv_fwd_wsplit_kernel (wt_split_tile, K3's transposing split for k k
+//   taps) first writes W^T's hi and lo planes, (F, k k Cp) fp32 each, into
+//   a scratch the wrapper allocates; TMA loads each stage's (32 x BN)
+//   boxes (zeros past F). The epilogue adds the bias in fp32 and stores
+//   fp32. The tensor core's accumulator takes partials of kFwDepth stages
+//   (UIG_K4S_FWD_DEPTH, two stages of 32 channels by default, K3's 64:
+//   tools/k4s_depths.py read 0.33-0.51x the plain version's error from
+//   float64 at the path shapes; 32 channels 0.25-0.32x at 2-3 % more
+//   time; 256 channels 1.11-1.67x at 2 % less, 15 % under the 2x gate
+//   every fp32 case is held to; all of K 3.9-6.1x).
 // dgrad: an implicit GEMM by stride-parity class, as the bf16 kernel of
 //   csrc/conv3s2_tc.cu: a dx pixel (i, j) receives the outputs whose window
 //   holds it, through the taps di with stride | (i + pad - di), which depend
@@ -77,14 +99,19 @@
 namespace {
 
 constexpr int kMaxTaps = 49;  // k <= 7, as csrc/conv3s2.cu checks
+constexpr int kFwStages = 4;
 constexpr int kDgStages = 4;
+#ifndef UIG_K4S_FWD_DEPTH
+#define UIG_K4S_FWD_DEPTH 2
+#endif
 #ifndef UIG_K4S_DGRAD_DEPTH
 #define UIG_K4S_DGRAD_DEPTH 1
 #endif
 #ifndef UIG_K4S_WGRAD_DEPTH
 #define UIG_K4S_WGRAD_DEPTH 2
 #endif
-constexpr int kDgDepth = UIG_K4S_DGRAD_DEPTH;  // K stages a partial sum
+constexpr int kFwDepth = UIG_K4S_FWD_DEPTH;  // K stages a partial sum
+constexpr int kDgDepth = UIG_K4S_DGRAD_DEPTH;
 constexpr int kWgDepth = UIG_K4S_WGRAD_DEPTH;
 
 // wgrad shared memory: the two B buffers (hi plane, then lo, 128 rows of
@@ -115,6 +142,98 @@ __global__ void conv_wsplit_kernel(const float* __restrict__ w,
   if (o < F) split_tf32(w[(size_t)row * F + o], hi, lo);
   ws[i] = __uint_as_float(hi);
   ws[n + i] = __uint_as_float(lo);
+}
+
+// ------------------------------------------------------------------ fwd --
+// wt: (2, F, taps Cp), hi and lo of W^T from w (taps C, F) (wt_split_tile).
+__global__ void conv_fwd_wsplit_kernel(const float* __restrict__ w,
+                                       float* __restrict__ wt, int taps,
+                                       int C, int F, int Cp) {
+  wt_split_tile(w, wt, taps, C, F, Cp);
+}
+
+// grid (ceil(Ho Wo / 128), ceil(F / BN), B), block 256,
+// kTfSmemBytes<BN, kFwStages> dynamic.
+template <int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_fwd_tf32_kernel(const float* __restrict__ x,
+                         const float* __restrict__ bias,
+                         float* __restrict__ y,
+                         const __grid_constant__ CUtensorMap hi_map,
+                         const __grid_constant__ CUtensorMap lo_map, int H,
+                         int W, int C, int F, int Ho, int Wo, int k,
+                         int stride, int pad) {
+  constexpr int kPasses = 128 * 8 / kThreads;  // 16-byte pieces a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint8_t* sbase = smem_raw + (base - smem_u32(smem_raw));
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int M = Ho * Wo;
+  const int m0 = blockIdx.x * 128;
+  const int n0 = blockIdx.y * BN;
+  const int cchunks = (C + 31) / 32;
+  const int nk = k * k * cchunks;
+  const float* xb = x + (size_t)b * H * W * C;
+
+  // the thread's A rows: the top-left corner of output pixel m's window
+  const int piece = tid & 7;
+  int a_iy[kPasses], a_ix[kPasses];
+  bool a_ok[kPasses];
+#pragma unroll
+  for (int q = 0; q < kPasses; ++q) {
+    const int m = m0 + (tid >> 3) + q * (kThreads / 8);
+    a_ok[q] = m < M;
+    const int mm = a_ok[q] ? m : 0;
+    const int oy = mm / Wo;
+    a_iy[q] = oy * stride - pad;
+    a_ix[q] = (mm - oy * Wo) * stride - pad;
+  }
+
+  auto load = [&](int kc, int slot, uint64_t* bar) {
+    const int tap = kc / cchunks;
+    const int c0 = (kc - tap * cchunks) * 32;
+    const int di = tap / k, dj = tap - di * k;
+    const uint32_t st = base + slot * kTfStageBytes<BN>;
+    const int c = c0 + piece * 4;
+#pragma unroll
+    for (int q = 0; q < kPasses; ++q) {
+      const int row = (tid >> 3) + q * (kThreads / 8);
+      const int sy = a_iy[q] + di, sx = a_ix[q] + dj;
+      const bool ok = a_ok[q] && c < C && sy >= 0 && sy < H && sx >= 0 &&
+                      sx < W;
+      const float* src = ok ? xb + ((size_t)sy * W + sx) * C + c : x;
+      cp_async<16>(st + swz(row, piece), src, ok ? 16 : 0);
+    }
+    if (tid == 0) {
+      mbar_expect_tx(bar, 2 * BN * 128);
+      const int kk = tap * cchunks * 32 + c0;
+      tma_load_2d(st + kTfTile, &hi_map, bar, kk, n0);
+      tma_load_2d(st + kTfTile + BN * 128, &lo_map, bar, kk, n0);
+    }
+    cp_async_commit();
+  };
+
+  float sum[BN / 2];
+  tf32_ring<BN, kFwStages, kFwDepth>(sum, base, sbase, nk, load);
+
+  const int wg = tid >> 7, t = tid & 127;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + wg * 64 + acc_row(t, h);
+    if (m >= M) continue;
+    float* o = y + ((size_t)b * M + m) * F;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + acc_col(t, j);
+      if (n >= F) continue;  // F % 4 == 0: n and n + 1 are both in or out
+      const float b0 = bias != nullptr ? bias[n] : 0.f;
+      const float b1 = bias != nullptr ? bias[n + 1] : 0.f;
+      *reinterpret_cast<float2*>(o + n) =
+          make_float2(sum[4 * j + 2 * h] + b0, sum[4 * j + 2 * h + 1] + b1);
+    }
+  }
 }
 
 // ---------------------------------------------------------------- dgrad --
@@ -443,6 +562,34 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int BN>
+cudaError_t fwd(const float* x, const float* w, float* ws, const float* bias,
+                float* y, int B, int H, int W, int C, int F, int k,
+                int stride, int pad, cudaStream_t stream) {
+  const int Ho = (H + 2 * pad - k) / stride + 1;
+  const int Wo = (W + 2 * pad - k) / stride + 1;
+  const int cp = (C + 31) / 32 * 32;
+  const int cols = k * k * cp;
+  conv_fwd_wsplit_kernel<<<dim3((F + 31) / 32, cols / 32), dim3(32, 8), 0,
+                           stream>>>(w, ws, k * k, C, F, cp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap hi_map = {}, lo_map = {};
+  if ((err = plane_map(&hi_map, ws, F, cols, BN)) != cudaSuccess) return err;
+  if ((err = plane_map(&lo_map, ws + (size_t)F * cols, F, cols, BN)) !=
+      cudaSuccess)
+    return err;
+  const auto kernel = conv_fwd_tf32_kernel<BN>;
+  constexpr int smem = kTfSmemBytes<BN, kFwStages>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Ho * Wo + 127) / 128, (F + BN - 1) / BN, B);
+  kernel<<<grid, kThreads, smem, stream>>>(x, bias, y, hi_map, lo_map, H, W,
+                                           C, F, Ho, Wo, k, stride, pad);
+  return cudaGetLastError();
+}
+
+template <int BN>
 cudaError_t dgrad(const float* dy, const float* w, float* ws, float* dx,
                   int B, int H, int W, int C, int F, int k, int stride,
                   int pad, cudaStream_t stream) {
@@ -473,6 +620,25 @@ cudaError_t dgrad(const float* dy, const float* w, float* ws, float* dx,
 }
 
 }  // namespace
+
+// fp32 forward, called by uig_conv_fwd (csrc/conv3s2.cu) with its shape
+// checks done: x (B, H, W, C), w (k, k, C, F), bias (F,) or null -> y (B,
+// Ho, Wo, F); ws: the (2, F, k k Cp) fp32 scratch of W^T's split planes, Cp
+// = C rounded up to 32. N = F in 64-wide tiles (m64n64k8) when F <= 64,
+// else 128-wide.
+cudaError_t conv_fwd_fp32_tf32(const void* x, const void* w, float* ws,
+                               const void* bias, void* y, int B, int H,
+                               int W, int C, int F, int k, int stride,
+                               int pad, cudaStream_t stream) {
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* o = static_cast<float*>(y);
+  return F <= 64 ? fwd<64>(xf, wf, ws, bf, o, B, H, W, C, F, k, stride, pad,
+                           stream)
+                 : fwd<128>(xf, wf, ws, bf, o, B, H, W, C, F, k, stride, pad,
+                            stream);
+}
 
 // fp32 input gradient, called by uig_conv_dgrad (csrc/conv3s2.cu) with its
 // shape checks done: dy (B, Ho, Wo, F), w (k, k, C, F) -> dx (B, H, W, C);

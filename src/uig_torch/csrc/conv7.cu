@@ -1,5 +1,6 @@
 // Direct 7x7 stride-1 pad-3 conv (reflect or zeros) + bias over NHWC fp32
-// or bf16, for few output channels (the generator head, Cin 64 -> Cout 3).
+// or bf16, for few output channels (the generator head, Cin 64 -> Cout 3):
+// the entry point and the fp32 kernel.
 //
 // Replaces: src/uig/kernels/conv_pallas.py, _conv5_impl -> _conv5_kernel with
 // _assemble_mirror, as reached from conv7_s2d via conv_core5 (on the TPU the
@@ -9,11 +10,16 @@
 // Bound on this card: operations. At (8, 256, 256, 64) -> 3 the conv is
 // 9.87 GFLOP, about 0.147 ms at the H100 SXM data-sheet 67 TFLOP/s fp32
 // (700 W); its 134 MB read and 6 MB write take about 42 us. In bf16 (x, w
-// and the bias already rounded to bf16, as JAX's PadConv casts them) the
-// same fp32 FMAs run on widened values and y is rounded once; its bound at
-// the 989 TFLOP/s bf16 tensor-core rate is ~0.01 ms, by bytes ~0.02 ms.
+// and the bias already rounded to bf16, as JAX's PadConv casts them) its
+// bound at the 989 TFLOP/s bf16 tensor-core rate is ~0.01 ms, by bytes
+// ~0.02 ms.
 //
-// Design: one thread per output pixel computes all (<= 4) output channels,
+// Two designs, chosen by the storage type:
+//   - fp32: this file's FMA kernel, below;
+//   - bf16: the tensor cores (mma.sync m16n8k16 on the exact bf16
+//     products, the 7 horizontal taps folded into N), csrc/conv7_tc.cu.
+//
+// FMA design: one thread per output pixel computes all (<= 4) output channels,
 // so a product with N = 3 wastes nothing on padding to a matrix tile. A
 // 32 x 8 block stages its input tile plus the 3-pixel halo in shared memory,
 // 16 input channels at a time, with reflect padding as index mirroring in
@@ -134,14 +140,20 @@ cudaError_t fwd(const void* x, const void* w, const void* bias, void* y,
 
 }  // namespace
 
+// The tensor-core kernel of csrc/conv7_tc.cu (bf16).
+cudaError_t conv7_fwd_bf16_mma(const void* x, const void* w, const void* bias,
+                               void* y, int B, int H, int W, int Cin,
+                               int Cout, int reflect, cudaStream_t stream);
+
 // x: (B, H, W, Cin); w: HWIO (7, 7, Cin, Cout), Cout <= 4; bias: (Cout,);
-// y: (B, H, W, Cout); all fp32, or all bf16 when is_bf16. Reflect needs
-// H, W >= 4.
+// y: (B, H, W, Cout); all fp32 (FMA), or all bf16 when is_bf16 (mma.sync;
+// Cin % 4 == 0, Cin <= 256). Reflect needs H, W >= 4.
 extern "C" cudaError_t uig_conv7_fwd(const void* x, const void* w,
                                      const void* bias, void* y, int B, int H,
                                      int W, int Cin, int Cout, int reflect,
                                      int is_bf16, cudaStream_t stream) {
-  return is_bf16
-             ? fwd<bf16>(x, w, bias, y, B, H, W, Cin, Cout, reflect, stream)
-             : fwd<float>(x, w, bias, y, B, H, W, Cin, Cout, reflect, stream);
+  return is_bf16 ? conv7_fwd_bf16_mma(x, w, bias, y, B, H, W, Cin, Cout,
+                                      reflect, stream)
+                 : fwd<float>(x, w, bias, y, B, H, W, Cin, Cout, reflect,
+                              stream);
 }

@@ -1,9 +1,10 @@
 // The fp32 kernels on wgmma in the three-term TF32 split (csrc/tf32.cuh):
 // csrc/conv3_in_tf32.cu (K3's fp32 conv) and csrc/conv3s2_tf32.cu (K4s's
-// fp32 input and weight gradients). The tf32 wgmma with A from registers,
-// the order of a 32-element K chunk that matches the A fragments, the TMA
-// map of a hi or lo plane, and the ring that K3 and the K4s input gradient
-// run.
+// fp32 forward, input and weight gradients). The tf32 wgmma with A from
+// registers, the order of a 32-element K chunk that matches the A
+// fragments, the split of an HWIO weight into W^T's K-major planes, the TMA
+// map of a hi or lo plane, and the ring that K3, the K4s forward and the
+// K4s input gradient run.
 //
 // Numerics, in every kernel that includes this: each product a b is summed
 // as lo_a hi_b + hi_a lo_b + hi_a hi_b (fp32 accumulators), in that order
@@ -122,7 +123,8 @@ __device__ __forceinline__ void pin(uint32_t (&ah)[4][4],
       asm volatile("" : "+r"(ah[kk][i]), "+r"(al[kk][i])::"memory");
 }
 
-// The ring of K3's fp32 conv and the K4s fp32 input gradient: sum (BN / 2
+// The ring of K3's fp32 conv and the K4s fp32 forward and input gradient:
+// sum (BN / 2
 // fp32 a thread, wgmma.cuh's accumulator layout) = A (128 rows, 64 a
 // warpgroup) x B (BN columns) over nk K stages of 32 elements. Stage layout
 // (kTfStageBytes<BN>, from `base`, 1024-aligned): A rows 0..127, 128 bytes
@@ -221,6 +223,40 @@ __device__ __forceinline__ void tf32_ring(float (&sum)[BN / 2],
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i];
     }
+  }
+}
+
+// W^T's hi and lo planes, K-major, from an HWIO weight read as (taps C, F):
+// wt (2, F, taps Cp), Cp = C rounded up to 32, each 32-channel chunk of a
+// tap in chunk_channel order, zeros past C. One block of (32, 8) threads
+// a 32-channel chunk of one tap x 32 columns (grid (ceil(F / 32), taps Cp
+// / 32)), through a shared tile, read along F and written along K.
+__device__ __forceinline__ void wt_split_tile(const float* __restrict__ w,
+                                              float* __restrict__ wt,
+                                              int taps, int C, int F,
+                                              int Cp) {
+  __shared__ float tile[32][33];
+  const int chunks = Cp / 32;
+  const int j = blockIdx.y;
+  const int tap = j / chunks;
+  const int c0 = (j - tap * chunks) * 32;
+  const int n0 = blockIdx.x * 32;
+  const int tx = threadIdx.x;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i, n = n0 + tx;
+    tile[i][tx] = c < C && n < F ? w[((size_t)tap * C + c) * F + n] : 0.f;
+  }
+  __syncthreads();
+  const size_t k = (size_t)taps * Cp;
+  const size_t plane = (size_t)F * k;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int n = n0 + i;
+    if (n >= F) continue;
+    uint32_t hi, lo;
+    split_tf32(tile[chunk_channel(tx)][i], hi, lo);
+    const size_t o = (size_t)n * k + (size_t)j * 32 + tx;
+    wt[o] = __uint_as_float(hi);
+    wt[plane + o] = __uint_as_float(lo);
   }
 }
 

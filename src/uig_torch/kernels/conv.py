@@ -1,5 +1,6 @@
 """The 7x7 stride-1 pad-3 conv + bias for few output channels: the forward
-CUDA kernel in ``csrc/conv7.cu``, its input and weight gradients in
+CUDA kernels behind ``csrc/conv7.cu`` (fp32 on FMAs there, bf16 on the
+tensor cores in ``csrc/conv7_tc.cu``), its input and weight gradients in
 ``csrc/conv7_bwd.cu``, their plain PyTorch versions, and ``conv7_act``, the
 autograd function that pairs them.
 
@@ -23,6 +24,7 @@ from uig_torch.kernels._check import cuda_operand, on_cpu, storage_type
 from uig_torch.kernels.reflect import reflect_fold
 
 MAX_COUT = 4
+MAX_CIN_BF16 = 256  # the bf16 forward's source rows and B in shared memory
 _WGRAD_BLOCKS = 528  # wgrad blocks in flight: 4 per SM on 132 SMs
 _WTILE = (8, 16)     # wgrad pixel tile (csrc/conv7_bwd.cu kWH, kWW)
 
@@ -74,6 +76,9 @@ def conv7(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     nb, h, wd, cin = x.shape
     _check_card("conv7", h, wd, cout, pad_mode)
     t = storage_type("conv7", "x", x)
+    if t == torch.bfloat16 and (cin % 4 or cin > MAX_CIN_BF16):
+        raise ValueError(f"conv7: bf16 takes Cin a multiple of 4 up to "
+                         f"{MAX_CIN_BF16}, got {cin}")
     cuda_operand("conv7", "w", w, dtypes=(t,))
     cuda_operand("conv7", "bias", bias, (cout,), dtypes=(t,))
     y = torch.empty((nb, h, wd, cout), device=x.device, dtype=t)

@@ -1,7 +1,7 @@
 """The generator's 3x3 stride-2 pad-1 downsample conv (d128, d256) and the
-generic VALID conv, with their gradients: the CUDA kernels in
-``csrc/conv3s2.cu`` and ``csrc/conv3s2_tc.cu``, their plain PyTorch
-versions, and the autograd functions that pair them.
+generic VALID conv, with their gradients: the CUDA kernels behind
+``csrc/conv3s2.cu`` (``csrc/conv3s2_tf32.cu``, ``csrc/conv3s2_tc.cu``),
+their plain PyTorch versions, and the autograd functions that pair them.
 
 Replaces the JAX package's ``kernels/conv_pallas.py`` ``conv3s2_s2d`` and
 ``conv_core`` (both through ``conv_core5`` -> ``_conv5_impl``; the backward
@@ -19,14 +19,13 @@ fp32 from the widened inputs and round once):
   * ``conv3s2_wgrad(x, dy)``: its weight gradient, (3, 3, Cin, Cout) in x's
     type.
 
-Three designs, chosen by the type and the launch:
+Two designs, chosen by the type:
 
-  * fp32 dgrad and wgrad, "tf32x3": the tensor cores in the three-term TF32
-    split (``wgmma``, ``csrc/conv3s2_tf32.cu``); the dgrad reads the
-    forward's HWIO weight through hi/lo planes that a split kernel writes
-    into a scratch allocated here;
-  * fp32 forward, "fma": fp32 FMAs (``csrc/conv3s2.cu``), as fp32 serving
-    wants with TF32 off;
+  * fp32, all three, "tf32x3": the tensor cores in the three-term TF32
+    split (``wgmma``, ``csrc/conv3s2_tf32.cu``), which keeps fp32's order of
+    error, as the fp32 training step and fp32 serving want; the forward
+    reads W^T's hi/lo planes and the dgrad the HWIO weight's, each written
+    by a split kernel into a scratch allocated here;
   * bf16, all three, "wgmma": the tensor cores on bf16 products
     (``csrc/conv3s2_tc.cu``).
 
@@ -127,9 +126,12 @@ def _fwd(name, x, w, bias, stride: int, pad: int) -> torch.Tensor:
         cuda_operand(name, "bias", bias, (cout,), dtypes=(t,))
     y = torch.empty((nb, _out(h, k, stride, pad), _out(wd, k, stride, pad),
                      cout), device=x.device, dtype=t)
+    ws = (None if t == torch.bfloat16  # tf32x3: W^T's hi/lo planes
+          else torch.empty((2, cout, k * k * -(-cin // 32) * 32),
+                           device=x.device, dtype=torch.float32))
     with torch.cuda.device(x.device):
-        _build.launch("uig_conv_fwd", x, w, bias, y, nb, h, wd, cin, cout, k,
-                      stride, pad, t == torch.bfloat16)
+        _build.launch("uig_conv_fwd", x, w, ws, bias, y, nb, h, wd, cin, cout,
+                      k, stride, pad, t == torch.bfloat16)
     return y
 
 

@@ -17,12 +17,14 @@ Tolerances, each relative to the largest value of the JAX output compared:
 ``PadConv`` routes to ``conv3s2`` exactly the 3x3 stride-2 pad-1 zero-padded
 convs on even planes with channel counts that are multiples of 4.
 
-The fp32 CUDA dgrad and wgrad multiply in the three-term TF32 split on the
-tensor cores; ``test_tf32x3_grads_match_jax`` emulates their arithmetic in
-torch (the K stages, each stage's products in the split, partial sums of
-the kernels' depth added in fp32, the weight gradient's pixel chunks summed
-in order) and holds it to JAX's VJP within the fp32 tolerance, on the
-results ``test_conv3s2_matches_jax`` computes (one cached JAX call a case)."""
+The fp32 CUDA forward, dgrad and wgrad multiply in the three-term TF32
+split on the tensor cores; ``test_tf32x3_grads_match_jax`` emulates their
+arithmetic in torch (the K stages, each stage's products in the split,
+partial sums of the kernels' depth added in fp32, the forward's bias added
+after them, the weight gradient's pixel chunks summed in order) and holds
+it to JAX's output (the forward's cases, ids ending in ``-fwd``) and VJP
+within the fp32 tolerance, on the results ``test_conv3s2_matches_jax``
+computes (one cached JAX call a case)."""
 
 import functools
 
@@ -41,11 +43,16 @@ from uig_torch.models.layers import PadConv
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2 * 2.0 ** -8)}
-# K stages a partial sum in csrc/conv3s2_tf32.cu: 32 channels of F a stage
-# in the dgrad (UIG_K4S_DGRAD_DEPTH), 32 pixels in the wgrad
-# (UIG_K4S_WGRAD_DEPTH)
+# K stages a partial sum in csrc/conv3s2_tf32.cu: 32 channels of one tap
+# of C a stage in the forward (UIG_K4S_FWD_DEPTH), 32 channels of F in the
+# dgrad (UIG_K4S_DGRAD_DEPTH), 32 pixels in the wgrad (UIG_K4S_WGRAD_DEPTH)
+K4S_FWD_DEPTH = 2
 K4S_DGRAD_DEPTH = 1
 K4S_WGRAD_DEPTH = 2
+# JAX's references are compiled whole (op by op, every op compiles) with
+# excess precision off, so that XLA on the CPU rounds to bf16 where the
+# program says instead of fusing across the roundings
+JAX_OPTIONS = {"xla_allow_excess_precision": False}
 
 
 def _close(got: torch.Tensor, want, rel: float, what: str) -> None:
@@ -55,6 +62,12 @@ def _close(got: torch.Tensor, want, rel: float, what: str) -> None:
     err = np.abs(got.astype(np.float64) - want).max()
     tol = rel * np.abs(want).max()
     assert err <= tol, f"{what}: max|err| {err:.3g} > {tol:.3g}"
+
+
+def _compiled(fn, *args):
+    """``fn(*args)`` compiled by ``jax.jit`` with ``JAX_OPTIONS``."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=JAX_OPTIONS)(
+        *args)
 
 
 def _arrays(seed, *shapes, scale=1.0):
@@ -72,8 +85,12 @@ def _jax_conv3s2(dtype, shape, cout):
                           (shape[0], shape[1] // 2, shape[2] // 2, cout))
     w, b = w * 0.1, b * 0.1
     jx, jw, jb, jdy = (jnp.asarray(a, jdt) for a in (x, w, b, dy))
-    want, vjp = jax.vjp(conv3s2_s2d, jx, jw, jb)
-    return (x, w, b, dy), (want, *vjp(jdy))
+
+    def run(*a):
+        want, vjp = jax.vjp(conv3s2_s2d, *a[:3])
+        return (want, *vjp(a[3]))
+
+    return (x, w, b, dy), _compiled(run, jx, jw, jb, jdy)
 
 
 @pytest.mark.parametrize("dtype,shape,cout", [
@@ -110,6 +127,22 @@ def _partials(stages, depth):
         if k % depth == depth - 1 or k == len(stages) - 1:
             total = total + acc
     return total
+
+
+def _fwd_tf32x3(x, w, b):
+    """conv3s2's y as csrc/conv3s2_tf32.cu forms it: K = the taps (rows,
+    then columns) x 32-channel chunks of C; A the zero-padded stride-2
+    window at the tap; the bias added to the sum in fp32."""
+    nb, h, wd, c = x.shape
+    ho, wo = h // 2, wd // 2
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    stages = []
+    for di in range(3):
+        for dj in range(3):
+            a = xp[:, di:di + 2 * ho:2, dj:dj + 2 * wo:2].reshape(-1, c)
+            stages += [(a[:, c0:c0 + 32], w[di, dj, c0:c0 + 32])
+                       for c0 in range(0, c, 32)]
+    return (_partials(stages, K4S_FWD_DEPTH) + b).reshape(nb, ho, wo, -1)
 
 
 def _dgrad_tf32x3(dy, w):
@@ -161,11 +194,18 @@ def _wgrad_tf32x3(x, dy):
     return dw
 
 
-@pytest.mark.parametrize("shape,cout", [((2, 16, 16, 8), 16),
-                                        ((1, 12, 20, 4), 8)])
-def test_tf32x3_grads_match_jax(shape, cout):
-    (x, w, _, dy), (_, wdx, wdw, _) = _jax_conv3s2("float32", shape, cout)
-    tx, tw, tdy = map(torch.from_numpy, (x, w, dy))
+@pytest.mark.parametrize("shape,cout,fwd", [
+    pytest.param((2, 16, 16, 8), 16, False, id="shape0-16"),
+    pytest.param((1, 12, 20, 4), 8, False, id="shape1-8"),
+    pytest.param((2, 16, 16, 8), 16, True, id="shape0-16-fwd"),
+    pytest.param((1, 12, 20, 4), 8, True, id="shape1-8-fwd")])
+def test_tf32x3_grads_match_jax(shape, cout, fwd):
+    (x, w, b, dy), (want, wdx, wdw, _) = _jax_conv3s2("float32", shape,
+                                                      cout)
+    tx, tw, tb, tdy = map(torch.from_numpy, (x, w, b, dy))
+    if fwd:
+        _close(_fwd_tf32x3(tx, tw, tb), want, 1e-5, "y")
+        return
     _close(_dgrad_tf32x3(tdy, tw), wdx, 1e-5, "dx")
     _close(_wgrad_tf32x3(tx, tdy), wdw, 1e-5, "dw")
 
@@ -180,8 +220,12 @@ def test_conv_core_matches_jax(dtype, kh, cin, cout, h):
                         (2, ho, ho, cout))
     w = w * 0.1
     jx, jw, jdy = (jnp.asarray(a, jdt) for a in (xp, w, dy))
-    want, vjp = jax.vjp(lambda a, b: jax_conv_core(a, b, kh, kh), jx, jw)
-    wdx, wdw = vjp(jdy)
+
+    def run(a, b, ct):
+        want, vjp = jax.vjp(lambda u, v: jax_conv_core(u, v, kh, kh), a, b)
+        return (want, *vjp(ct))
+
+    want, wdx, wdw = _compiled(run, jx, jw, jdy)
     ins = [torch.from_numpy(a).to(tdt).requires_grad_(True) for a in (xp, w)]
     y = conv_core(*ins, kh, kh)
     _close(y, want, rel, "y")

@@ -23,8 +23,9 @@ Attention: the output and dq/dk/dv within 1e-5 of their largest value (fp32
 softmax sums over at most 300 keys in another order), the log-sum-exp
 within 1e-5. K4s (the 3x3 stride-2 conv and the VALID conv): within 1e-5 of
 the largest value (sums over at most 9 * 36 terms, or the batch's pixels);
-its fp32 dgrad and wgrad, in the three-term TF32 split, are held to the
-same 1e-5 at the path's widths and at ragged VALID shapes.
+its fp32 forward, dgrad and wgrad, in the three-term TF32 split, are held
+to the same 1e-5 at the path's widths and at ragged VALID shapes, and the
+forward's error from float64 to at most twice the plain version's.
 
 bf16: every kernel against its plain version in bf16 (both sum in fp32
 from the same bf16 values and round once, in another order) within 1 bf16
@@ -391,8 +392,76 @@ def test_conv3s2_kernels(dev, shape, cout):
     _rel_close(conv3s2(x, w, None), conv3s2_reference(x, w, None), rel=1e-5)
     _rel_close(dx, conv3s2_dgrad_reference(dy, w), rel=1e-5)
     _rel_close(dw, conv3s2_wgrad_reference(x, dy), rel=1e-5)
+    assert torch.equal(y, conv3s2(x, w, b))
     assert torch.equal(dw, conv3s2_wgrad(x, dy))
     assert torch.equal(dx, conv3s2_dgrad(dy, w))
+
+
+def _fp64_err(out, exact):
+    return ((out.double() - exact).abs().max() / exact.abs().max()).item()
+
+
+def _conv_fp64(x, w, b, stride, pad):
+    y = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+        None if b is None else b.double(), stride=stride, padding=pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def _functions_run(fn) -> set:
+    """The CUDA functions one call of ``fn`` launched, by name:
+    "void (anonymous namespace)::f<64>(...)" -> f."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {m.group(1) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            for m in [re.search(r"(\w+)[<(]", e.name)] if m}
+
+
+@pytest.mark.parametrize("nb,h,cin,cout", [
+    pytest.param(2, 256, 64, 128, id="d128"),
+    pytest.param(2, 128, 128, 256, id="d256"),
+    pytest.param(8, 256, 64, 128, id="d128-b8"),
+    pytest.param(3, 34, 36, 68, id="ragged-c36-f68"),
+    pytest.param(1, 16, 132, 8, id="ragged-c132-f8")])
+def test_conv3s2_fp32_forward(dev, nb, h, cin, cout):
+    """The fp32 forward (tf32x3) at the downsamples' widths (N of 128, the
+    ring over 18 and 36 K stages) and at ragged ones (a 64-wide N tile,
+    chunks of C that fill no 32-channel row, M tiles cut at the plane's
+    end): within 1e-5 of the plain version, its error from float64 at most
+    twice the plain version's, repeats bit-equal, and only the split's
+    functions launched."""
+    x = _randn(dev, nb, h, h + 2, cin)
+    w = _randn(dev, 3, 3, cin, cout, scale=0.05, seed=1)
+    b = _randn(dev, cout, scale=0.05, seed=2)
+    y, ref = conv3s2(x, w, b), conv3s2_reference(x, w, b)
+    _rel_close(y, ref, rel=1e-5)
+    exact = _conv_fp64(x, w, b, 2, 1)
+    assert _fp64_err(y, exact) <= 2.0 * _fp64_err(ref, exact)
+    assert torch.equal(y, conv3s2(x, w, b))
+    fns = _functions_run(lambda: conv3s2(x, w, b))
+    assert {"conv_fwd_wsplit_kernel", "conv_fwd_tf32_kernel"} <= fns, fns
+    assert "conv_fwd_kernel" not in fns, fns
+
+
+@pytest.mark.parametrize("k", [1, 3, 7])
+def test_conv_core_fp32_forward(dev, k):
+    """The VALID stride-1 forward (tf32x3) at 1 (one tap, K = one chunk of
+    20 channels), 3 and 7 (49 taps): within 1e-5 of the plain version,
+    repeats bit-equal. Its error from float64 is not held to twice the
+    plain version's here: with 20 channels a tap cuDNN's fp32 sums read
+    2.1e-7 of the largest value, below the split's own floor (the dropped
+    lo x lo term and lo's rounding to TF32, ~2^-22 of a product; 5.0e-7 at
+    k = 7 on an H100), while at the path's widths the split reads 0.3-0.5x
+    the plain version's error (``test_conv3s2_fp32_forward``)."""
+    xp = _randn(dev, 2, 19, 23, 20)
+    wf = _randn(dev, k * k * 20, 36, scale=0.1, seed=1)
+    y, ref = conv_core(xp, wf, k, k), conv_core_reference(xp, wf, k, k)
+    _rel_close(y, ref, rel=1e-5)
+    assert torch.equal(y, conv_core(xp, wf, k, k))
 
 
 @pytest.mark.parametrize("nb,h,cin,cout", [(2, 256, 64, 128),
@@ -434,19 +503,11 @@ def test_conv_core_fp32_grads_ragged(dev, cin, cout):
 def test_conv3s2_fp32_backward_launches_the_split_kernels(dev):
     """The fp32 backward of the downsample runs the tf32x3 functions and
     none of the FMA dgrad and wgrad that they replaced."""
-    from torch.profiler import ProfilerActivity, profile
-
     x = _randn(dev, 2, 16, 16, 8)
     w = _randn(dev, 3, 3, 8, 16, scale=0.1, seed=1)
     b = _randn(dev, 16, scale=0.1, seed=2)
     ct = _randn(dev, 2, 8, 8, 16, seed=3)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _grads(conv3s2_act, (x, w, b), ct)
-        torch.cuda.synchronize()
-    # "void (anonymous namespace)::f<64>(...)" -> f
-    fns = {m.group(1) for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           for m in [re.search(r"(\w+)[<(]", e.name)] if m}
+    fns = _functions_run(lambda: _grads(conv3s2_act, (x, w, b), ct))
     assert {"conv_wsplit_kernel", "conv_dgrad_tf32_kernel",
             "conv_wgrad_tf32_kernel", "conv_wgrad_reduce_kernel"} <= fns, fns
     assert not fns & {"conv_dgrad_kernel", "conv_wgrad_kernel"}, fns
@@ -709,6 +770,42 @@ def test_conv3s2_bf16(dev, shape, cout):
     assert torch.equal(y, conv3s2(x, w, b))
     assert torch.equal(dx, conv3s2_dgrad(dy, w))
     assert torch.equal(dw, conv3s2_wgrad(x, dy))
+
+
+# The head at the step's batches (16 and 8, two strips of 128 columns, 256
+# rows of 32-row groups) and ragged planes: W of 4 (one m16 tile, 4
+# columns), 20 (a ragged second tile), 300 (three strips), H not a multiple
+# of the row group; Cin 68 (8-byte pieces, five k16 steps, the last ragged)
+# and 8; Cout 1 to 4 (one to four n8 tiles).
+@pytest.mark.parametrize("shape,cout,pad_mode", [
+    pytest.param((16, 256, 256, 64), 3, "reflect", id="head-b16"),
+    pytest.param((8, 256, 256, 64), 3, "reflect", id="head-b8"),
+    pytest.param((8, 256, 256, 64), 3, "zeros", id="head-b8-zeros"),
+    pytest.param((1, 4, 4, 8), 1, "reflect", id="4x4-c1"),
+    pytest.param((2, 37, 20, 68), 2, "zeros", id="37x20-c68"),
+    pytest.param((1, 45, 300, 16), 4, "reflect", id="45x300-c4"),
+    pytest.param((3, 13, 19, 24), 3, "zeros", id="13x19-zeros")])
+def test_conv7_bf16_forward(dev, shape, cout, pad_mode):
+    """K4f in bf16 on mma.sync: within 1 bf16 ulp of the plain version,
+    repeats bit-equal, and only the tensor-core kernel launched."""
+    cin = shape[-1]
+    x = _randn(dev, *shape).to(BF)
+    w = _randn(dev, 7, 7, cin, cout, scale=0.05, seed=1).to(BF)
+    b = _randn(dev, cout, scale=0.1, seed=2).to(BF)
+    y = conv7(x, w, b, pad_mode)
+    _ulps_close(y, conv7_reference(x, w, b, pad_mode))
+    assert torch.equal(y, conv7(x, w, b, pad_mode))
+    fns = _functions_run(lambda: conv7(x, w, b, pad_mode))
+    assert "conv7_mma_kernel" in fns and "conv7_kernel" not in fns, fns
+
+
+def test_conv7_bf16_refuses_what_it_cannot_take(dev):
+    x = _randn(dev, 1, 8, 8, 6).to(BF)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        conv7(x, _randn(dev, 7, 7, 6, 3).to(BF), None)
+    x = _randn(dev, 1, 8, 8, 260).to(BF)
+    with pytest.raises(ValueError, match="up to 256"):
+        conv7(x, _randn(dev, 7, 7, 260, 3).to(BF), None)
 
 
 def test_bf16_operands_are_checked(dev):
