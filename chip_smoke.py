@@ -22,8 +22,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    inputs, rounded once, and those within the fp32 gate of the plain
    version, ``_attention_bf16_check``). The cases
    of design "tf32x3" (fp32 on the tensor cores in the three-term TF32
-   split: the attention kernels, the fused conv3+IN and K4s's forward,
-   input and weight gradients) also report the
+   split: the attention kernels, the fused conv3+IN, K4s's forward,
+   input and weight gradients and the 7x7 head's forward) also report the
    kernel's and the plain version's error against float64 on the card,
    the kernel's at most ``FP64_ERR_OVER_PLAIN`` times the plain version's,
    and the CUDA kernels the yardstick launched. The norm backward's cases
@@ -57,7 +57,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    on the CPU (plain versions) must agree within 1 uint8 step; each apply
    must launch instance norm 5 times, conv3+IN 18 times, conv7 once and
    the stride-2 conv twice, and a profiled apply must run each in the
-   design ``SLICE_DESIGNS`` names (both downsamples in "tf32x3").
+   design ``SLICE_DESIGNS`` names (K3, both downsamples and the head in
+   "tf32x3").
 5. serve: the HTTP server on the card answers 12 concurrent PNG requests,
    each equal to a direct ``Translator`` call, and reports its /stats.
 
@@ -87,8 +88,8 @@ and reconstruct apply for the attention kernels; its error, and its times
 and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
 ``train_bf16`` step, with the design each dtype launched: "wgmma" on the
-tensor cores, "mma" (the bf16 7x7 head), "tf32x3" (the fp32 conv3+IN
-and K4s), or "fma", read from the
+tensor cores, "mma" (the bf16 7x7 head), "tf32x3" (the fp32 conv3+IN,
+K4s and the 7x7 head's forward), or "fma", read from the
 functions that the dtype's profiled training step launched and held to
 ``STEP_DESIGNS``; "tf32x3" for the attention kernels, read from each
 dtype's VQGAN step's profile), the nvidia-smi line, and, last,
@@ -130,9 +131,10 @@ SEED = 0
 # and TF32 dense on the tensor cores, HBM3. A bf16 case's bound counts the
 # tensor-core rate, which only the kernels of designs "wgmma" and "mma"
 # use; the others compute in fp32 FMAs. The attention kernels, the fp32
-# conv3+IN and K4s's fp32 forward, dgrad and wgrad (design "tf32x3")
-# multiply fp32 on the tensor cores in the three-term TF32 split: their
-# bound counts 3 TF32 flops per fp32 flop at the TF32 rate.
+# conv3+IN, K4s's fp32 forward, dgrad and wgrad and the 7x7 head's fp32
+# forward (design "tf32x3") multiply fp32 on the tensor cores in the
+# three-term TF32 split: their bound counts 3 TF32 flops per fp32 flop at
+# the TF32 rate.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
@@ -153,7 +155,7 @@ PEAK_BYTES = 3.35e12
 # up to 9 * 128 terms, or a batch's pixels for the weight gradient); the
 # fp32 forward, dgrad and wgrad (design "tf32x3") are held to the same
 # bounds as the FMA design before them, and report their error against
-# float64 too.
+# float64 too; so is the 7x7 head's fp32 forward (1e-4, "tf32x3").
 TOL = {"augment_batch": 0.0, "instance_norm": 1e-4,
        "instance_norm_bwd": 1e-4, "conv3_in_act": 2e-4, "conv7": 1e-4,
        "conv7_dgrad": 1e-4, "conv7_wgrad": 1e-4, "conv3s2": 1e-5,
@@ -169,8 +171,9 @@ TOL_BF16 = {name: 1.0 for name in TOL} | {"conv3_in_act": 2.0,
                                           "augment_batch": 0.0}
 # kernels whose every case must also repeat bit for bit
 REPEAT_BIT_EQUAL = ("augment_batch", "instance_norm_bwd", "conv3_in_act",
-                    "conv7", "conv7_dgrad", "conv3s2", "conv3s2_dgrad",
-                    "conv3s2_wgrad", "attention_fwd", "attention_bwd")
+                    "conv7", "conv7_dgrad", "conv7_wgrad", "conv3s2",
+                    "conv3s2_dgrad", "conv3s2_wgrad", "attention_fwd",
+                    "attention_bwd")
 # design "tf32x3": the kernel's error against float64 at most this many
 # times the plain version's (fp32 on the FMA cores), so that the split keeps
 # fp32's order of error
@@ -226,9 +229,10 @@ SOURCES = {
 # from the functions its profiled training step launched (``designs_run``);
 # every other kernel has one design, "fma", in SOURCES. The earlier FMA
 # designs of the fp32 conv3+IN, of the attention kernels and of K4s's fp32
-# forward, dgrad and wgrad, the bf16 instantiation of the 7x7 head's FMA
-# kernel, and the earlier six-launch norm backward, are gone from the
-# source: their names stay here so that a step that launched them fails.
+# forward, dgrad and wgrad, the 7x7 head's FMA forward (both types) and the
+# bf16 instantiation of its FMA weight gradient, and the earlier six-launch
+# norm backward, are gone from the source: their names stay here so that a
+# step that launched them fails.
 DESIGNS = {
     "conv3_in_act": {
         "fma": ("conv3_gemm_kernel", "src/uig_torch/csrc/conv3_in.cu"),
@@ -245,7 +249,13 @@ DESIGNS = {
                      "src/uig_torch/csrc/instance_norm_bwd.cu")},
     "conv7": {
         "fma": ("conv7_kernel", "src/uig_torch/csrc/conv7.cu"),
-        "mma": ("conv7_mma_kernel", "src/uig_torch/csrc/conv7_tc.cu")},
+        "mma": ("conv7_mma_kernel", "src/uig_torch/csrc/conv7_tc.cu"),
+        "tf32x3": ("conv7_tf32_kernel", "src/uig_torch/csrc/conv7_tf32.cu")},
+    "conv7_wgrad": {
+        "fma": (("conv7_wgrad_kernel", "conv7_wgrad_reduce_kernel"),
+                "src/uig_torch/csrc/conv7_bwd.cu"),
+        "wgmma": (("conv7_wgrad_wgmma_kernel", "conv7_wgrad_sum_kernel"),
+                  "src/uig_torch/csrc/conv7_wgrad_tc.cu")},
     "conv3s2": {
         "fma": ("conv_fwd_kernel", "src/uig_torch/csrc/conv3s2.cu"),
         "wgmma": ("conv_fwd_wgmma_kernel", "src/uig_torch/csrc/conv3s2_tc.cu"),
@@ -283,11 +293,13 @@ DESIGNS = {
 # compute dtype (CycleGAN), and in the VQGAN step.
 STEP_DESIGNS = {
     "float32": {"instance_norm_bwd": "two_pass", "conv3_in_act": "tf32x3",
-                "conv7": "fma", "conv3s2": "tf32x3", "conv7_dgrad": "fma",
-                "conv3s2_dgrad": "tf32x3", "conv3s2_wgrad": "tf32x3"},
+                "conv7": "tf32x3", "conv3s2": "tf32x3", "conv7_dgrad": "fma",
+                "conv7_wgrad": "fma", "conv3s2_dgrad": "tf32x3",
+                "conv3s2_wgrad": "tf32x3"},
     "bfloat16": {"instance_norm_bwd": "two_pass", "conv3_in_act": "wgmma",
                  "conv7": "mma", "conv3s2": "wgmma", "conv7_dgrad": "wgmma",
-                 "conv3s2_dgrad": "wgmma", "conv3s2_wgrad": "wgmma"}}
+                 "conv7_wgrad": "wgmma", "conv3s2_dgrad": "wgmma",
+                 "conv3s2_wgrad": "wgmma"}}
 VQ_STEP_DESIGNS = {"instance_norm_bwd": "two_pass",
                    "attention_fwd": "tf32x3", "attention_bwd": "tf32x3"}
 
@@ -349,7 +361,7 @@ PER_STEP = {"augment_batch": 2, "instance_norm": 32,
 DTYPE_NAMES = ("float32", "bfloat16")
 # The design each kernel of DESIGNS runs in one translate apply (fp32
 # serving, PER_APPLY launches), read from a profiled apply.
-SLICE_DESIGNS = {"conv3_in_act": "tf32x3", "conv7": "fma",
+SLICE_DESIGNS = {"conv3_in_act": "tf32x3", "conv7": "tf32x3",
                  "conv3s2": "tf32x3"}
 
 # Timed repeats, cut so that the whole run stays well inside its time
@@ -358,6 +370,8 @@ SLICE_DESIGNS = {"conv3_in_act": "tf32x3", "conv7": "fma",
 # VQGAN steps (shrink VQ_TRAIN_STEPS first if the run grows). The bf16
 # CycleGAN phase keeps 20 steps, the bf16 VQGAN phase VQ_BF16_TRAIN_STEPS.
 KERNEL_ITERS = 10
+# profile_call's captures of one call at most (see there)
+PROFILE_TRIES = 3
 FP32_TRAIN_STEPS = 10
 VQ_TRAIN_STEPS = 6
 VQ_BF16_TRAIN_STEPS = 10
@@ -614,6 +628,16 @@ def conv3_in_fp64(x, w, b, g, be, relu):
     return (torch.relu(y) if relu else y).permute(0, 2, 3, 1)
 
 
+def conv7_fp64(x, w, b, pad_mode):
+    """The 7x7 pad-3 conv (reflect or zeros) + bias in float64, NHWC."""
+    import torch.nn.functional as F
+
+    if pad_mode == "zeros":
+        return conv_fwd_fp64(x, w, b, 1, 3)
+    xp = F.pad(x.double().permute(0, 3, 1, 2), (3, 3, 3, 3), mode="reflect")
+    return conv_fwd_fp64(xp.permute(0, 2, 3, 1), w, b, 1, 0)
+
+
 def conv_fwd_fp64(x, w, b, stride, pad):
     """The zero-padded strided conv + bias in float64, NHWC: x (B, H, W,
     C), w (k, k, C, F), b (F,) or None -> y (B, Ho, Wo, F)."""
@@ -819,7 +843,10 @@ def kernel_cases(dev, dtype: str = "float32"):
                    lambda x=x, mode=mode: conv7_reference(x, w, b, mode),
                    lambda x=x, pad=pad: F.conv2d(pad(x.permute(0, 3, 1, 2)),
                                                  wt, b),
-                   isz * (x.numel() + w.numel() + 3 + nb * h * h * 3), flops)
+                   isz * (x.numel() + w.numel() + 3 + nb * h * h * 3), flops,
+                   design="tf32x3" if f32 else "",
+                   fp64=(lambda x=x, mode=mode: conv7_fp64(x, w, b, mode))
+                   if f32 else None)
         if not per_step:
             continue
         dy = randn(nb, h, h, 3)
@@ -1699,25 +1726,31 @@ def profile_call(fn, phase: str, calls: bool = False) -> dict:
     host's issue time (until ``fn`` returns, before the synchronize) and
     the host time spent in the runtime's launch calls, both with the
     profiler on; with ``calls``, also the launches by CUDA function
-    name."""
+    name. A capture that recorded no device event at all (one or two
+    sessions in a hundred on an H100, short ones) is taken again, up to
+    PROFILE_TRIES calls of ``fn``; the last capture counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name: dict = {}
-    launch_api = [0, 0.0]
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        elif e.name.startswith(("cudaLaunch", "cuLaunch")):
-            launch_api[0] += 1
-            launch_api[1] += e.time_range.elapsed_us()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        by_name: dict = {}
+        launch_api = [0, 0.0]
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+            elif e.name.startswith(("cudaLaunch", "cuLaunch")):
+                launch_api[0] += 1
+                launch_api[1] += e.time_range.elapsed_us()
+        if by_name:
+            break
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     out = {"phase": phase, "wall_ms": wall_ms, "host_issue_ms": host_ms,
@@ -1728,6 +1761,7 @@ def profile_call(fn, phase: str, calls: bool = False) -> dict:
            "device_busy_share": (busy_ms / wall_ms if by_name
                                  else "not measured"),
            "device_kernels": sum(n for n, _ in by_name.values()),
+           "capture_attempts": attempt,
            "top": [{"kernel": k[:70], "calls": n, "ms": us / 1e3}
                    for k, (n, us) in top]}
     if calls:

@@ -14,10 +14,10 @@
 // 0.147 ms at the H100 SXM data-sheet 67 TFLOP/s fp32 (700 W). The dgrad's
 // dx write (134 MB at B = 8) takes ~0.040 ms at 3.35 TB/s.
 //
-// bf16: the dgrad runs on the tensor cores (csrc/conv7_bwd_tc.cu), which
-// uig_conv7_dgrad launches for bf16; the wgrad takes x and dy in bf16, sums
-// in fp32 in the fp32 kernel's order and rounds dw once to bf16 (the
-// cotangent of JAX's weight cast), which the wrapper's caller widens.
+// bf16: both run on the tensor cores, which uig_conv7_dgrad and
+// uig_conv7_wgrad launch for bf16: the dgrad in csrc/conv7_bwd_tc.cu, the
+// wgrad in csrc/conv7_wgrad_tc.cu (fp32 sums, dw rounded once to bf16, the
+// cotangent of JAX's weight cast). The kernels below run fp32 only.
 //
 // dgrad design (fp32): one thread per dx pixel and 32 input channels (32 sums in
 // registers); a 32 x 8 block stages the dy tile plus a 3-pixel halo in
@@ -29,7 +29,7 @@
 // happens in registers, so no padded gradient is ever written. Every dy
 // value a mirrored position needs lies in the same halo tile.
 //
-// wgrad design: a 9408-output reduction over B * H * W pixels. A block owns
+// wgrad design (fp32): a 9408-output reduction over B * H * W pixels. A block owns
 // 32 input channels (lanes) x 7 kernel rows (warps) and walks a contiguous
 // run of 8 x 16 pixel tiles; each thread keeps its 7 x Cout sums for one
 // (ky, channel) in registers and slides a window of 7 x values along a tile
@@ -332,10 +332,14 @@ cudaError_t wgrad_co(const void* x, const void* dy, float* part, void* dw,
 
 }  // namespace
 
-// csrc/conv7_bwd_tc.cu
+// csrc/conv7_bwd_tc.cu and csrc/conv7_wgrad_tc.cu
 cudaError_t conv7_dgrad_bf16_wgmma(const void* dy, const void* w, void* dx,
                                    int B, int H, int W, int Cin, int Cout,
                                    int reflect, cudaStream_t stream);
+cudaError_t conv7_wgrad_bf16_wgmma(const void* x, const void* dy, float* part,
+                                   void* dw, int B, int H, int W, int Cin,
+                                   int Cout, int reflect, int chunks,
+                                   cudaStream_t stream);
 
 // dy: (B, H, W, Cout), w: HWIO (7, 7, Cin, Cout), dx: (B, H, W, Cin); all
 // fp32 (the FMA kernel), or all bf16 when is_bf16 (the wgmma kernel).
@@ -351,17 +355,19 @@ extern "C" cudaError_t uig_conv7_dgrad(const void* dy, const void* w,
                                    stream);
 }
 
-// x: (B, H, W, Cin), dy: (B, H, W, Cout), dw: (7, 7, Cin, Cout); all fp32,
-// or all bf16 when is_bf16. part: (chunks, 49, Cin, Cout) fp32 scratch,
-// chunks * tiles_per_chunk >= the number of 8 x 16 tiles,
-// B * ceil(H / 8) * ceil(W / 16).
+// x: (B, H, W, Cin), dy: (B, H, W, Cout), dw: (7, 7, Cin, Cout); part:
+// (chunks, 49, Cin, Cout) fp32 scratch. All fp32 (the FMA kernel):
+// chunks * tiles_per_chunk >= the number of 8 x 16 tiles, B * ceil(H / 8) *
+// ceil(W / 16). Or all bf16 when is_bf16 (the wgmma kernel): chunks
+// persistent blocks a 64-channel slice, tiles_per_chunk unused; Cin % 4 ==
+// 0, Cin <= 256.
 extern "C" cudaError_t uig_conv7_wgrad(const void* x, const void* dy,
                                        float* part, void* dw, int B, int H,
                                        int W, int Cin, int Cout, int reflect,
                                        int chunks, int tiles_per_chunk,
                                        int is_bf16, cudaStream_t stream) {
-  return is_bf16 ? wgrad_co<bf16>(x, dy, part, dw, B, H, W, Cin, Cout,
-                                  reflect, chunks, tiles_per_chunk, stream)
+  return is_bf16 ? conv7_wgrad_bf16_wgmma(x, dy, part, dw, B, H, W, Cin, Cout,
+                                          reflect, chunks, stream)
                  : wgrad_co<float>(x, dy, part, dw, B, H, W, Cin, Cout,
                                    reflect, chunks, tiles_per_chunk, stream);
 }

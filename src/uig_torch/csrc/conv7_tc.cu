@@ -1,8 +1,8 @@
 // K4f in bf16 on Hopper's tensor cores: the 7x7 stride-1 pad-3 conv
 // (reflect or zeros) + bias for few output channels (the generator head,
-// Cin 64 -> Cout 3 at 256^2). The fp32 kernel stays on the FMA core of
-// csrc/conv7.cu, whose entry point launches this one for bf16 and states
-// the TPU kernel both replace.
+// Cin 64 -> Cout 3 at 256^2). The entry point of csrc/conv7.cu launches
+// it for bf16 (csrc/conv7_tf32.cu for fp32) and states the TPU kernel both
+// replace.
 //   x (B, H, W, Cin), w (7, 7, Cin, Cout), bias (Cout,) -> y (B, H, W, Cout)
 //
 // Bound on this card (H100 SXM data sheet, 700 W): bytes. At (16, 256, 256,

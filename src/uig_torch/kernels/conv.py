@@ -1,8 +1,10 @@
 """The 7x7 stride-1 pad-3 conv + bias for few output channels: the forward
-CUDA kernels behind ``csrc/conv7.cu`` (fp32 on FMAs there, bf16 on the
-tensor cores in ``csrc/conv7_tc.cu``), its input and weight gradients in
-``csrc/conv7_bwd.cu``, their plain PyTorch versions, and ``conv7_act``, the
-autograd function that pairs them.
+CUDA kernels behind ``csrc/conv7.cu`` (on the tensor cores: fp32 in the
+three-term TF32 split in ``csrc/conv7_tf32.cu``, bf16 in
+``csrc/conv7_tc.cu``), its input and weight gradients behind
+``csrc/conv7_bwd.cu`` (fp32 on FMAs there; bf16 on the tensor cores in
+``csrc/conv7_bwd_tc.cu`` and ``csrc/conv7_wgrad_tc.cu``), their plain
+PyTorch versions, and ``conv7_act``, the autograd function that pairs them.
 
 Replaces the JAX package's ``kernels/conv_pallas.py`` ``conv7_s2d`` (through
 ``conv_core5`` -> ``_conv5_impl`` -> ``_conv5_kernel``; the backward's
@@ -16,6 +18,8 @@ plain versions compute in fp32 from the widened inputs and round once.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -25,8 +29,10 @@ from uig_torch.kernels.reflect import reflect_fold
 
 MAX_COUT = 4
 MAX_CIN_BF16 = 256  # the bf16 forward's source rows and B in shared memory
-_WGRAD_BLOCKS = 528  # wgrad blocks in flight: 4 per SM on 132 SMs
-_WTILE = (8, 16)     # wgrad pixel tile (csrc/conv7_bwd.cu kWH, kWW)
+MAX_CIN_FP32 = 112  # the fp32 forward's B (hi and lo) and two source rows
+_WGRAD_BLOCKS = 528  # fp32 wgrad blocks in flight: 4 per SM on 132 SMs
+_WTILE = (8, 16)     # fp32 wgrad pixel tile (csrc/conv7_bwd.cu kWH, kWW)
+_WTILE_TC = (32, 128)  # bf16 wgrad tile (csrc/conv7_wgrad_tc.cu kTR, kTW)
 
 
 def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
@@ -60,6 +66,24 @@ def _check_card(name: str, h: int, wd: int, cout: int, pad_mode: str) -> None:
         raise ValueError(f"{name}: reflect padding needs H, W >= 4")
 
 
+def takes_cin(cin: int, dtype: torch.dtype) -> bool:
+    """Whether the card's forward and weight-gradient kernels take Cin in
+    ``dtype``: bf16 a multiple of 4 up to MAX_CIN_BF16, fp32 up to
+    MAX_CIN_FP32."""
+    if dtype == torch.bfloat16:
+        return cin % 4 == 0 and cin <= MAX_CIN_BF16
+    return cin <= MAX_CIN_FP32
+
+
+def _check_cin(name: str, cin: int, dtype: torch.dtype) -> None:
+    if takes_cin(cin, dtype):
+        return
+    if dtype == torch.bfloat16:
+        raise ValueError(f"{name}: bf16 takes Cin a multiple of 4 up to "
+                         f"{MAX_CIN_BF16}, got {cin}")
+    raise ValueError(f"{name}: fp32 takes Cin up to {MAX_CIN_FP32}, got {cin}")
+
+
 def conv7(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
           pad_mode: str = "reflect") -> torch.Tensor:
     """pad-3 7x7 stride-1 conv + bias. x: (B, H, W, Cin); w: (7, 7, Cin,
@@ -76,9 +100,7 @@ def conv7(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
     nb, h, wd, cin = x.shape
     _check_card("conv7", h, wd, cout, pad_mode)
     t = storage_type("conv7", "x", x)
-    if t == torch.bfloat16 and (cin % 4 or cin > MAX_CIN_BF16):
-        raise ValueError(f"conv7: bf16 takes Cin a multiple of 4 up to "
-                         f"{MAX_CIN_BF16}, got {cin}")
+    _check_cin("conv7", cin, t)
     cuda_operand("conv7", "w", w, dtypes=(t,))
     cuda_operand("conv7", "bias", bias, (cout,), dtypes=(t,))
     y = torch.empty((nb, h, wd, cout), device=x.device, dtype=t)
@@ -151,6 +173,11 @@ def conv7_wgrad_reference(x: torch.Tensor, dy: torch.Tensor,
     return dw.permute(2, 3, 1, 0).to(x.dtype).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _wgrad_chunks(tiles: int, groups: int) -> tuple[int, int]:
     """(chunks, tiles per chunk) for about _WGRAD_BLOCKS blocks in all."""
     chunks = max(1, min(tiles, -(-_WGRAD_BLOCKS // groups)))
@@ -174,8 +201,14 @@ def conv7_wgrad(x: torch.Tensor, dy: torch.Tensor,
     _check_card("conv7_wgrad", h, wd, cout, pad_mode)
     t = storage_type("conv7_wgrad", "x", x)
     cuda_operand("conv7_wgrad", "dy", dy, dtypes=(t,))
-    tiles = nb * -(-h // _WTILE[0]) * -(-wd // _WTILE[1])
-    chunks, per = _wgrad_chunks(tiles, -(-cin // 32))
+    if t == torch.bfloat16:
+        _check_cin("conv7_wgrad", cin, t)
+        # persistent blocks, one an SM, over the (B, rows, strips) tiles
+        tiles = nb * -(-h // _WTILE_TC[0]) * -(-wd // _WTILE_TC[1])
+        chunks, per = min(tiles, _sm_count(x.device)), 0
+    else:
+        tiles = nb * -(-h // _WTILE[0]) * -(-wd // _WTILE[1])
+        chunks, per = _wgrad_chunks(tiles, -(-cin // 32))
     part = torch.empty((chunks, 7, 7, cin, cout), device=x.device,
                        dtype=torch.float32)
     dw = torch.empty((7, 7, cin, cout), device=x.device, dtype=t)

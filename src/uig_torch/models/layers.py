@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from uig_torch.kernels.conv import MAX_CIN_BF16, MAX_COUT, conv7_act
+from uig_torch.kernels.conv import MAX_COUT, conv7_act, takes_cin
 from uig_torch.kernels.conv_s2 import conv3s2_act
 from uig_torch.kernels.convin import conv3_in_act
 from uig_torch.kernels.norm import instance_norm_act
@@ -102,9 +102,7 @@ class PadConv(nn.Module):
     def routes_to_conv7(self) -> bool:
         return (self.k == 7 and self.stride == 1 and self.pad == 3
                 and self.features <= MAX_COUT
-                and (self.dtype != torch.bfloat16
-                     or (self.in_features % 4 == 0
-                         and self.in_features <= MAX_CIN_BF16)))
+                and takes_cin(self.in_features, self.dtype))
 
     def routes_to_conv3s2(self, height: int, width: int) -> bool:
         return (self.k == 3 and self.stride == 2 and self.pad == 1

@@ -25,7 +25,9 @@ within 1e-5. K4s (the 3x3 stride-2 conv and the VALID conv): within 1e-5 of
 the largest value (sums over at most 9 * 36 terms, or the batch's pixels);
 its fp32 forward, dgrad and wgrad, in the three-term TF32 split, are held
 to the same 1e-5 at the path's widths and at ragged VALID shapes, and the
-forward's error from float64 to at most twice the plain version's.
+forward's error from float64 to at most twice the plain version's. The
+7x7 head's fp32 forward, in the same split, is held to 1e-4 and its error
+from float64 to at most twice the plain version's.
 
 bf16: every kernel against its plain version in bf16 (both sum in fp32
 from the same bf16 values and round once, in another order) within 1 bf16
@@ -410,15 +412,21 @@ def _conv_fp64(x, w, b, stride, pad):
 
 def _functions_run(fn) -> set:
     """The CUDA functions one call of ``fn`` launched, by name:
-    "void (anonymous namespace)::f<64>(...)" -> f."""
+    "void (anonymous namespace)::f<64>(...)" -> f. A capture that recorded
+    no device event at all (one or two sessions in a hundred on an H100)
+    is taken again, up to three calls; the last capture counts."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {m.group(1) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            for m in [re.search(r"(\w+)[<(]", e.name)] if m}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        fns = {m.group(1) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               for m in [re.search(r"(\w+)[<(]", e.name)] if m}
+        if fns:
+            break
+    return fns
 
 
 @pytest.mark.parametrize("nb,h,cin,cout", [
@@ -522,6 +530,54 @@ def test_conv3s2_function(dev):
     want = _grads(conv3s2_reference, (x, w, b), ct)
     for u, v in zip(got, want):
         _rel_close(u, v, rel=1e-5)
+
+
+# The head at the step's batches (16 and 8, two strips of 128 columns, 256
+# rows in 32-row groups) and ragged planes: W of 4 (one m16 tile), 20 and
+# 45 (a ragged second tile), 300 (three strips), H not a multiple of the
+# row group; Cin 32, 64 and 68 (the last k8 step ragged); Cout 1 to 4 (one
+# to four n8 tiles), both pad modes. The fp32 forward adds Cin 6 (4-byte
+# pieces); the bf16 weight gradient takes Cin % 4 == 0 only.
+_HEAD_SHAPES = [
+    pytest.param((16, 256, 256, 64), 3, "reflect", id="head-b16"),
+    pytest.param((8, 256, 256, 64), 3, "reflect", id="head-b8"),
+    pytest.param((8, 256, 256, 64), 3, "zeros", id="head-b8-zeros"),
+    pytest.param((1, 4, 4, 32), 4, "reflect", id="4x4-c32"),
+    pytest.param((2, 37, 20, 32), 1, "reflect", id="37x20-c32"),
+    pytest.param((2, 37, 45, 68), 2, "zeros", id="37x45-c68"),
+    pytest.param((1, 45, 300, 64), 4, "reflect", id="45x300-c64"),
+    pytest.param((3, 13, 19, 68), 3, "zeros", id="13x19-c68")]
+
+
+def _conv7_fp64(x, w, b, pad_mode):
+    if pad_mode == "zeros":
+        return _conv_fp64(x, w, b, 1, 3)
+    return _conv_fp64(reflect_pad(x.double(), 3), w, b, 1, 0)
+
+
+@pytest.mark.parametrize("shape,cout,pad_mode", _HEAD_SHAPES + [
+    pytest.param((2, 11, 23, 6), 3, "reflect", id="11x23-c6")])
+def test_conv7_fp32_forward(dev, shape, cout, pad_mode):
+    """K4f in fp32 (tf32x3, mma.sync): within 1e-4 of the plain version,
+    its error from float64 at most FP64_ERR_OVER_PLAIN (2) times the plain
+    version's, repeats bit-equal, and only the split kernel launched."""
+    cin = shape[-1]
+    x = _randn(dev, *shape)
+    w = _randn(dev, 7, 7, cin, cout, scale=0.05, seed=1)
+    b = _randn(dev, cout, scale=0.1, seed=2)
+    y, ref = conv7(x, w, b, pad_mode), conv7_reference(x, w, b, pad_mode)
+    _close(y, ref)
+    exact = _conv7_fp64(x, w, b, pad_mode)
+    assert _fp64_err(y, exact) <= 2.0 * _fp64_err(ref, exact)
+    assert torch.equal(y, conv7(x, w, b, pad_mode))
+    fns = _functions_run(lambda: conv7(x, w, b, pad_mode))
+    assert "conv7_tf32_kernel" in fns and "conv7_kernel" not in fns, fns
+
+
+def test_conv7_fp32_refuses_what_it_cannot_take(dev):
+    x = _randn(dev, 1, 8, 8, 120)
+    with pytest.raises(ValueError, match="up to 112"):
+        conv7(x, _randn(dev, 7, 7, 120, 3), None)
 
 
 @pytest.mark.parametrize("k,dtype", [
@@ -806,6 +862,30 @@ def test_conv7_bf16_refuses_what_it_cannot_take(dev):
     x = _randn(dev, 1, 8, 8, 260).to(BF)
     with pytest.raises(ValueError, match="up to 256"):
         conv7(x, _randn(dev, 7, 7, 260, 3).to(BF), None)
+
+
+@pytest.mark.parametrize("shape,cout,pad_mode", _HEAD_SHAPES)
+def test_conv7_bf16_wgrad(dev, shape, cout, pad_mode):
+    """K4w in bf16 on wgmma: within 1 bf16 ulp of the plain version,
+    repeats bit-equal, and only the tensor-core kernel and its sum
+    launched."""
+    x = _randn(dev, *shape).to(BF)
+    dy = _randn(dev, *shape[:3], cout, seed=3).to(BF)
+    before = conv7_wgrad.launches
+    dw = conv7_wgrad(x, dy, pad_mode)
+    assert conv7_wgrad.launches == before + 1
+    _ulps_close(dw, conv7_wgrad_reference(x, dy, pad_mode))
+    assert torch.equal(dw, conv7_wgrad(x, dy, pad_mode))
+    fns = _functions_run(lambda: conv7_wgrad(x, dy, pad_mode))
+    assert {"conv7_wgrad_wgmma_kernel", "conv7_wgrad_sum_kernel"} <= fns, fns
+    assert not fns & {"conv7_wgrad_kernel", "conv7_wgrad_reduce_kernel"}, fns
+
+
+def test_conv7_bf16_wgrad_refuses_what_it_cannot_take(dev):
+    for cin, match in ((6, "multiple of 4"), (260, "up to 256")):
+        x = _randn(dev, 1, 8, 8, cin).to(BF)
+        with pytest.raises(ValueError, match=match):
+            conv7_wgrad(x, _randn(dev, 1, 8, 8, 3).to(BF))
 
 
 def test_bf16_operands_are_checked(dev):

@@ -125,22 +125,25 @@ def test_chip_smoke_counts_launches_by_function():
 @pytest.mark.parametrize("ran", ["fma", "wgmma"])
 def test_chip_smoke_reads_the_design_that_ran(ran):
     """The CycleGAN step: each kernel of DESIGNS in one design, no
-    attention. "fma": the fp32 step (K3 and K4s's forward, dgrad and wgrad
-    in the TF32 split, "tf32x3"; the 7x7 head's forward and K4d on the FMA
-    cores); "wgmma": the bf16 step (the head's forward on mma.sync, "mma").
-    The norm backward runs its two-pass design in both; a step that
+    attention. "fma": the fp32 step (K3, K4s's forward, dgrad and wgrad and
+    the 7x7 head's forward in the TF32 split, "tf32x3"; K4d and K4w on the
+    FMA cores, K4w's kernel and its reduce 4 times each); "wgmma": the bf16
+    step (the head's forward on mma.sync, "mma"; K4w on wgmma with its
+    sum). The norm backward runs its two-pass design in both; a step that
     launches another design's function (the removed FMA forward, dgrad and
-    wgrad of K4s among them), or one design's function too few times,
-    fails."""
+    wgrad of K4s and FMA forward of the head among them), or one design's
+    function too few times, fails."""
     cs = _chip_smoke()
     assert set(cs.DESIGNS) == {"conv3_in_act", "conv7", "conv7_dgrad",
-                               "conv3s2", "conv3s2_dgrad", "conv3s2_wgrad",
-                               "instance_norm_bwd", "attention_fwd",
-                               "attention_bwd"}
+                               "conv7_wgrad", "conv3s2", "conv3s2_dgrad",
+                               "conv3s2_wgrad", "instance_norm_bwd",
+                               "attention_fwd", "attention_bwd"}
     want = cs.STEP_DESIGNS["float32" if ran == "fma" else "bfloat16"]
     assert set(want) == {name for name in cs.DESIGNS if cs.PER_STEP[name]}
     assert want["conv3_in_act"] == ("tf32x3" if ran == "fma" else "wgmma")
-    assert want["conv7"] == ("fma" if ran == "fma" else "mma")
+    assert want["conv7"] == ("tf32x3" if ran == "fma" else "mma")
+    assert want["conv7_wgrad"] == ran
+    assert "conv7_wgrad" in cs.REPEAT_BIT_EQUAL
     assert want["conv3s2"] == want["conv3s2_dgrad"] == \
         want["conv3s2_wgrad"] == ("tf32x3" if ran == "fma" else "wgmma")
     calls = {fn: cs.PER_STEP[name] for name, d in want.items()
@@ -161,9 +164,9 @@ def test_chip_smoke_reads_the_design_that_ran(ran):
 
 
 def test_chip_smoke_reads_the_slice_designs():
-    """fp32 serving: a translate apply runs K3 and both downsamples in the
-    TF32 split and the head on the FMA cores, each its PER_APPLY times; an
-    apply that launched the removed FMA forward of K4s, or the split
+    """fp32 serving: a translate apply runs K3, both downsamples and the
+    head in the TF32 split, each its PER_APPLY times; an apply that
+    launched the removed FMA forward of K4s or of the head, or the split
     forward once, fails."""
     cs = _chip_smoke()
     calls = {fn: cs.PER_APPLY[name] for name, d in cs.SLICE_DESIGNS.items()
@@ -171,9 +174,11 @@ def test_chip_smoke_reads_the_slice_designs():
     assert calls["conv_fwd_tf32_kernel"] == 2
     assert cs.designs_run(calls, "slice", cs.PER_APPLY,
                           cs.SLICE_DESIGNS) == cs.SLICE_DESIGNS
+    assert calls["conv7_tf32_kernel"] == 1
     for bad in ({**calls, "conv_fwd_kernel": 2},
                 {**calls, "conv_fwd_tf32_kernel": 1},
-                {**calls, "conv7_mma_kernel": 1}):
+                {**calls, "conv7_mma_kernel": 1},
+                {**calls, "conv7_kernel": 1}):
         with pytest.raises(AssertionError):
             cs.designs_run(bad, "slice", cs.PER_APPLY, cs.SLICE_DESIGNS)
 

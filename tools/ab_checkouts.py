@@ -5,12 +5,14 @@ process with its own build:
 - outputs at the training step's shapes that must be bit-identical: every
   CycleGAN kernel in both dtypes (K1, K2f, K2b, K3, K4f, K4d, K4w and K4s's
   forward, dgrad and wgrad) and the attention kernels K5f and K5b at the
-  VQGAN shapes, except the outputs in ``REPORTED``: K4s's fp32 forward
-  and K4f's bf16 forward, whose design differs from the parent's (the
-  three-term TF32 split, and mma.sync on the bf16 products, against FMAs),
-  are reported as their largest difference and not held;
+  VQGAN shapes, except the outputs in ``REPORTED``: K4f's fp32 forward
+  and K4w's bf16 weight gradient, whose design differs from the parent's
+  (the three-term TF32 split on mma.sync, and wgmma on the bf16 products,
+  against FMAs), are reported as their largest difference and not held;
 - the SASS of the bf16 wgmma kernels of ``conv3_in_tc.cu``,
-  ``conv3s2_tc.cu`` and ``conv7_bwd_tc.cu`` and of every kernel of
+  ``conv3s2_tc.cu`` and ``conv7_bwd_tc.cu``, of the bf16 mma.sync kernel
+  of ``conv7_tc.cu``, of the fp32 instantiations of ``conv7_bwd.cu``'s FMA
+  dgrad, wgrad and reduce (template argument ``f``) and of every kernel of
   ``attention.cu``, compiled from each checkout with the same nvcc flags
   and compared instruction by instruction (the kernels' anonymous-namespace
   prefix left out of their names; ``attention.cu``'s kernels by their
@@ -46,13 +48,13 @@ OVERRIDES = {"float32": ["model.compute_dtype=float32", "loss.lambda_lpips=0"],
 VQ_OVERRIDES = OVERRIDES["float32"] + ["loss.vq_disc_start=0"]
 VQ_BATCH, VQ_TIMED = 4, 5  # per domain: the step trains on a union of 8
 # outputs reported as their largest difference, not held bit-identical
-REPORTED = tuple(f"conv3s2 float32 {h} {cin}->{cout}" for h, cin, cout in
-                 ((256, 64, 128), (128, 128, 256))) + tuple(
-    f"conv7 bfloat16 {nb} reflect" for nb in (2 * BATCH, BATCH))
+REPORTED = tuple(f"{name} {nb} reflect" for nb in (2 * BATCH, BATCH)
+                 for name in ("conv7 float32", "conv7_wgrad bfloat16"))
 # (source, the kernels compared: a substring of the name, whether their
 # SASS must match)
 SASS = (("conv3_in_tc.cu", "wgmma", True), ("conv3s2_tc.cu", "wgmma", True),
-        ("conv7_bwd_tc.cu", "wgmma", True), ("attention.cu", "", True))
+        ("conv7_bwd_tc.cu", "wgmma", True), ("conv7_tc.cu", "mma", True),
+        ("conv7_bwd.cu", "If", True), ("attention.cu", "", True))
 
 
 def worker(out: Path) -> None:
