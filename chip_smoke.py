@@ -229,10 +229,10 @@ SOURCES = {
 # from the functions its profiled training step launched (``designs_run``);
 # every other kernel has one design, "fma", in SOURCES. The earlier FMA
 # designs of the fp32 conv3+IN, of the attention kernels and of K4s's fp32
-# forward, dgrad and wgrad, the 7x7 head's FMA forward (both types) and the
-# bf16 instantiation of its FMA weight gradient, and the earlier six-launch
-# norm backward, are gone from the source: their names stay here so that a
-# step that launched them fails.
+# forward, dgrad and wgrad, the 7x7 head's FMA forward, dgrad and weight
+# gradient (both types), and the earlier six-launch norm backward, are gone
+# from the source: their names stay here so that a step that launched them
+# fails.
 DESIGNS = {
     "conv3_in_act": {
         "fma": ("conv3_gemm_kernel", "src/uig_torch/csrc/conv3_in.cu"),
@@ -255,7 +255,9 @@ DESIGNS = {
         "fma": (("conv7_wgrad_kernel", "conv7_wgrad_reduce_kernel"),
                 "src/uig_torch/csrc/conv7_bwd.cu"),
         "wgmma": (("conv7_wgrad_wgmma_kernel", "conv7_wgrad_sum_kernel"),
-                  "src/uig_torch/csrc/conv7_wgrad_tc.cu")},
+                  "src/uig_torch/csrc/conv7_wgrad_tc.cu"),
+        "tf32x3": (("conv7_wgrad_tf32_kernel", "conv7_wgrad_tf32_sum_kernel"),
+                   "src/uig_torch/csrc/conv7_wgrad_tf32.cu")},
     "conv3s2": {
         "fma": ("conv_fwd_kernel", "src/uig_torch/csrc/conv3s2.cu"),
         "wgmma": ("conv_fwd_wgmma_kernel", "src/uig_torch/csrc/conv3s2_tc.cu"),
@@ -264,7 +266,9 @@ DESIGNS = {
     "conv7_dgrad": {
         "fma": ("conv7_dgrad_kernel", "src/uig_torch/csrc/conv7_bwd.cu"),
         "wgmma": ("conv7_dgrad_wgmma_kernel",
-                  "src/uig_torch/csrc/conv7_bwd_tc.cu")},
+                  "src/uig_torch/csrc/conv7_bwd_tc.cu"),
+        "tf32x3": ("conv7_dgrad_tf32_kernel",
+                   "src/uig_torch/csrc/conv7_bwd_tf32.cu")},
     "conv3s2_dgrad": {
         "fma": ("conv_dgrad_kernel", "src/uig_torch/csrc/conv3s2.cu"),
         "wgmma": ("conv_dgrad_wgmma_kernel",
@@ -293,8 +297,9 @@ DESIGNS = {
 # compute dtype (CycleGAN), and in the VQGAN step.
 STEP_DESIGNS = {
     "float32": {"instance_norm_bwd": "two_pass", "conv3_in_act": "tf32x3",
-                "conv7": "tf32x3", "conv3s2": "tf32x3", "conv7_dgrad": "fma",
-                "conv7_wgrad": "fma", "conv3s2_dgrad": "tf32x3",
+                "conv7": "tf32x3", "conv3s2": "tf32x3",
+                "conv7_dgrad": "tf32x3", "conv7_wgrad": "tf32x3",
+                "conv3s2_dgrad": "tf32x3",
                 "conv3s2_wgrad": "tf32x3"},
     "bfloat16": {"instance_norm_bwd": "two_pass", "conv3_in_act": "wgmma",
                  "conv7": "mma", "conv3s2": "wgmma", "conv7_dgrad": "wgmma",
@@ -638,6 +643,28 @@ def conv7_fp64(x, w, b, pad_mode):
     return conv_fwd_fp64(xp.permute(0, 2, 3, 1), w, b, 1, 0)
 
 
+def conv7_dgrad_fp64(dy, w, pad_mode):
+    """conv7's input gradient in float64, NHWC, the reflect ring folded
+    onto its sources in float64."""
+    from uig_torch.kernels.reflect import reflect_fold
+
+    if pad_mode == "zeros":
+        return conv_dgrad_fp64(dy, w, dy.shape[1:3], 1, 3)
+    size = (dy.shape[1] + 6, dy.shape[2] + 6)
+    return reflect_fold(conv_dgrad_fp64(dy, w, size, 1, 0), 3)
+
+
+def conv7_wgrad_fp64(x, dy, pad_mode):
+    """conv7's weight gradient in float64, against the reflect-padded (or
+    zero-padded) x."""
+    import torch.nn.functional as F
+
+    if pad_mode == "zeros":
+        return conv_wgrad_fp64(x, dy, 7, 1, 3)
+    xp = F.pad(x.double().permute(0, 3, 1, 2), (3, 3, 3, 3), mode="reflect")
+    return conv_wgrad_fp64(xp.permute(0, 2, 3, 1), dy, 7, 1, 0)
+
+
 def conv_fwd_fp64(x, w, b, stride, pad):
     """The zero-padded strided conv + bias in float64, NHWC: x (B, H, W,
     C), w (k, k, C, F), b (F,) or None -> y (B, Ho, Wo, F)."""
@@ -825,8 +852,9 @@ def kernel_cases(dev, dtype: str = "float32"):
                 fp64=(lambda x=x, relu=relu: conv3_in_fp64(
                     x, w, b, ga, be, relu)) if f32 else None)
         del x
-    # the 7x7 head: forward, dgrad, wgrad at both batches, and the forward
-    # with zeros padding at a smaller shape (not on the path)
+    # the 7x7 head: forward, dgrad, wgrad at both batches, and all three
+    # with zeros padding at a smaller shape (not on the path); fp32 in the
+    # three-term TF32 split, held against float64 too
     w = randn(7, 7, 64, 3, scale=0.02)
     b = randn(3, scale=0.02)
     wt = w.permute(3, 2, 0, 1)
@@ -847,16 +875,19 @@ def kernel_cases(dev, dtype: str = "float32"):
                    design="tf32x3" if f32 else "",
                    fp64=(lambda x=x, mode=mode: conv7_fp64(x, w, b, mode))
                    if f32 else None)
-        if not per_step:
-            continue
         dy = randn(nb, h, h, 3)
         dyn = dy.permute(0, 3, 1, 2)
+        hp = h + 6 if mode == "reflect" else h
         yield case("conv7_dgrad", label, per_step, 0,
                    lambda dy=dy, mode=mode: conv7_dgrad(dy, w, mode),
                    lambda dy=dy, mode=mode: conv7_dgrad_reference(dy, w, mode),
-                   lambda dyn=dyn, nb=nb, h=h: torch.nn.grad.conv2d_input(
-                       (nb, 64, h + 6, h + 6), wt, dyn),
-                   isz * (dy.numel() + w.numel() + x.numel()), flops)
+                   lambda dyn=dyn, nb=nb, hp=hp, p=(3 if hp == h else 0):
+                   torch.nn.grad.conv2d_input((nb, 64, hp, hp), wt, dyn,
+                                              padding=p),
+                   isz * (dy.numel() + w.numel() + x.numel()), flops,
+                   design="tf32x3" if f32 else "",
+                   fp64=(lambda dy=dy, mode=mode: conv7_dgrad_fp64(
+                       dy, w, mode)) if f32 else None)
         yield case("conv7_wgrad", label, per_step, 0,
                    lambda x=x, dy=dy, mode=mode: conv7_wgrad(x, dy, mode),
                    lambda x=x, dy=dy, mode=mode: conv7_wgrad_reference(
@@ -864,7 +895,9 @@ def kernel_cases(dev, dtype: str = "float32"):
                    lambda x=x, dyn=dyn, pad=pad: torch.nn.grad.conv2d_weight(
                        pad(x.permute(0, 3, 1, 2)), (3, 64, 7, 7), dyn),
                    isz * (x.numel() + dy.numel() + w.numel()), flops,
-                   check=_rel_check)
+                   check=_rel_check, design="tf32x3" if f32 else "",
+                   fp64=(lambda x=x, dy=dy, mode=mode: conv7_wgrad_fp64(
+                       x, dy, mode)) if f32 else None)
         del x, dy, dyn
     # K4s: the downsamples d128 (256^2, 64 -> 128) and d256 (128^2, 128 ->
     # 256) of each generator apply, forward, dgrad and wgrad at both

@@ -47,11 +47,6 @@
 
 namespace {
 
-
-__device__ __forceinline__ int mirror(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
-
 // grid (ceil(H W / 128), ceil(F / 128), B), block 256, kSmemBytes<128>
 // dynamic. Stage layout: A rows 0..127 (2 tiles: one per warpgroup), then
 // B's two N-major tiles; after the mainloop the ring's memory holds the

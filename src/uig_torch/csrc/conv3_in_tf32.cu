@@ -60,10 +60,6 @@ constexpr int kTfSmem = kTfSmemBytes<128, kTfStages>;
 #endif
 constexpr int kDepth = UIG_K3_DEPTH;  // K stages a partial sum
 
-__device__ __forceinline__ int mirror(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
-
 // wt: (2, F, 9 Cp), hi and lo of W^T from w (9C, F) (wt_split_tile).
 __global__ void conv3_wt_split_kernel(const float* __restrict__ w,
                                       float* __restrict__ wt, int C, int F,

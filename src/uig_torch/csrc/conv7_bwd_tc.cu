@@ -1,8 +1,8 @@
 // K4d in bf16 on Hopper's tensor cores: the input gradient of the 7x7
 // stride-1 pad-3 conv (reflect or zeros) for few output channels (the
 // generator head, Cin 64 -> Cout 3), with the reflect ring folded onto its
-// sources. The fp32 kernel stays on the FMA core of csrc/conv7_bwd.cu, whose
-// entry point launches this one for bf16.
+// sources. csrc/conv7_bwd.cu's entry point launches it for bf16 (and
+// csrc/conv7_bwd_tf32.cu's kernel for fp32).
 //   dy (B, H, W, Cout), w (7, 7, Cin, Cout) -> dx (B, H, W, Cin)
 //
 // Replaces: src/uig/kernels/conv_pallas.py, _conv5_impl with fold=True (a

@@ -74,10 +74,6 @@ constexpr int kRows = 32;     // output rows a block walks (fewer if the
                               // grid would not fill the card)
 constexpr int kSmemCap = 232448;  // shared memory a block may take: all
 
-__device__ __forceinline__ int mirror(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

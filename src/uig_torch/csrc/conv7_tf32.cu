@@ -95,23 +95,11 @@ constexpr int kSmemCap = 232448;  // shared memory a block may take: all
 constexpr int kDepth = UIG_K4F_DEPTH;  // k8 steps a partial (0: all of Z)
 static_assert(kDepth == 0 || kDepth == 1, "UIG_K4F_DEPTH: 1, or 0 for all");
 
-__device__ __forceinline__ int mirror(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-// 4-byte copy global -> shared; src_bytes 0 writes a zero.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
 }
 
 // c += A (16 x 8, row) B (8 x 8, col), tf32 products into fp32.
@@ -189,8 +177,8 @@ __global__ void __launch_bounds__(32 * kMaxTiles, 1)
       for (int i = tid; i < ncols * L.cp; i += nthreads) {
         const int px = i / L.cp, c = i - px * L.cp;
         const bool ok = c < Cin;
-        cp_async4(dst + px * L.pitch + 4 * c,
-                  ok ? src + (size_t)px * Cin + c : x, ok ? 4 : 0);
+        cp_async<4>(dst + px * L.pitch + 4 * c,
+                    ok ? src + (size_t)px * Cin + c : x, ok ? 4 : 0);
       }
     }
   };

@@ -1,8 +1,8 @@
 // K4w in bf16 on Hopper's tensor cores: the weight gradient of the 7x7
 // stride-1 pad-3 conv (reflect or zeros) for few output channels (the
 // generator head, Cin 64 -> Cout 3 at 256^2). The entry point of
-// csrc/conv7_bwd.cu launches it for bf16; the fp32 weight gradient stays on
-// its FMA kernel there.
+// csrc/conv7_bwd.cu launches it for bf16 (and csrc/conv7_wgrad_tf32.cu's
+// kernel for fp32).
 //   x (B, H, W, Cin), dy (B, H, W, Cout) -> dw (7, 7, Cin, Cout)
 //
 // Replaces: src/uig/kernels/conv_pallas.py, _wgrad5_impl -> _wgrad5_kernel
@@ -91,10 +91,6 @@ struct Geo {
   static constexpr int SMEM =
       1024 + kRing * kSlot + 2 * B_BYTES + CO * kDyLen * 2;
 };
-
-__device__ __forceinline__ int mirror(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
-}
 
 #define UIG_R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 

@@ -1,10 +1,11 @@
 // The fp32 kernels on wgmma in the three-term TF32 split (csrc/tf32.cuh):
-// csrc/conv3_in_tf32.cu (K3's fp32 conv) and csrc/conv3s2_tf32.cu (K4s's
-// fp32 forward, input and weight gradients). The tf32 wgmma with A from
-// registers, the order of a 32-element K chunk that matches the A
-// fragments, the split of an HWIO weight into W^T's K-major planes, the TMA
-// map of a hi or lo plane, and the ring that K3, the K4s forward and the
-// K4s input gradient run.
+// csrc/conv3_in_tf32.cu (K3's fp32 conv), csrc/conv3s2_tf32.cu (K4s's
+// fp32 forward, input and weight gradients), csrc/conv7_bwd_tf32.cu and
+// csrc/conv7_wgrad_tf32.cu (K4d's and K4w's fp32 gradients of the 7x7
+// head). The tf32 wgmma with A from registers, the order of a 32-element K
+// chunk that matches the A fragments, the split of an HWIO weight into
+// W^T's K-major planes, the TMA map of a hi or lo plane, and the ring that
+// K3, the K4s forward and the K4s input gradient run.
 //
 // Numerics, in every kernel that includes this: each product a b is summed
 // as lo_a hi_b + hi_a lo_b + hi_a hi_b (fp32 accumulators), in that order
@@ -50,17 +51,21 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 #define UIG_R8(i)                                                         \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define UIG_R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 
 // d (N / 2 fp32 a thread) = A (64 x 8, tf32 from registers) * B (8 x N,
-// K-major tf32 in shared memory) + (scale_d ? d : 0), N = 128 or 64. The A
-// fragment: warp w of the warpgroup, lane (g = lane / 4, t = lane % 4):
-// a[0] at row 16 w + g, column t; a[1] row + 8; a[2], a[3] the same at
-// column t + 4. d's layout is wgmma.cuh's acc_row / acc_col.
+// K-major tf32 in shared memory) + (scale_d ? d : 0), N = 128 or 64 (the
+// rings), or 24, 40, 56, 72 (a warpgroup's third of K4w's 49 Cout taps,
+// Cout 1..4). The A fragment: warp w of the warpgroup, lane (g = lane / 4,
+// t = lane % 4): a[0] at row 16 w + g, column t; a[1] row + 8; a[2], a[3]
+// the same at column t + 4. d's layout is wgmma.cuh's acc_row / acc_col.
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
                                            const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
-  static_assert(N == 128 || N == 64, "wgmma N width: 128 or 64");
+  static_assert(N == 128 || N == 72 || N == 64 || N == 56 || N == 40 ||
+                    N == 24,
+                "wgmma N width: 128, 72, 64, 56, 40 or 24");
   if constexpr (N == 128)
     asm volatile(
         "{\n"
@@ -78,7 +83,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
           UIG_R8(40), UIG_R8(48), UIG_R8(56)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(scale_d));
-  else
+  else if constexpr (N == 64)
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -91,8 +96,54 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
         : UIG_R8(0), UIG_R8(8), UIG_R8(16), UIG_R8(24)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(scale_d));
+  else if constexpr (N == 72)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, "
+        "1;\n"
+        "}\n"
+        : UIG_R4(0), UIG_R4(4), UIG_R4(8), UIG_R4(12), UIG_R4(16),
+          UIG_R4(20), UIG_R4(24), UIG_R4(28), UIG_R4(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  else if constexpr (N == 56)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+        "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, {%28, "
+        "%29, %30, %31}, %32, p, 1, 1;\n"
+        "}\n"
+        : UIG_R4(0), UIG_R4(4), UIG_R4(8), UIG_R4(12), UIG_R4(16),
+          UIG_R4(20), UIG_R4(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  else if constexpr (N == 40)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+        "%17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1;\n"
+        "}\n"
+        : UIG_R4(0), UIG_R4(4), UIG_R4(8), UIG_R4(12), UIG_R4(16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  else if constexpr (N == 24)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {%0, %1, %2, "
+        "%3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+        "%16, p, 1, 1;\n"
+        "}\n"
+        : UIG_R4(0), UIG_R4(4), UIG_R4(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
 }
 #undef UIG_R8
+#undef UIG_R4
 
 // One stage's 12 products: the k8 steps of a 32-element K row, each as
 // lo_a hi_b, hi_a lo_b, hi_a hi_b; sb: B's hi plane, its lo plane
@@ -121,6 +172,21 @@ __device__ __forceinline__ void pin(uint32_t (&ah)[4][4],
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       asm volatile("" : "+r"(ah[kk][i]), "+r"(al[kk][i])::"memory");
+}
+
+// The same for one k8 step's fragment.
+__device__ __forceinline__ void pin4(uint32_t (&ah)[4], uint32_t (&al)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    asm volatile("" : "+r"(ah[i]), "+r"(al[i])::"memory");
+}
+
+// Keep accumulators out of reach of other instructions: while products are
+// in flight they own them; after a wait, no read may move above it.
+template <int N>
+__device__ __forceinline__ void pin_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // The ring of K3's fp32 conv and the K4s fp32 forward and input gradient:

@@ -44,17 +44,28 @@ __device__ __forceinline__ uint32_t swz(int row, int piece) {
   return row * 128 + ((piece ^ (row & 7)) << 4);
 }
 
-// VEC-byte copy global -> shared; src_bytes < VEC fills the rest with zeros
-// (0: no read at all).
+// Reflect padding's source index of i on an axis of n (PyTorch's
+// ReflectionPad2d: no edge repeat), for -n < i < 2 n - 1.
+__device__ __forceinline__ int mirror(int i, int n) {
+  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+}
+
+// VEC-byte copy global -> shared, VEC 16, 8 or 4; src_bytes < VEC fills the
+// rest with zeros (0: no read at all).
 template <int VEC>
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
                                          int src_bytes) {
+  static_assert(VEC == 16 || VEC == 8 || VEC == 4, "cp.async: 16, 8 or 4");
   if constexpr (VEC == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                  "l"(src), "r"(src_bytes)
                  : "memory");
-  else
+  else if constexpr (VEC == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                  "l"(src), "r"(src_bytes)
                  : "memory");
 }

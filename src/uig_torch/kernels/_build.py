@@ -45,8 +45,7 @@ SIGNATURES = {
     "uig_instance_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _P],
     "uig_conv7_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "uig_conv7_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _P],
+    "uig_conv7_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "uig_conv_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
     "uig_conv_dgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -2,7 +2,8 @@
 CUDA kernels behind ``csrc/conv7.cu`` (on the tensor cores: fp32 in the
 three-term TF32 split in ``csrc/conv7_tf32.cu``, bf16 in
 ``csrc/conv7_tc.cu``), its input and weight gradients behind
-``csrc/conv7_bwd.cu`` (fp32 on FMAs there; bf16 on the tensor cores in
+``csrc/conv7_bwd.cu`` (on the tensor cores too: fp32 in the split in
+``csrc/conv7_bwd_tf32.cu`` and ``csrc/conv7_wgrad_tf32.cu``, bf16 in
 ``csrc/conv7_bwd_tc.cu`` and ``csrc/conv7_wgrad_tc.cu``), their plain
 PyTorch versions, and ``conv7_act``, the autograd function that pairs them.
 
@@ -30,9 +31,9 @@ from uig_torch.kernels.reflect import reflect_fold
 MAX_COUT = 4
 MAX_CIN_BF16 = 256  # the bf16 forward's source rows and B in shared memory
 MAX_CIN_FP32 = 112  # the fp32 forward's B (hi and lo) and two source rows
-_WGRAD_BLOCKS = 528  # fp32 wgrad blocks in flight: 4 per SM on 132 SMs
-_WTILE = (8, 16)     # fp32 wgrad pixel tile (csrc/conv7_bwd.cu kWH, kWW)
 _WTILE_TC = (32, 128)  # bf16 wgrad tile (csrc/conv7_wgrad_tc.cu kTR, kTW)
+_WTILE_TF32 = (16, 58)  # fp32 wgrad tile (csrc/conv7_wgrad_tf32.cu kTR, TW)
+_WTILE_TF32_CO4 = 26    # its strip at Cout 4 (TW)
 
 
 def _f32(t: torch.Tensor | None) -> torch.Tensor | None:
@@ -59,23 +60,23 @@ def _check_pad_mode(pad_mode: str) -> None:
         raise ValueError(f"unsupported pad_mode {pad_mode!r}")
 
 
-def _check_card(name: str, h: int, wd: int, cout: int, pad_mode: str) -> None:
-    if cout > MAX_COUT:
-        raise ValueError(f"{name}: Cout={cout} > {MAX_COUT}")
-    if pad_mode == "reflect" and (h < 4 or wd < 4):
-        raise ValueError(f"{name}: reflect padding needs H, W >= 4")
-
-
 def takes_cin(cin: int, dtype: torch.dtype) -> bool:
-    """Whether the card's forward and weight-gradient kernels take Cin in
-    ``dtype``: bf16 a multiple of 4 up to MAX_CIN_BF16, fp32 up to
-    MAX_CIN_FP32."""
+    """Whether the card's kernels (forward, input and weight gradients)
+    take Cin in ``dtype``: bf16 a multiple of 4 up to MAX_CIN_BF16, fp32 up
+    to MAX_CIN_FP32."""
     if dtype == torch.bfloat16:
         return cin % 4 == 0 and cin <= MAX_CIN_BF16
     return cin <= MAX_CIN_FP32
 
 
-def _check_cin(name: str, cin: int, dtype: torch.dtype) -> None:
+def _check_card(name: str, h: int, wd: int, cin: int, cout: int,
+                pad_mode: str, dtype: torch.dtype) -> None:
+    """The shapes the card's kernels take, one check for all three, so that
+    the backward takes every head the forward took."""
+    if cout > MAX_COUT:
+        raise ValueError(f"{name}: Cout={cout} > {MAX_COUT}")
+    if pad_mode == "reflect" and (h < 4 or wd < 4):
+        raise ValueError(f"{name}: reflect padding needs H, W >= 4")
     if takes_cin(cin, dtype):
         return
     if dtype == torch.bfloat16:
@@ -98,9 +99,8 @@ def conv7(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None,
         return conv7_reference(x, w, bias, pad_mode)
     _check_pad_mode(pad_mode)
     nb, h, wd, cin = x.shape
-    _check_card("conv7", h, wd, cout, pad_mode)
     t = storage_type("conv7", "x", x)
-    _check_cin("conv7", cin, t)
+    _check_card("conv7", h, wd, cin, cout, pad_mode, t)
     cuda_operand("conv7", "w", w, dtypes=(t,))
     cuda_operand("conv7", "bias", bias, (cout,), dtypes=(t,))
     y = torch.empty((nb, h, wd, cout), device=x.device, dtype=t)
@@ -143,10 +143,8 @@ def conv7_dgrad(dy: torch.Tensor, w: torch.Tensor,
     _check_pad_mode(pad_mode)
     nb, h, wd, cout = dy.shape
     cin = w.shape[2]
-    _check_card("conv7_dgrad", h, wd, cout, pad_mode)
-    if cin % 4:
-        raise ValueError(f"conv7_dgrad: Cin={cin} must be a multiple of 4")
     t = storage_type("conv7_dgrad", "dy", dy)
+    _check_card("conv7_dgrad", h, wd, cin, cout, pad_mode, t)
     cuda_operand("conv7_dgrad", "w", w, dtypes=(t,))
     dx = torch.empty((nb, h, wd, cin), device=dy.device, dtype=t)
     with torch.cuda.device(dy.device):
@@ -178,13 +176,6 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _wgrad_chunks(tiles: int, groups: int) -> tuple[int, int]:
-    """(chunks, tiles per chunk) for about _WGRAD_BLOCKS blocks in all."""
-    chunks = max(1, min(tiles, -(-_WGRAD_BLOCKS // groups)))
-    per = -(-tiles // chunks)
-    return -(-tiles // per), per
-
-
 def conv7_wgrad(x: torch.Tensor, dy: torch.Tensor,
                 pad_mode: str = "reflect") -> torch.Tensor:
     """Weight gradient of ``conv7``: x (B, H, W, Cin), dy (B, H, W, Cout)
@@ -198,23 +189,24 @@ def conv7_wgrad(x: torch.Tensor, dy: torch.Tensor,
     _check_pad_mode(pad_mode)
     nb, h, wd, cin = x.shape
     cout = dy.shape[3]
-    _check_card("conv7_wgrad", h, wd, cout, pad_mode)
     t = storage_type("conv7_wgrad", "x", x)
+    _check_card("conv7_wgrad", h, wd, cin, cout, pad_mode, t)
     cuda_operand("conv7_wgrad", "dy", dy, dtypes=(t,))
+    # persistent blocks, one an SM, over the (B, rows, strips) tiles: bf16
+    # a grid row of them for each 64-channel slice, fp32 one grid in all
     if t == torch.bfloat16:
-        _check_cin("conv7_wgrad", cin, t)
-        # persistent blocks, one an SM, over the (B, rows, strips) tiles
         tiles = nb * -(-h // _WTILE_TC[0]) * -(-wd // _WTILE_TC[1])
-        chunks, per = min(tiles, _sm_count(x.device)), 0
+        chunks = min(tiles, _sm_count(x.device))
     else:
-        tiles = nb * -(-h // _WTILE[0]) * -(-wd // _WTILE[1])
-        chunks, per = _wgrad_chunks(tiles, -(-cin // 32))
+        tw = _WTILE_TF32_CO4 if cout == 4 else _WTILE_TF32[1]
+        tiles = nb * -(-h // _WTILE_TF32[0]) * -(-wd // tw)
+        chunks = min(tiles, max(1, _sm_count(x.device) // -(-cin // 64)))
     part = torch.empty((chunks, 7, 7, cin, cout), device=x.device,
                        dtype=torch.float32)
     dw = torch.empty((7, 7, cin, cout), device=x.device, dtype=t)
     with torch.cuda.device(x.device):
         _build.launch("uig_conv7_wgrad", x, dy, part, dw, nb, h, wd, cin, cout,
-                      pad_mode == "reflect", chunks, per, t == torch.bfloat16)
+                      pad_mode == "reflect", chunks, t == torch.bfloat16)
     conv7_wgrad.launches += 1
     return dw
 

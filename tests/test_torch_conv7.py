@@ -25,6 +25,7 @@ split with partials of one k8 step) is emulated and held within ATOL of
 JAX's fp32 ``conv7_s2d`` at the plain version's shape (Cin 64, the
 path's), its error from float64 at most twice the plain version's."""
 
+import contextlib
 import functools
 
 import jax
@@ -36,8 +37,11 @@ import torch.nn.functional as F
 
 from uig.kernels.conv_pallas import conv7_s2d
 from uig_torch.kernels import (conv7, conv7_act, conv7_dgrad,
-                               conv7_reference, conv7_wgrad)
+                               conv7_dgrad_reference, conv7_reference,
+                               conv7_wgrad, conv7_wgrad_reference)
+from uig_torch.kernels import conv as conv_mod
 from uig_torch.kernels.conv import MAX_CIN_FP32
+from uig_torch.kernels.reflect import reflect_fold
 from uig_torch.models.layers import PadConv
 
 ATOL = 1e-4
@@ -91,6 +95,44 @@ def test_padconv_routes_bf16_heads_the_kernel_takes(cin, routed):
     assert y.shape == (1, 8, 8, 3) and y.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("wrapper", ["conv7", "conv7_dgrad", "conv7_wgrad"])
+def test_card_cin_checks_follow_takes_cin(wrapper, monkeypatch):
+    """Each wrapper's card path takes exactly the Cin that ``takes_cin``
+    admits (the Cin that ``PadConv`` routes to the head), for Cin 1..120 in
+    both dtypes, through the one check all three share (``_check_card``):
+    the backward refuses no head that the forward took. The card is stood
+    in for: CPU tensors pass as card operands and the launch is recorded,
+    not made."""
+    launched, checked = [], []
+    real = conv_mod._check_card
+    monkeypatch.setattr(conv_mod, "on_cpu", lambda name, *t: False)
+    monkeypatch.setattr(conv_mod._build, "launch",
+                        lambda name, *a: launched.append(name))
+    monkeypatch.setattr(conv_mod, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(conv_mod, "_check_card",
+                        lambda *a: (checked.append(a[3:]), real(*a)))
+    fn = getattr(conv_mod, wrapper)
+    monkeypatch.setattr(fn, "launches", fn.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        for cin in range(1, 121):
+            x = torch.zeros(1, 8, 8, cin, dtype=dtype)
+            w = torch.zeros(7, 7, cin, 3, dtype=dtype)
+            dy = torch.zeros(1, 8, 8, 3, dtype=dtype)
+            args = {"conv7": (x, w, None), "conv7_dgrad": (dy, w),
+                    "conv7_wgrad": (x, dy)}[wrapper]
+            n = len(launched)
+            if conv_mod.takes_cin(cin, dtype):
+                fn(*args)
+                assert len(launched) == n + 1, (cin, dtype)
+            else:
+                with pytest.raises(ValueError, match="takes Cin"):
+                    fn(*args)
+                assert len(launched) == n
+            assert checked[-1] == (cin, 3, "reflect", dtype)
+
+
 def test_conv7_checks():
     x = torch.zeros(1, 8, 8, 4)
     with pytest.raises(ValueError, match="bad shapes"):
@@ -99,18 +141,26 @@ def test_conv7_checks():
         conv7(x, torch.zeros(7, 7, 4, 3), None, "circular")
 
 
-@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
-def test_backward_matches_jax_vjp(pad_mode):
+@functools.lru_cache(maxsize=None)
+def _bwd_case(pad_mode):
+    """The head's backward at (2, 16, 16, 32) -> 3: x, w, b and dy from seed
+    7, and JAX's fp32 VJP of ``conv7_s2d`` for dy (dx, dw, db), one compile
+    of the whole VJP (op by op, it compiles every op), shared by the plain
+    versions' test and the fp32 kernels' orders."""
     rng = np.random.default_rng(7)
     x = rng.standard_normal((2, 16, 16, 32)).astype(np.float32)
     w = (rng.standard_normal((7, 7, 32, 3)) * 0.05).astype(np.float32)
     b = (rng.standard_normal(3) * 0.1).astype(np.float32)
     dy = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
-    # one compile of the whole vjp (op by op, it compiles every op)
     vjp = jax.jit(lambda x, w, b, dy: jax.vjp(
         lambda *a: conv7_s2d(*a, pad_mode=pad_mode), x, w, b)[1](dy)).lower(
             x, w, b, dy).compile(compiler_options=_FAST_COMPILE)
-    wdx, wdw, wdb = (np.asarray(v) for v in vjp(x, w, b, dy))
+    return (x, w, b, dy), tuple(np.asarray(v) for v in vjp(x, w, b, dy))
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_backward_matches_jax_vjp(pad_mode):
+    (x, w, b, dy), (wdx, wdw, wdb) = _bwd_case(pad_mode)
     tx, tw, tb, tdy = map(torch.from_numpy, (x, w, b, dy))
     dx = conv7_dgrad(tdy, tw, pad_mode).numpy()
     dw = conv7_wgrad(tx, tdy, pad_mode).numpy()
@@ -312,3 +362,164 @@ def test_conv7_bf16_wgrad_order_matches_jax(pad_mode, cout):
     got = _conv7_wgrad_tc_order(tx, tdy, pad_mode).float().numpy()
     assert got.shape == want.shape == (7, 7, 32, cout)
     assert _bf16_ulp_err(got, want) <= 1.0
+
+
+def _dgrad_fp64(dy, w, pad_mode):
+    """conv7's input gradient in float64, the reflect ring folded onto its
+    sources in float64."""
+    nb, h, wd, _ = dy.shape
+    wt, dyn = w.double().permute(3, 2, 0, 1), dy.double().permute(0, 3, 1, 2)
+    if pad_mode == "zeros":
+        return torch.nn.grad.conv2d_input((nb, w.shape[2], h, wd), wt, dyn,
+                                          padding=3).permute(0, 2, 3, 1)
+    dxp = torch.nn.grad.conv2d_input((nb, w.shape[2], h + 6, wd + 6), wt,
+                                     dyn)
+    return reflect_fold(dxp.permute(0, 2, 3, 1), 3)
+
+
+def _wgrad_fp64(x, dy, pad_mode):
+    """conv7's weight gradient in float64, against the padded x."""
+    xn, dyn = x.double().permute(0, 3, 1, 2), dy.double().permute(0, 3, 1, 2)
+    shape = (dy.shape[3], x.shape[3], 7, 7)
+    if pad_mode == "zeros":
+        dw = torch.nn.grad.conv2d_weight(xn, shape, dyn, padding=3)
+    else:
+        dw = torch.nn.grad.conv2d_weight(F.pad(xn, (3, 3, 3, 3),
+                                               mode="reflect"), shape, dyn)
+    return dw.permute(2, 3, 1, 0)
+
+
+def _ring_src(src, i, n):
+    """The padded row (or column) whose window pass ``src`` adds to dx row
+    i of a plane of n, for a tensor of rows: 0 main, 1 the near ring, 2 the
+    far ring; -1 where there is none."""
+    if src == 0:
+        return i + 3
+    if src == 1:
+        return torch.where((i >= 1) & (i <= 3), 3 - i, -1)
+    return torch.where((i >= n - 4) & (i <= n - 2), 2 * n + 1 - i, -1)
+
+
+def _conv7_dgrad_tf32_order(dy, w, pad_mode, depth=1):
+    """dx in fp32 as csrc/conv7_bwd_tf32.cu sums it: the row of A at padded
+    position (P, Q) is the window dy[P - 6 + r, Q - 6 + u, o] (zero outside
+    the plane), K in the order k = r L + u Cout + o (L = 7 Cout) padded to
+    whole k8 steps, B[k, c] = w[6 - r, 6 - u, c, o]; partials of ``depth``
+    k8 steps (lo hi + hi lo + hi hi, summed here in float64 and rounded to
+    fp32, as the tensor core's fresh accumulator does) added in fp32 in K
+    order, for the main pass (P, Q) = (i + 3, j + 3) and then, in reflect
+    mode, each ring pass (row source, column source) in order, for the
+    pixels that have it."""
+    nb, h, wd, cout = dy.shape
+    cin = w.shape[2]
+    k = 49 * cout
+    kp = -(-k // 8) * 8
+    b = F.pad(w.flip(0, 1).permute(0, 1, 3, 2).reshape(k, cin),
+              (0, 0, 0, kp - k))
+    dyp = F.pad(dy.permute(0, 3, 1, 2), (6, 6, 6, 6)).permute(0, 2, 3, 1)
+    a = dyp.unfold(1, 7, 1).unfold(2, 7, 1).permute(0, 1, 2, 4, 5, 3)
+    a = F.pad(a.reshape(nb, h + 6, wd + 6, k), (0, kp - k))
+    ah, al = (v.double() for v in _tf32_split(a))
+    bh, bl = (v.double() for v in _tf32_split(b))
+    parts = []
+    for k0 in range(0, kp, 8 * depth):
+        s = slice(k0, k0 + 8 * depth)
+        parts.append((al[..., s] @ bh[s] + ah[..., s] @ bl[s]
+                      + ah[..., s] @ bh[s]).float())
+    rows = torch.arange(h)[:, None].expand(h, wd)
+    cols = torch.arange(wd)[None, :].expand(h, wd)
+    passes = [(rs, cs) for rs in range(3) for cs in range(3)]
+    dx = torch.zeros(nb, h, wd, cin)
+    for rs, cs in passes if pad_mode == "reflect" else [(0, 0)]:
+        p, q = _ring_src(rs, rows, h), _ring_src(cs, cols, wd)
+        ok = ((p >= 0) & (q >= 0))[None, :, :, None]
+        for part in parts:
+            dx = dx + part[:, p.clamp(min=0), q.clamp(min=0)] * ok
+    return dx
+
+
+def _conv7_wgrad_tf32_order(x, dy, pad_mode, depth=0):
+    """dw in fp32 as csrc/conv7_wgrad_tf32.cu sums it: for each tile (an
+    image's 16 output rows of a strip [x0, x1) of 58 columns, 26 at Cout
+    4), each output row oy in order and each ky, the partial A_ky(oy)^T
+    B(oy) over the strip's padded columns q < 8 ceil((x1 - x0 + 6) / 8) (in
+    partials of ``depth`` k8 steps, 0 all of them; each partial's three
+    terms summed here in float64 and rounded to fp32) added to the tile's
+    fp32 sum, with A_ky(oy)[q] = x[row(oy + ky - 3), col(x0 + q - 3)] (zero
+    past the strip's padded columns; in zeros mode a row outside the plane
+    adds nothing) and B(oy)[q, (kx, f)] = dy[oy, x0 + q - kx, f] where x0 +
+    q - kx lies in the strip; the tiles' sums (one a block where the blocks
+    are as many as the tiles, as here) added in order."""
+    nb, h, wd, cin = x.shape
+    cout = dy.shape[3]
+    tw = 26 if cout == 4 else 58
+    rows, row_ok = _source(h, pad_mode)
+    cols, col_ok = _source(wd, pad_mode)
+    xs, ds = _tf32_split(x), _tf32_split(dy)
+    dw = torch.zeros(7, cin, 7 * cout)
+    for bi in range(nb):
+        for r0 in range(0, h, 16):
+            for x0 in range(0, wd, tw):
+                x1 = min(wd, x0 + tw)
+                nq = x1 - x0 + 6
+                kq = -(-nq // 8) * 8
+                step = 8 * depth if depth else kq
+                a = [F.pad((v[bi][:, cols[x0:x0 + nq]]
+                            * col_ok[x0:x0 + nq, None]).double(),
+                           (0, 0, 0, kq - nq)) for v in xs]
+                d = torch.zeros(7, cin, 7 * cout)
+                for oy in range(r0, min(h, r0 + 16)):
+                    bm = [torch.zeros(kq, 7 * cout, dtype=torch.float64)
+                          for _ in ds]
+                    for m, v in zip(bm, ds):
+                        for kx in range(7):
+                            m[kx:kx + x1 - x0, kx * cout:(kx + 1) * cout] = \
+                                v[bi, oy, x0:x1].double()
+                    for ky in range(7):
+                        if not row_ok[oy + ky]:
+                            continue
+                        ah, al = (v[rows[oy + ky]] for v in a)
+                        for q0 in range(0, kq, step):
+                            s = slice(q0, q0 + step)
+                            d[ky] = d[ky] + (al[s].T @ bm[0][s]
+                                             + ah[s].T @ bm[1][s]
+                                             + ah[s].T @ bm[0][s]).float()
+                dw = dw + d
+    return dw.reshape(7, cin, 7, cout).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_conv7_tf32_dgrad_order_matches_jax(pad_mode):
+    """K4d's fp32 order on the tensor cores (the split with one-k8-step
+    partials over the window's K order, the ring passes in order) within
+    ATOL of the dx of JAX's fp32 VJP of ``conv7_s2d``, and its error from
+    float64 at most twice the plain version's (fp32 on the CPU), on the VJP
+    test's inputs and JAX answer."""
+    (_, w, _, dy), (want, _, _) = _bwd_case(pad_mode)
+    tw, tdy = torch.from_numpy(w), torch.from_numpy(dy)
+    got = _conv7_dgrad_tf32_order(tdy, tw, pad_mode)
+    assert got.shape == want.shape == (2, 16, 16, 32)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    exact = _dgrad_fp64(tdy, tw, pad_mode)
+    err = [(v.double() - exact).abs().max().item()
+           for v in (got, conv7_dgrad_reference(tdy, tw, pad_mode))]
+    assert err[0] <= 2.0 * err[1], err
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
+def test_conv7_tf32_wgrad_order_matches_jax(pad_mode):
+    """K4w's fp32 order on the tensor cores (the taps folded into N, the
+    split with a strip row's k8 steps a partial, rows and tiles in order) within
+    1e-5 of the largest dw of JAX's fp32 VJP of ``conv7_s2d``, and its
+    error from float64 at most twice the plain version's, on the VJP test's
+    inputs and JAX answer."""
+    (x, _, _, dy), (_, want, _) = _bwd_case(pad_mode)
+    tx, tdy = torch.from_numpy(x), torch.from_numpy(dy)
+    got = _conv7_wgrad_tf32_order(tx, tdy, pad_mode)
+    assert got.shape == want.shape == (7, 7, 32, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    exact = _wgrad_fp64(tx, tdy, pad_mode)
+    err = [(v.double() - exact).abs().max().item()
+           for v in (got, conv7_wgrad_reference(tx, tdy, pad_mode))]
+    assert err[0] <= 2.0 * err[1], err

@@ -27,7 +27,10 @@ its fp32 forward, dgrad and wgrad, in the three-term TF32 split, are held
 to the same 1e-5 at the path's widths and at ragged VALID shapes, and the
 forward's error from float64 to at most twice the plain version's. The
 7x7 head's fp32 forward, in the same split, is held to 1e-4 and its error
-from float64 to at most twice the plain version's.
+from float64 to at most twice the plain version's; its fp32 input and
+weight gradients, in the split too, to 1e-4 (dw relative to its largest
+value) and to at most twice the larger of the plain version's error from
+float64 and the split's floor, 2^-22.
 
 bf16: every kernel against its plain version in bf16 (both sum in fp32
 from the same bf16 values and round once, in another order) within 1 bf16
@@ -60,7 +63,7 @@ from uig_torch.kernels import (attention, attention_bwd,
                                instance_norm_bwd_reference,
                                instance_norm_reference)
 from uig_torch.kernels.norm import _instance_norm_fwd
-from uig_torch.kernels.reflect import reflect_pad
+from uig_torch.kernels.reflect import reflect_fold, reflect_pad
 from uig_torch.serving import exact_fp32
 
 pytestmark = pytest.mark.cuda
@@ -231,28 +234,104 @@ _CONV7_SHAPES = [((2, 37, 45, 24), 3), ((1, 4, 4, 8), 1), ((1, 9, 33, 16), 4),
                  ((2, 16, 16, 36), 3)]
 
 
-@pytest.mark.parametrize("shape,cout", _CONV7_SHAPES)
+# the fp32 backward's shapes: those of both dtypes, then Cin 6 and 5 (not a
+# multiple of 4: 4-byte source copies; odd: 4-byte dx stores), Cin 112 (two
+# channel slices, the largest fp32 Cin) with Cout 4 (26-column strips),
+# and a ragged plane of several tiles, strips and patches
+_CONV7_FP32_SHAPES = _CONV7_SHAPES + [((2, 11, 23, 6), 3), ((1, 9, 17, 5), 2),
+                                      ((1, 20, 70, 112), 4),
+                                      ((1, 45, 150, 64), 3)]
+
+
+# The three-term split's floor: an fp32 operand's hi + lo keeps it to 2^-22,
+# and the tensor core truncates each partial's sum to fp32. At a few hundred
+# terms a sum (the small shapes here) cuDNN's fp32 error from float64 falls
+# below that floor (6.7e-8 to 1.0e-7 of the largest value on an H100), so
+# the backward's error is held to twice the larger of the two.
+_SPLIT_FLOOR = 2.0 ** -22
+
+
+def _conv7_dgrad_fp64(dy, w, pad_mode):
+    nb, h, wd, _ = dy.shape
+    wt, dyn = w.double().permute(3, 2, 0, 1), dy.double().permute(0, 3, 1, 2)
+    if pad_mode == "zeros":
+        return torch.nn.grad.conv2d_input((nb, w.shape[2], h, wd), wt, dyn,
+                                          padding=3).permute(0, 2, 3, 1)
+    dxp = torch.nn.grad.conv2d_input((nb, w.shape[2], h + 6, wd + 6), wt,
+                                     dyn)
+    return reflect_fold(dxp.permute(0, 2, 3, 1), 3)
+
+
+def _conv7_wgrad_fp64(x, dy, pad_mode):
+    xd = reflect_pad(x.double(), 3) if pad_mode == "reflect" else x.double()
+    dw = torch.nn.grad.conv2d_weight(
+        xd.permute(0, 3, 1, 2), (dy.shape[3], x.shape[3], 7, 7),
+        dy.double().permute(0, 3, 1, 2), padding=3 if pad_mode == "zeros"
+        else 0)
+    return dw.permute(2, 3, 1, 0)
+
+
+@pytest.mark.parametrize("shape,cout", _CONV7_FP32_SHAPES)
 @pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
 def test_conv7_dgrad(dev, shape, cout, pad_mode):
+    """K4d in fp32 (tf32x3, wgmma): within 1e-4 of the plain version, its
+    error from float64 at most twice the plain version's (or the split's
+    floor), repeats bit-equal, and only the split kernel launched."""
     b, h, w, cin = shape
     dy = _randn(dev, b, h, w, cout)
     wt = _randn(dev, 7, 7, cin, cout, scale=0.05, seed=1)
     before = conv7_dgrad.launches
     dx = conv7_dgrad(dy, wt, pad_mode)
     assert conv7_dgrad.launches == before + 1
-    _close(dx, conv7_dgrad_reference(dy, wt, pad_mode))
+    ref = conv7_dgrad_reference(dy, wt, pad_mode)
+    _close(dx, ref)
+    exact = _conv7_dgrad_fp64(dy, wt, pad_mode)
+    assert _fp64_err(dx, exact) <= 2.0 * max(_fp64_err(ref, exact),
+                                                _SPLIT_FLOOR)
+    assert torch.equal(dx, conv7_dgrad(dy, wt, pad_mode))
+    fns = _functions_run(lambda: conv7_dgrad(dy, wt, pad_mode))
+    assert fns == {"conv7_dgrad_tf32_kernel"}, fns
 
 
-@pytest.mark.parametrize("shape,cout", _CONV7_SHAPES)
+@pytest.mark.parametrize("shape,cout", _CONV7_FP32_SHAPES)
 @pytest.mark.parametrize("pad_mode", ["reflect", "zeros"])
 def test_conv7_wgrad(dev, shape, cout, pad_mode):
+    """K4w in fp32 (tf32x3, wgmma): within 1e-4 of the plain version's
+    largest value, its error from float64 at most twice the plain
+    version's (or the split's floor), repeats bit-equal (no atomics), and
+    only the split kernel and its sum launched."""
     x = _randn(dev, *shape)
     dy = _randn(dev, *shape[:3], cout, seed=1)
     before = conv7_wgrad.launches
     dw = conv7_wgrad(x, dy, pad_mode)
     assert conv7_wgrad.launches == before + 1
-    _rel_close(dw, conv7_wgrad_reference(x, dy, pad_mode))
+    ref = conv7_wgrad_reference(x, dy, pad_mode)
+    _rel_close(dw, ref)
+    exact = _conv7_wgrad_fp64(x, dy, pad_mode)
+    assert _fp64_err(dw, exact) <= 2.0 * max(_fp64_err(ref, exact),
+                                                _SPLIT_FLOOR)
     assert torch.equal(dw, conv7_wgrad(x, dy, pad_mode))  # no atomics
+    fns = _functions_run(lambda: conv7_wgrad(x, dy, pad_mode))
+    assert fns == {"conv7_wgrad_tf32_kernel",
+                   "conv7_wgrad_tf32_sum_kernel"}, fns
+
+
+@pytest.mark.parametrize("cin", [6, 112])
+def test_conv7_function_fp32_heads_the_forward_takes(dev, cin):
+    """An fp32 head that PadConv routes to conv7_act (Cin 6, not a multiple
+    of 4; Cin 112, the largest) runs its forward and its backward on the
+    card and matches autograd of the plain version."""
+    x = _randn(dev, 2, 12, 20, cin)
+    w = _randn(dev, 7, 7, cin, 3, scale=0.05, seed=1)
+    b = _randn(dev, 3, scale=0.1, seed=2)
+    ct = _randn(dev, 2, 12, 20, 3, seed=3)
+    before = (conv7.launches, conv7_dgrad.launches, conv7_wgrad.launches)
+    got = _grads(lambda *a: conv7_act(*a, "reflect"), (x, w, b), ct)
+    assert (conv7.launches, conv7_dgrad.launches, conv7_wgrad.launches) == \
+        tuple(n + 1 for n in before)
+    want = _grads(lambda *a: conv7_reference(*a, "reflect"), (x, w, b), ct)
+    for u, v in zip(got, want):
+        _rel_close(u, v)
 
 
 def _grads(fn, inputs, ct):

@@ -125,14 +125,14 @@ def test_chip_smoke_counts_launches_by_function():
 @pytest.mark.parametrize("ran", ["fma", "wgmma"])
 def test_chip_smoke_reads_the_design_that_ran(ran):
     """The CycleGAN step: each kernel of DESIGNS in one design, no
-    attention. "fma": the fp32 step (K3, K4s's forward, dgrad and wgrad and
-    the 7x7 head's forward in the TF32 split, "tf32x3"; K4d and K4w on the
-    FMA cores, K4w's kernel and its reduce 4 times each); "wgmma": the bf16
-    step (the head's forward on mma.sync, "mma"; K4w on wgmma with its
-    sum). The norm backward runs its two-pass design in both; a step that
-    launches another design's function (the removed FMA forward, dgrad and
-    wgrad of K4s and FMA forward of the head among them), or one design's
-    function too few times, fails."""
+    attention. "fma" (the id of the fp32 step): K3, K4s's forward, dgrad
+    and wgrad and the 7x7 head's forward, dgrad and wgrad in the TF32
+    split, "tf32x3" (K4w's kernel and its sum 4 times each); "wgmma": the
+    bf16 step (the head's forward on mma.sync, "mma"; K4d and K4w on wgmma,
+    K4w with its sum). The norm backward runs its two-pass design in both;
+    a step that launches another design's function (the removed FMA
+    forward, dgrad and wgrad of K4s and of the head among them), or one
+    design's function too few times, fails."""
     cs = _chip_smoke()
     assert set(cs.DESIGNS) == {"conv3_in_act", "conv7", "conv7_dgrad",
                                "conv7_wgrad", "conv3s2", "conv3s2_dgrad",
@@ -142,8 +142,9 @@ def test_chip_smoke_reads_the_design_that_ran(ran):
     assert set(want) == {name for name in cs.DESIGNS if cs.PER_STEP[name]}
     assert want["conv3_in_act"] == ("tf32x3" if ran == "fma" else "wgmma")
     assert want["conv7"] == ("tf32x3" if ran == "fma" else "mma")
-    assert want["conv7_wgrad"] == ran
-    assert "conv7_wgrad" in cs.REPEAT_BIT_EQUAL
+    assert want["conv7_dgrad"] == want["conv7_wgrad"] == \
+        ("tf32x3" if ran == "fma" else "wgmma")
+    assert {"conv7_dgrad", "conv7_wgrad"} <= set(cs.REPEAT_BIT_EQUAL)
     assert want["conv3s2"] == want["conv3s2_dgrad"] == \
         want["conv3s2_wgrad"] == ("tf32x3" if ran == "fma" else "wgmma")
     calls = {fn: cs.PER_STEP[name] for name, d in want.items()

@@ -5,24 +5,28 @@ process with its own build:
 - outputs at the training step's shapes that must be bit-identical: every
   CycleGAN kernel in both dtypes (K1, K2f, K2b, K3, K4f, K4d, K4w and K4s's
   forward, dgrad and wgrad) and the attention kernels K5f and K5b at the
-  VQGAN shapes, except the outputs in ``REPORTED``: K4f's fp32 forward
-  and K4w's bf16 weight gradient, whose design differs from the parent's
-  (the three-term TF32 split on mma.sync, and wgmma on the bf16 products,
-  against FMAs), are reported as their largest difference and not held;
-- the SASS of the bf16 wgmma kernels of ``conv3_in_tc.cu``,
-  ``conv3s2_tc.cu`` and ``conv7_bwd_tc.cu``, of the bf16 mma.sync kernel
-  of ``conv7_tc.cu``, of the fp32 instantiations of ``conv7_bwd.cu``'s FMA
-  dgrad, wgrad and reduce (template argument ``f``) and of every kernel of
-  ``attention.cu``, compiled from each checkout with the same nvcc flags
-  and compared instruction by instruction (the kernels' anonymous-namespace
-  prefix left out of their names; ``attention.cu``'s kernels by their
-  identifier, so that a plain kernel and the fp32 instantiation of the
-  same kernel as a template on the storage type meet): all must match;
-  kernels only this checkout has (the bf16 instantiations) are listed as
-  new;
+  VQGAN shapes, except the outputs in ``REPORTED``: K4d's and K4w's fp32
+  gradients, whose design differs from the parent's (the three-term TF32
+  split on wgmma against FMAs), are reported as their largest difference
+  and not held;
+- the SASS of every kernel of the sources in ``SASS``: the bf16 wgmma and
+  mma.sync kernels (``conv3_in_tc.cu``, ``conv3s2_tc.cu``,
+  ``conv7_bwd_tc.cu``, ``conv7_wgrad_tc.cu``, ``conv7_tc.cu``), the fp32
+  split kernels (``conv3_in_tf32.cu``, ``conv3s2_tf32.cu``,
+  ``conv7_tf32.cu``) and ``attention.cu``'s, compiled from each checkout
+  with the same nvcc flags and compared instruction by instruction (the
+  kernels' anonymous-namespace prefix left out of their names;
+  ``attention.cu``'s kernels by their identifier, so that a plain kernel
+  and the fp32 instantiation of the same kernel as a template on the
+  storage type meet): all must match; kernels only this checkout has are
+  listed as new;
 - the ``cyclegan256_dp`` training step, timed in fp32 and in bf16, and the
-  ``vqgan512`` step (fp32, union batch 8, D on from the first step), in
-  turns (this, other, other, this).
+  ``vqgan512`` step (union batch 8, D on from the first step) in fp32 and
+  as published in bf16, in turns (this, other, other, this); after each
+  run's steps, a digest of every tensor of its train state: the steps
+  whose kernels ``STATE_REPORTED`` does not name (the fp32 CycleGAN step
+  runs the fp32 K4d and K4w) must end in the same state as the other
+  checkout's.
 
     python3 tools/ab_checkouts.py OTHER_CHECKOUT
 
@@ -46,15 +50,20 @@ SEED, BATCH, WARMUP, TIMED = 0, 8, 3, 10
 OVERRIDES = {"float32": ["model.compute_dtype=float32", "loss.lambda_lpips=0"],
              "bfloat16": ["loss.lambda_lpips=0"]}
 VQ_OVERRIDES = OVERRIDES["float32"] + ["loss.vq_disc_start=0"]
+VQ_OVERRIDES_BF16 = ["loss.vq_disc_start=0"]
 VQ_BATCH, VQ_TIMED = 4, 5  # per domain: the step trains on a union of 8
 # outputs reported as their largest difference, not held bit-identical
 REPORTED = tuple(f"{name} {nb} reflect" for nb in (2 * BATCH, BATCH)
-                 for name in ("conv7 float32", "conv7_wgrad bfloat16"))
+                 for name in ("conv7_dgrad float32", "conv7_wgrad float32"))
+# training steps whose end state is reported, not held identical
+STATE_REPORTED = ("float32",)
 # (source, the kernels compared: a substring of the name, whether their
 # SASS must match)
-SASS = (("conv3_in_tc.cu", "wgmma", True), ("conv3s2_tc.cu", "wgmma", True),
-        ("conv7_bwd_tc.cu", "wgmma", True), ("conv7_tc.cu", "mma", True),
-        ("conv7_bwd.cu", "If", True), ("attention.cu", "", True))
+SASS = (("conv3_in_tc.cu", "", True), ("conv3s2_tc.cu", "", True),
+        ("conv7_bwd_tc.cu", "", True), ("conv7_wgrad_tc.cu", "", True),
+        ("conv7_tc.cu", "", True), ("conv3_in_tf32.cu", "", True),
+        ("conv3s2_tf32.cu", "", True), ("conv7_tf32.cu", "", True),
+        ("attention.cu", "", True))
 
 
 def worker(out: Path) -> None:
@@ -147,6 +156,8 @@ def worker(out: Path) -> None:
              TIMED) for dtype, overrides in OVERRIDES.items()]
     runs.append(("vqgan512", "vqgan512", VQGANTrainer, VQ_OVERRIDES,
                  VQ_BATCH, VQ_TIMED))
+    runs.append(("vqgan512_bf16", "vqgan512", VQGANTrainer,
+                 VQ_OVERRIDES_BF16, VQ_BATCH, VQ_TIMED))
     for key, preset, trainer, overrides, nb, timed in runs:
         cfg = apply_overrides(get_preset(preset), overrides)
         load = cfg.data.load_size
@@ -164,10 +175,41 @@ def worker(out: Path) -> None:
             torch.cuda.synchronize()
             if i >= WARMUP:
                 ms.append(e0.elapsed_time(e1))
-        times[key] = {"step_ms_median": float(np.median(ms)), "step_ms": ms}
+        times[key] = {"step_ms_median": float(np.median(ms)), "step_ms": ms,
+                      "state_sha256": state_digest(st)}
         del tr, st
         torch.cuda.empty_cache()
     print(json.dumps(times), flush=True)
+
+
+def state_digest(st) -> str:
+    """sha256 of every tensor of a train state (CycleGAN or VQGAN: the
+    parameters, EMA, Adam moments, replay pools) and its counters, in name
+    order."""
+    import hashlib
+
+    import torch
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            elif v is not None:
+                yield prefix + k, v
+
+    tensors = dict(flat({"g": st.g_params, "d": st.d_params, "ema": st.ema,
+                         "g_mu": st.g_opt.mu, "g_nu": st.g_opt.nu,
+                         "d_mu": st.d_opt.mu, "d_nu": st.d_opt.nu}))
+    if hasattr(st, "pool_a"):
+        tensors["pool_a"], tensors["pool_b"] = (st.pool_a.buffer,
+                                                st.pool_b.buffer)
+    h = hashlib.sha256(repr((st.step, st.g_opt.count,
+                             st.d_opt.count)).encode())
+    for name in sorted(tensors):
+        h.update(name.encode())
+        h.update(tensors[name].detach().cpu().contiguous().view(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def sass(checkout: Path, tmp: Path) -> dict:
@@ -247,15 +289,19 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True).stdout
         .strip(), flush=True)
     names = {"this": ROOT, "other": other}
-    outputs = {}
+    outputs, states = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for turn, who in enumerate(("this", "other", "other", "this")):
             out = Path(tmp) / f"{turn}_{who}.pt"
             times = run(names[who], out)
             outputs.setdefault(who, torch.load(out))
+            states.setdefault(who, {k: v["state_sha256"]
+                                    for k, v in times.items()})
             print(json.dumps({"turn": turn, "checkout": who,
                               **{k: v["step_ms_median"]
                                  for k, v in times.items()},
+                              "state_sha256": {k: v["state_sha256"]
+                                               for k, v in times.items()},
                               "step_ms": {k: v["step_ms"]
                                           for k, v in times.items()}}),
                   flush=True)
@@ -273,10 +319,13 @@ def main() -> int:
                   - outputs["other"][k].double()).abs().max().item()
               for k in REPORTED}
     required = [src for src, _, must in SASS if must]
+    state_same = {k: v == states["other"].get(k)
+                  for k, v in states["this"].items()}
     print(json.dumps({"bit_identical": same, "sass_identical": sass_same,
-                      "sass_new": sass_new, "max_abs_difference": differ}),
-          flush=True)
+                      "sass_new": sass_new, "max_abs_difference": differ,
+                      "step_state_identical": state_same}), flush=True)
     return 0 if all(same.values()) and all(
+        v for k, v in state_same.items() if k not in STATE_REPORTED) and all(
         v for k, v in sass_same.items() if k.split()[0] in required) else 1
 
 
