@@ -30,7 +30,8 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    take the statistics their forward kept. Each case also reports the
    kernel's own device time in one call from the profiler (``device_ms``),
    beside ``ms``, which times back-to-back calls and so, for the small
-   kernels, the host's rate of issuing them.
+   kernels, the host's rate of issuing them, and the host's time to issue
+   one call (``host_ms``, a host clock around calls in a row).
 3. train: a ``CycleGANTrainer`` for ``cyclegan256_dp`` at full width with
    ``model.compute_dtype=float32`` and ``loss.lambda_lpips=0``, from a
    seeded state, on seeded uint8 (8, 286, 286, 3) batches, under
@@ -89,7 +90,8 @@ and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
 ``train_bf16`` step, with the design each dtype launched: "wgmma" on the
 tensor cores, "mma" (the bf16 7x7 head), "tf32x3" (the fp32 conv3+IN,
-K4s and the 7x7 head's forward), or "fma", read from the
+K4s and the 7x7 head's forward), "one_launch" (the norm forward),
+"two_pass" (the norm backward), or "fma", read from the
 functions that the dtype's profiled training step launched and held to
 ``STEP_DESIGNS``; "tf32x3" for the attention kernels, read from each
 dtype's VQGAN step's profile), the nvidia-smi line, and, last,
@@ -170,7 +172,8 @@ TOL = {"augment_batch": 0.0, "instance_norm": 1e-4,
 TOL_BF16 = {name: 1.0 for name in TOL} | {"conv3_in_act": 2.0,
                                           "augment_batch": 0.0}
 # kernels whose every case must also repeat bit for bit
-REPEAT_BIT_EQUAL = ("augment_batch", "instance_norm_bwd", "conv3_in_act",
+REPEAT_BIT_EQUAL = ("augment_batch", "instance_norm", "instance_norm_bwd",
+                    "conv3_in_act",
                     "conv7", "conv7_dgrad", "conv7_wgrad", "conv3s2",
                     "conv3s2_dgrad", "conv3s2_wgrad", "attention_fwd",
                     "attention_bwd")
@@ -212,7 +215,7 @@ REPLACES = {
 }
 SOURCES = {
     "augment_batch": "src/uig_torch/csrc/augment.cu",
-    "instance_norm": "src/uig_torch/csrc/instance_norm.cu",
+    "instance_norm": "src/uig_torch/csrc/instance_norm_fwd.cu",
     "instance_norm_bwd": "src/uig_torch/csrc/instance_norm_bwd.cu",
     "conv3_in_act": "src/uig_torch/csrc/conv3_in.cu",
     "conv7": "src/uig_torch/csrc/conv7.cu",
@@ -230,10 +233,16 @@ SOURCES = {
 # every other kernel has one design, "fma", in SOURCES. The earlier FMA
 # designs of the fp32 conv3+IN, of the attention kernels and of K4s's fp32
 # forward, dgrad and wgrad, the 7x7 head's FMA forward, dgrad and weight
-# gradient (both types), and the earlier six-launch norm backward, are gone
-# from the source: their names stay here so that a step that launched them
-# fails.
+# gradient (both types), the earlier six-launch norm backward and the
+# three-launch norm forward (partials, finalize, apply; K3 still launches
+# the last two, so its partials kernel names it), are gone from the source:
+# their names stay here so that a step that launched them fails.
 DESIGNS = {
+    "instance_norm": {
+        "three_pass": ("in_partials_kernel",
+                       "src/uig_torch/csrc/instance_norm.cu"),
+        "one_launch": ("in_fwd_kernel",
+                       "src/uig_torch/csrc/instance_norm_fwd.cu")},
     "conv3_in_act": {
         "fma": ("conv3_gemm_kernel", "src/uig_torch/csrc/conv3_in.cu"),
         "wgmma": ("conv3_in_wgmma_kernel",
@@ -296,16 +305,19 @@ DESIGNS = {
 # The design each kernel of DESIGNS must run in one training step, by
 # compute dtype (CycleGAN), and in the VQGAN step.
 STEP_DESIGNS = {
-    "float32": {"instance_norm_bwd": "two_pass", "conv3_in_act": "tf32x3",
+    "float32": {"instance_norm": "one_launch",
+                "instance_norm_bwd": "two_pass", "conv3_in_act": "tf32x3",
                 "conv7": "tf32x3", "conv3s2": "tf32x3",
                 "conv7_dgrad": "tf32x3", "conv7_wgrad": "tf32x3",
                 "conv3s2_dgrad": "tf32x3",
                 "conv3s2_wgrad": "tf32x3"},
-    "bfloat16": {"instance_norm_bwd": "two_pass", "conv3_in_act": "wgmma",
+    "bfloat16": {"instance_norm": "one_launch",
+                 "instance_norm_bwd": "two_pass", "conv3_in_act": "wgmma",
                  "conv7": "mma", "conv3s2": "wgmma", "conv7_dgrad": "wgmma",
                  "conv7_wgrad": "wgmma", "conv3s2_dgrad": "wgmma",
                  "conv3s2_wgrad": "wgmma"}}
-VQ_STEP_DESIGNS = {"instance_norm_bwd": "two_pass",
+VQ_STEP_DESIGNS = {"instance_norm": "one_launch",
+                   "instance_norm_bwd": "two_pass",
                    "attention_fwd": "tf32x3", "attention_bwd": "tf32x3"}
 
 
@@ -366,8 +378,8 @@ PER_STEP = {"augment_batch": 2, "instance_norm": 32,
 DTYPE_NAMES = ("float32", "bfloat16")
 # The design each kernel of DESIGNS runs in one translate apply (fp32
 # serving, PER_APPLY launches), read from a profiled apply.
-SLICE_DESIGNS = {"conv3_in_act": "tf32x3", "conv7": "tf32x3",
-                 "conv3s2": "tf32x3"}
+SLICE_DESIGNS = {"instance_norm": "one_launch", "conv3_in_act": "tf32x3",
+                 "conv7": "tf32x3", "conv3s2": "tf32x3"}
 
 # Timed repeats, cut so that the whole run stays well inside its time
 # limit (~211 s of command time on an H100 before the bf16 VQGAN phase):
@@ -424,6 +436,21 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def host_ms(fn, iters: int) -> float:
+    """The host's time to issue one call of ``fn`` (it returns before the
+    card has run it), in ms: a host clock around ``iters`` calls in a row,
+    the card idle before them."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / iters
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1111,6 +1138,7 @@ def phase_kernels(dev) -> dict:
                 # back-to-back calls, which the host's issue rate bounds
                 # for the small kernels
                 device_ms = profile_call(c["fn"], "device")["device_busy_ms"]
+                issue_ms = host_ms(c["fn"], KERNEL_ITERS)
                 bms, by = bound_ms(c["bytes"], c["flops"], dtype, c["design"])
                 emit({"phase": "kernel", "name": name, "dtype": dtype,
                       "case": c["case"], "path": c["path"],
@@ -1120,9 +1148,9 @@ def phase_kernels(dev) -> dict:
                       "tol": c["tol"],
                       "tol_unit": ("bf16 ulp" if dtype == "bfloat16"
                                    else "as TOL"),
-                      "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
-                      **extra})
+                      "ms": ms, "device_ms": device_ms, "host_ms": issue_ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bms, "bound_by": by, **extra})
                 t = totals.setdefault((name, dtype), {
                     "max_abs_err": 0.0, "bound_by": by, "step": {},
                     "apply": {}})
@@ -1132,6 +1160,7 @@ def phase_kernels(dev) -> dict:
                 for per in ("step", "apply"):
                     acc = t[per]
                     for k, v in (("ms", ms), ("device_ms", device_ms),
+                                 ("host_ms", issue_ms),
                                  ("plain_ms", plain_ms),
                                  ("library_ms", lib_ms), ("bound_ms", bms)):
                         if isinstance(v, str) and c[per]:  # "not measured"

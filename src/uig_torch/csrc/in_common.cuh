@@ -1,10 +1,10 @@
-// Shared parts of instance norm: per-chunk channel moments of x, their
-// reduction in a fixed order, and normalize + affine (+ReLU) elementwise.
+// The instance norm of K3's fused conv3+IN: the reduction of per-tile
+// moments in a fixed order, and normalize + affine (+ReLU) elementwise.
 //
-// Used by instance_norm.cu (moments from a reduction pass over x) and by
-// conv3_in_tf32.cu and conv3_in_tc.cu (moments from the conv epilogue).
-// All write their partial sums as a (2, B, chunks, C) fp32 buffer: plane 0
-// holds sum(x), plane 1 sum(x^2).
+// Used by conv3_in_tf32.cu and conv3_in_tc.cu (moments from the conv
+// epilogue), which write their partial sums as a (2, B, chunks, C) fp32
+// buffer: plane 0 holds sum(x), plane 1 sum(x^2). (K2f, the norm on its
+// own, is one kernel of its own: instance_norm_fwd.cu.)
 // Activations are T (float or bf16, dtype.cuh); moments, scale, shift and
 // every sum are fp32, computed from the stored T values, as the JAX
 // InstanceNorm takes fp32 statistics of its bf16 input.
@@ -15,48 +15,6 @@
 #include <cuda_runtime.h>
 
 #include "dtype.cuh"
-
-constexpr int kCT = 32;    // channels per block (threadIdx.x)
-constexpr int kRows = 8;   // pixel lanes per block (threadIdx.y)
-
-// Per-chunk channel moments of x: blocks over (HW chunk, 32-channel tile, b)
-// sum x and x^2 in fp32 and write one (2, B, chunks, C) partial each. A
-// warp reads 32 neighbouring channels of one pixel (coalesced).
-template <typename T>
-static __global__ void __launch_bounds__(kCT * kRows)
-    in_partials_kernel(const T* __restrict__ x, float* __restrict__ part,
-                       int B, int HW, int C, int chunks, int rows_per_chunk) {
-  const int c = blockIdx.y * kCT + threadIdx.x;
-  const int b = blockIdx.z;
-  const int chunk = blockIdx.x;
-  const int p0 = chunk * rows_per_chunk;
-  const int p1 = min(p0 + rows_per_chunk, HW);
-  float s1 = 0.f, s2 = 0.f;
-  if (c < C) {
-    const T* xb = x + (size_t)b * HW * C + c;
-    for (int p = p0 + threadIdx.y; p < p1; p += kRows) {
-      const float v = to_f32(xb[(size_t)p * C]);
-      s1 += v;
-      s2 += v * v;
-    }
-  }
-  __shared__ float r1[kRows][kCT + 1];
-  __shared__ float r2[kRows][kCT + 1];
-  r1[threadIdx.y][threadIdx.x] = s1;
-  r2[threadIdx.y][threadIdx.x] = s2;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    float t1 = 0.f, t2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      t1 += r1[j][threadIdx.x];
-      t2 += r2[j][threadIdx.x];
-    }
-    const size_t o = ((size_t)b * chunks + chunk) * C + c;
-    part[o] = t1;
-    part[(size_t)B * chunks * C + o] = t2;
-  }
-}
 
 // One thread per (b, c): walk the chunks in order, then
 //   mean = s1 / n, var = max(s2 / n - mean^2, 0), r = 1 / sqrt(var + eps)

@@ -1,66 +1,42 @@
-// Instance norm forward over NHWC fp32 or bf16: per-(example, channel)
-// moments over H*W, normalize, affine, optional fused ReLU.
+// Instance norm forward over NHWC fp32 or bf16: the C entry point of the
+// kernel in instance_norm_fwd.cu (design, numerics and bound there).
 //
-// Replaces: src/uig/kernels/norm_pallas.py, _fwd_impl -> _in_fwd_kernel (the
-// TPU kernel keeps one example's whole plane resident in VMEM and reads it
-// once; in bf16 it takes fp32 moments of the bf16 values and rounds y once).
-//
-// Bound on this card: bytes. The kernel must read x once and write y once:
-// at (8, 256, 256, 64) fp32 that is 2 x 134 MB, about 80 us at the H100 SXM
-// data-sheet 3.35 TB/s (700 W); half that in bf16. The arithmetic is a few
-// operations a byte.
-//
-// Design: a 256^2 x 64 fp32 plane is 16 MiB, far beyond a block's 227 KB of
-// shared memory, so the plane cannot stay resident and the norm takes two
-// passes over x:
-//   (a) in_partials_kernel: blocks over (HW chunk, 32-channel tile, b) sum x
-//       and x^2 in fp32. A warp reads 32 neighbouring channels of one pixel
-//       (coalesced). Each block writes its per-chunk partials to a
-//       (2, B, chunks, C) scratch; no float atomics, so the result is
-//       bit-stable from run to run.
-//   (b) in_common.cuh: one thread per (b, c) reduces the partials in chunk
-//       order into scale/shift (keeping mean and 1/sqrt(var + eps) for the
-//       backward), then a 4-wide elementwise pass writes y.
-// x is read twice (3 x 134 MB in all at the largest fp32 shape); the second
-// read partly hits the 50 MB L2 at the smaller planes.
+// Replaces: src/uig/kernels/norm_pallas.py, _fwd_impl -> _in_fwd_kernel.
 #include <cuda_runtime.h>
 
-#include "in_common.cuh"
+cudaError_t uig_in_fwd(const void* x, const float* gamma, const float* beta,
+                       void* y, float* ss, float* part, int* sync, int B,
+                       int HW, int C, int chunks, int rows, int group,
+                       int reducers, int resident, int ring, int lanes,
+                       int stage_rows, int fin_lanes, int vec, int grid,
+                       float eps, int relu, int is_bf16,
+                       cudaStream_t stream);
 
-namespace {
-
-template <typename T>
-cudaError_t fwd(const void* x, const float* gamma, const float* beta, void* y,
-                float* part, float* ss, int B, int HW, int C, int chunks,
-                int rows_per_chunk, float eps, int relu, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const dim3 grid(chunks, (C + kCT - 1) / kCT, B);
-  in_partials_kernel<T><<<grid, dim3(kCT, kRows), 0, stream>>>(
-      xt, part, B, HW, C, chunks, rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return in_finalize_apply<T>(part, gamma, beta, ss, xt, static_cast<T*>(y),
-                              B, HW, C, chunks, eps, relu, stream);
-}
-
-}  // namespace
-
-// x, y: (B, HW, C) fp32, or bf16 when is_bf16; C % 4 == 0. gamma, beta:
-// (C,) fp32. part: (2, B, chunks, C) fp32 scratch; ss: (4, B, C) fp32:
-// scale and shift, then the statistics mean and 1/sqrt(var + eps) that the
-// backward takes. chunks * rows_per_chunk >= HW.
-extern "C" cudaError_t uig_instance_norm_fwd(const void* x,
-                                             const float* gamma,
-                                             const float* beta, void* y,
-                                             float* part, float* ss, int B,
-                                             int HW, int C, int chunks,
-                                             int rows_per_chunk, float eps,
-                                             int relu, int is_bf16,
-                                             cudaStream_t stream) {
-  return is_bf16 ? fwd<bf16>(x, gamma, beta, y, part, ss, B, HW, C, chunks,
-                             rows_per_chunk, eps, relu, stream)
-                 : fwd<float>(x, gamma, beta, y, part, ss, B, HW, C, chunks,
-                              rows_per_chunk, eps, relu, stream);
+// x, y: (B, HW, C) fp32, or bf16 when is_bf16, 16-byte aligned; any C >= 1.
+// gamma, beta: (C,) fp32. ss: (4, B, C) fp32, written: scale and shift,
+// then the statistics mean and 1/sqrt(var + eps) that the backward takes.
+// part: fp32 scratch, the chunk partials (2, B, chunks, C). sync: 1 + 2 B
+// int32, zero on entry and on return (the exit count, a count of moment
+// tasks and a ready flag an image); launches on one sync buffer must be
+// stream-ordered. The plan (kernels/norm.py fwd_plan): chunks * rows >= HW
+// pixels an image in chunks of rows, images in groups of `group`,
+// `reducers` blocks that finalize images, `resident` runs kept in the ring
+// from moments to apply (else staged twice, one group apart), `lanes`
+// pixel lanes a task,
+// `ring` stages of `stage_rows` pixels (vec: C * sizeof(T) % 16 == 0,
+// 16-byte columns), fin_lanes finalize threads a piece of channels, `grid`
+// blocks, resident at once (a cooperative launch, refused if they do not
+// fit: cudaErrorCooperativeLaunchTooLarge).
+// Returns cudaErrorInvalidValue for a plan the kernel does not take.
+extern "C" cudaError_t uig_instance_norm_fwd(
+    const void* x, const float* gamma, const float* beta, void* y, float* ss,
+    float* part, int* sync, int B, int HW, int C, int chunks, int rows,
+    int group, int reducers, int resident, int ring, int lanes,
+    int stage_rows, int fin_lanes, int vec, int grid, float eps, int relu,
+    int is_bf16, cudaStream_t stream) {
+  return uig_in_fwd(x, gamma, beta, y, ss, part, sync, B, HW, C, chunks, rows,
+                    group, reducers, resident, ring, lanes, stage_rows,
+                    fin_lanes, vec, grid, eps, relu, is_bf16, stream);
 }
 
 extern "C" const char* uig_error_string(int err) {

@@ -22,10 +22,11 @@
 //
 // Design: a plane does not fit a block, and blocks run in no order, so the
 // batch-sequential accumulation becomes two passes over one grid of blocks
-// (pixel chunk, channel group, b), 256 threads each as qb channel quads x
-// 256 / qb pixel lanes (qb = min(C / 4, 32): a warp reads whole 512-byte
-// pixel rows at C >= 128); each thread holds 4 channels of a pixel, one
-// 16-byte load of x and one of dy (8-byte in bf16). No float atomics:
+// (pixel chunk, channel group, b), 256 threads each as qb channel pieces x
+// 256 / qb pixel lanes. Where C % 4 == 0 a piece is 4 channels (qb =
+// min(C / 4, 32): a warp reads whole 512-byte pixel rows at C >= 128), one
+// 16-byte load of x and one of dy (8-byte in bf16); any other C takes
+// pieces of one channel (qb = min(C, 128)). No float atomics:
 //   1. in_bwd_sums_kernel: per-chunk sums of dy' and dy' * xhat, the pixel
 //      lanes added in order through shared memory, into part (2, B, chunks,
 //      C); it also zeroes the tickets of pass 2.
@@ -60,24 +61,49 @@ __device__ __forceinline__ void to_array(float4 v, float (&a)[4]) {
   a[3] = v.w;
 }
 
-// The thread's place: pixel lane `lane` of `lanes`, channels c .. c + 3.
+// W channels from p: one 16-byte load of fp32 (8-byte of bf16) where W ==
+// 4, one element where W == 1; and their store, rounded once to T.
+template <int W>
+__device__ __forceinline__ void load_w(const float* p, float (&a)[W]) {
+  if constexpr (W == 4)
+    to_array(*reinterpret_cast<const float4*>(p), a);
+  else
+    a[0] = *p;
+}
+template <int W, typename T>
+__device__ __forceinline__ void load_t(const T* p, float (&a)[W]) {
+  if constexpr (W == 4)
+    to_array(load4(p), a);
+  else
+    a[0] = to_f32(*p);
+}
+template <int W, typename T>
+__device__ __forceinline__ void store_t(T* p, const float (&a)[W]) {
+  if constexpr (W == 4)
+    store4(p, make_float4(a[0], a[1], a[2], a[3]));
+  else
+    *p = from_f32<T>(a[0]);
+}
+
+// The thread's place: pixel lane `lane` of `lanes`, channels c .. c + W - 1.
 struct Place {
   int lane, lanes, c;
   bool ok;
 };
 
+template <int W>
 __device__ __forceinline__ Place place(int qb, int group, int C) {
   Place p;
   p.lanes = kBwdThreads / qb;
   p.lane = threadIdx.x / qb;
-  p.c = (group * qb + threadIdx.x % qb) * 4;
+  p.c = (group * qb + threadIdx.x % qb) * W;
   p.ok = p.lane < p.lanes && p.c < C;
   return p;
 }
 
 // grid (chunks, groups, B), block kBwdThreads. stats: (2, B, C), mean and
 // r; part: (2, B, chunks, C), sums of dy' and dy' * xhat.
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(kBwdThreads)
     in_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                        const float* __restrict__ gamma,
@@ -87,27 +113,29 @@ __global__ void __launch_bounds__(kBwdThreads)
                        int B, int HW, int C, int rows_per_chunk, int qb,
                        int relu) {
   const int b = blockIdx.z, chunk = blockIdx.x, chunks = gridDim.x;
-  const Place pl = place(qb, blockIdx.y, C);
+  const Place pl = place<W>(qb, blockIdx.y, C);
   if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
     for (int i = threadIdx.x; i < gridDim.y; i += kBwdThreads) tickets[i] = 0;
-  float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+  float sa[W], sb[W];
+#pragma unroll
+  for (int e = 0; e < W; ++e) sa[e] = sb[e] = 0.f;
   if (pl.ok) {
     const size_t bc = (size_t)b * C + pl.c;
-    float m[4], r[4], g[4], be[4];
-    to_array(*reinterpret_cast<const float4*>(stats + bc), m);
-    to_array(*reinterpret_cast<const float4*>(stats + (size_t)B * C + bc), r);
-    to_array(*reinterpret_cast<const float4*>(gamma + pl.c), g);
-    to_array(*reinterpret_cast<const float4*>(beta + pl.c), be);
+    float m[W], r[W], g[W], be[W];
+    load_w<W>(stats + bc, m);
+    load_w<W>(stats + (size_t)B * C + bc, r);
+    load_w<W>(gamma + pl.c, g);
+    load_w<W>(beta + pl.c, be);
     const int p0 = chunk * rows_per_chunk;
     const int p1 = min(p0 + rows_per_chunk, HW);
     const size_t base = (size_t)b * HW * C + pl.c;
 #pragma unroll 4
     for (int p = p0 + pl.lane; p < p1; p += pl.lanes) {
-      float xs[4], ds[4];
-      to_array(load4(x + base + (size_t)p * C), xs);
-      to_array(load4(dy + base + (size_t)p * C), ds);
+      float xs[W], ds[W];
+      load_t<W>(x + base + (size_t)p * C, xs);
+      load_t<W>(dy + base + (size_t)p * C, ds);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < W; ++e) {
         const float xh = (xs[e] - m[e]) * r[e];
         const float d = masked_dy(ds[e], xh, g[e], be[e], relu);
         sa[e] += d;
@@ -116,17 +144,17 @@ __global__ void __launch_bounds__(kBwdThreads)
     }
   }
   // red[stat][e][thread]: the lanes of a channel added in lane order
-  __shared__ float red[2][4][kBwdThreads];
+  __shared__ float red[2][W][kBwdThreads];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
+  for (int e = 0; e < W; ++e) {
     red[0][e][threadIdx.x] = sa[e];
     red[1][e][threadIdx.x] = sb[e];
   }
   __syncthreads();
   const int cc = threadIdx.x;  // channel of the group
-  const int c = blockIdx.y * qb * 4 + cc;
-  if (cc < 4 * qb && c < C) {
-    const int q = cc / 4, e = cc % 4;
+  const int c = blockIdx.y * qb * W + cc;
+  if (cc < W * qb && c < C) {
+    const int q = cc / W, e = cc % W;
     float t1 = 0.f, t2 = 0.f;
     for (int l = 0; l < pl.lanes; ++l) {
       t1 += red[0][e][l * qb + q];
@@ -140,7 +168,7 @@ __global__ void __launch_bounds__(kBwdThreads)
 
 // The same grid, its blocks taken in reverse order. ws: (2, B, C) fp32,
 // the per-(b, c) sums of dy' and dy' * xhat, for dgamma and dbeta.
-template <typename T>
+template <typename T, int W>
 __global__ void __launch_bounds__(kBwdThreads)
     in_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                      const float* __restrict__ gamma,
@@ -161,8 +189,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   __shared__ float k[2][128];
   __shared__ int last;
   const int cc = threadIdx.x;
-  const int c = group * qb * 4 + cc;
-  const bool reduces = cc < 4 * qb && c < C;
+  const int c = group * qb * W + cc;
+  const bool reduces = cc < W * qb && c < C;
   float sa = 0.f, sb = 0.f;
   if (reduces) {
     const float* p1 = part + (size_t)b * chunks * C + c;
@@ -194,17 +222,17 @@ __global__ void __launch_bounds__(kBwdThreads)
     }
   }
   __syncthreads();
-  const Place pl = place(qb, group, C);
+  const Place pl = place<W>(qb, group, C);
   if (!pl.ok) return;
   const size_t bc = (size_t)b * C + pl.c;
-  const int q4 = pl.c - group * qb * 4;
-  float m[4], r[4], g[4], be[4], k1[4], k2[4];
-  to_array(*reinterpret_cast<const float4*>(stats + bc), m);
-  to_array(*reinterpret_cast<const float4*>(stats + (size_t)B * C + bc), r);
-  to_array(*reinterpret_cast<const float4*>(gamma + pl.c), g);
-  to_array(*reinterpret_cast<const float4*>(beta + pl.c), be);
+  const int q4 = pl.c - group * qb * W;
+  float m[W], r[W], g[W], be[W], k1[W], k2[W];
+  load_w<W>(stats + bc, m);
+  load_w<W>(stats + (size_t)B * C + bc, r);
+  load_w<W>(gamma + pl.c, g);
+  load_w<W>(beta + pl.c, be);
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
+  for (int e = 0; e < W; ++e) {
     k1[e] = k[0][q4 + e];
     k2[e] = k[1][q4 + e];
   }
@@ -214,63 +242,78 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll 4
   for (int p = p0 + pl.lane; p < p1; p += pl.lanes) {
     const size_t o = base + (size_t)p * C;
-    float xs[4], ds[4], out[4];
-    to_array(load4(x + o), xs);
-    to_array(load4(dy + o), ds);
+    float xs[W], ds[W], out[W];
+    load_t<W>(x + o, xs);
+    load_t<W>(dy + o, ds);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < W; ++e) {
       const float xh = (xs[e] - m[e]) * r[e];
       const float d = masked_dy(ds[e], xh, g[e], be[e], relu);
       out[e] = r[e] * (g[e] * d - k1[e] - xh * k2[e]);
     }
-    store4(dx + o, make_float4(out[0], out[1], out[2], out[3]));
+    store_t<W>(dx + o, out);
   }
 }
 
-template <typename T>
+template <typename T, int W>
 cudaError_t bwd(const T* x, const float* gamma, const float* beta, const T* dy,
                 const float* stats, T* dx, float* dparams, float* scratch,
                 int B, int HW, int C, int chunks, int rows_per_chunk, int qb,
                 int relu, cudaStream_t stream) {
-  const int groups = (C / 4 + qb - 1) / qb;
+  const int groups = (C / W + qb - 1) / qb;
   const dim3 grid(chunks, groups, B);
   float* part = scratch;
   float* ws = part + 2 * (size_t)B * chunks * C;
   int* tickets = reinterpret_cast<int*>(ws + 2 * (size_t)B * C);
   float* dgamma = dparams;
   float* dbeta = dparams + C;
-  in_bwd_sums_kernel<T><<<grid, kBwdThreads, 0, stream>>>(
+  in_bwd_sums_kernel<T, W><<<grid, kBwdThreads, 0, stream>>>(
       x, dy, gamma, beta, stats, part, tickets, B, HW, C, rows_per_chunk, qb,
       relu);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  in_bwd_dx_kernel<T><<<grid, kBwdThreads, 0, stream>>>(
+  in_bwd_dx_kernel<T, W><<<grid, kBwdThreads, 0, stream>>>(
       x, dy, gamma, beta, stats, part, ws, tickets, dx, dgamma, dbeta, B, HW,
       C, rows_per_chunk, qb, relu);
   return cudaGetLastError();
 }
 
+template <int W>
+cudaError_t bwd_any(const void* x, const float* gamma, const float* beta,
+                    const void* dy, const float* stats, void* dx,
+                    float* dparams, float* scratch, int B, int HW, int C,
+                    int chunks, int rows_per_chunk, int qb, int relu,
+                    int is_bf16, cudaStream_t stream) {
+  if (is_bf16)
+    return bwd<bf16, W>(static_cast<const bf16*>(x), gamma, beta,
+                        static_cast<const bf16*>(dy), stats,
+                        static_cast<bf16*>(dx), dparams, scratch, B, HW, C,
+                        chunks, rows_per_chunk, qb, relu, stream);
+  return bwd<float, W>(static_cast<const float*>(x), gamma, beta,
+                       static_cast<const float*>(dy), stats,
+                       static_cast<float*>(dx), dparams, scratch, B, HW, C,
+                       chunks, rows_per_chunk, qb, relu, stream);
+}
+
 }  // namespace
 
-// x, dy, dx: (B, HW, C) fp32, or bf16 when is_bf16; C % 4 == 0. gamma,
+// x, dy, dx: (B, HW, C) fp32, or bf16 when is_bf16; any C >= 1. gamma,
 // beta: (C,) fp32; dparams: (2, C) fp32, dgamma then dbeta. stats: (2, B,
 // C) fp32, the forward's mean and 1/sqrt(var + eps). scratch: the partials
 // (2, B, chunks, C) fp32, the per-(b, c) sums (2, B, C) fp32, then
-// ceil(C / 4 / qb) int32 tickets. chunks * rows_per_chunk >= HW; qb =
-// min(C / 4, 32) channel quads a block.
+// ceil(C / w / qb) int32 tickets. chunks * rows_per_chunk >= HW; w
+// channels a piece: 4 (C % 4 == 0, 16-byte aligned operands; qb <= 32
+// pieces a block) or 1 (qb <= 128).
 extern "C" cudaError_t uig_instance_norm_bwd(
     const void* x, const float* gamma, const float* beta, const void* dy,
     const float* stats, void* dx, float* dparams, float* scratch, int B,
-    int HW, int C, int chunks, int rows_per_chunk, int qb, int relu,
+    int HW, int C, int chunks, int rows_per_chunk, int w, int qb, int relu,
     int is_bf16, cudaStream_t stream) {
-  if (qb < 1 || qb > 32) return cudaErrorInvalidValue;
-  if (is_bf16)
-    return bwd<bf16>(static_cast<const bf16*>(x), gamma, beta,
-                     static_cast<const bf16*>(dy), stats,
-                     static_cast<bf16*>(dx), dparams, scratch, B, HW, C,
-                     chunks, rows_per_chunk, qb, relu, stream);
-  return bwd<float>(static_cast<const float*>(x), gamma, beta,
-                    static_cast<const float*>(dy), stats,
-                    static_cast<float*>(dx), dparams, scratch, B, HW, C,
-                    chunks, rows_per_chunk, qb, relu, stream);
+  if (w == 4 && C % 4 == 0 && qb >= 1 && qb <= 32)
+    return bwd_any<4>(x, gamma, beta, dy, stats, dx, dparams, scratch, B, HW,
+                      C, chunks, rows_per_chunk, qb, relu, is_bf16, stream);
+  if (w == 1 && qb >= 1 && qb <= 128)
+    return bwd_any<1>(x, gamma, beta, dy, stats, dx, dparams, scratch, B, HW,
+                      C, chunks, rows_per_chunk, qb, relu, is_bf16, stream);
+  return cudaErrorInvalidValue;
 }

@@ -36,14 +36,15 @@ _F = ctypes.c_float
 # C signatures: every entry point ends with the stream and returns
 # cudaError_t; the int before the stream is is_bf16 (the storage type).
 SIGNATURES = {
-    "uig_instance_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                              _I, _I, _P],
+    "uig_instance_norm_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                              _I, _P],
     "uig_conv3_in_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _I, _F, _I, _P],
     "uig_conv7_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "uig_augment": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "uig_instance_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _P],
     "uig_conv7_dgrad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "uig_conv7_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "uig_conv_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -141,17 +142,20 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` on the current CUDA stream. Tensors pass
-    as device pointers, None as a null pointer, and bools, ints and floats
-    as the entry point's SIGNATURES say; the caller has checked the
-    tensors' device, type, shape and contiguity. The stream is read with
-    ``torch._C._cuda_getCurrentRawStream``: ``torch.cuda.current_stream()``
-    builds a Stream object, several microseconds of host time a launch on
-    the card's host, where the step's small kernels are host-bound."""
+def launch(name: str, *args, stream: int | None = None) -> None:
+    """Call C entry point ``name`` on ``stream``, by default the current
+    CUDA stream. Tensors pass as device pointers, None as a null pointer,
+    and bools, ints and floats as the entry point's SIGNATURES say; the
+    caller has checked the tensors' device, type, shape and contiguity. The
+    stream is read with ``torch._C._cuda_getCurrentRawStream``:
+    ``torch.cuda.current_stream()`` builds a Stream object, several
+    microseconds of host time a launch on the card's host, where the step's
+    small kernels are host-bound."""
     lib = _lib or library()
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    if stream is None:
+        stream = torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device())
     err = getattr(lib, name)(*conv, stream)
     if err != 0:
         msg = lib.uig_error_string(err).decode()

@@ -40,6 +40,7 @@ backward's dgamma/dbeta (fp32) within 1e-4 relative. The bf16 attention
 kernels are also held bit-equal to the fp32 kernels on the widened inputs.
 """
 
+import copy
 import re
 
 import numpy as np
@@ -62,6 +63,7 @@ from uig_torch.kernels import (attention, attention_bwd,
                                instance_norm_act, instance_norm_bwd,
                                instance_norm_bwd_reference,
                                instance_norm_reference)
+from uig_torch.kernels import norm
 from uig_torch.kernels.norm import _instance_norm_fwd
 from uig_torch.kernels.reflect import reflect_fold, reflect_pad
 from uig_torch.serving import exact_fp32
@@ -103,6 +105,223 @@ def test_instance_norm(dev, shape, relu):
     assert instance_norm.launches == before + 1
     _close(y, instance_norm_reference(x, g, b, relu=relu))
     assert torch.equal(y, instance_norm(x, g, b, relu=relu))  # no atomics
+
+
+def _randn_dev(dev, *shape, scale=1.0, shift=0.0, seed=0):
+    """Drawn on the card: the path's planes, up to 268 MB."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+
+def _in_fwd_case(dev, shape, dt, relu, plan=None):
+    """K2f (by its plan, or by ``plan``) against the plain version: y within
+    ATOL (fp32) or 1 bf16 ulp, the statistics within 1e-5 of their largest
+    value; a repeat bit-equal."""
+    c = shape[-1]
+    x = _randn_dev(dev, *shape, scale=2.0, shift=0.5).to(dt)
+    g = _randn_dev(dev, c, scale=0.2, shift=1.0, seed=1)
+    b = _randn_dev(dev, c, scale=0.2, seed=2)
+
+    def run():
+        if plan is None:
+            return _instance_norm_fwd(x, g, b, 1e-5, relu)
+        return norm._fwd_launch(x, g, b, 1e-5, relu, plan)
+
+    y, stats = run()
+    ry, rstats = norm._reference_fwd(x, g, b, 1e-5, relu)
+    (_close if dt == torch.float32 else _ulps_close)(y, ry)
+    _rel_close(stats, rstats, rel=1e-5)
+    again = run()
+    assert torch.equal(y, again[0]) and torch.equal(stats, again[1])
+
+
+# K2f at the path's shapes: the generator's norms at 2B and B, the
+# discriminator's; both dtypes, ReLU off and on
+_IN_PATH = [(16, 256, 256, 64), (8, 256, 256, 64), (16, 128, 128, 128),
+            (8, 64, 64, 256), (8, 32, 32, 256), (16, 31, 31, 512)]
+
+
+@pytest.mark.parametrize("shape", _IN_PATH, ids=str)
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_instance_norm_fwd_path(dev, shape, dt):
+    for relu in (False, True):
+        _in_fwd_case(dev, shape, dt, relu)
+
+
+# The schedule: batch 1; five 8 MiB images in groups of two (the last group
+# of one); pixels a run does not divide ((3, 13, 17, 36): 221 pixels in two
+# runs; (1, 1, 5, 4)); bf16 rows of 72 and 8 bytes, which no 16-byte run
+# fits (scalar channels); images too large to stay in the ring (67 MB and
+# 23 MB: every run staged twice); and by hand, runs of one or two stages
+# (19 runs an image, 6 images a group; a single reducer block).
+@pytest.mark.parametrize("shape,dt,kw", [
+    pytest.param((1, 256, 256, 64), torch.float32, {}, id="b1"),
+    pytest.param((5, 128, 128, 128), torch.float32, {}, id="groups-of-2"),
+    pytest.param((3, 13, 17, 36), torch.float32, {}, id="221px"),
+    pytest.param((1, 1, 5, 4), torch.float32, {}, id="5px"),
+    pytest.param((3, 13, 17, 36), torch.bfloat16, {}, id="bf16-72B-rows"),
+    pytest.param((2, 9, 11, 4), torch.bfloat16, {}, id="bf16-8B-rows"),
+    pytest.param((1, 512, 512, 64), torch.float32, {}, id="staged-twice"),
+    pytest.param((2, 600, 600, 32), torch.bfloat16, {},
+                 id="staged-twice-bf16"),
+    pytest.param((7, 33, 35, 64), torch.float32, {"resident_stages": 1},
+                 id="one-stage-runs"),
+    pytest.param((6, 40, 40, 128), torch.bfloat16,
+                 {"resident_stages": 1, "reducers": 1}, id="one-reducer")])
+@pytest.mark.parametrize("relu", [False, True])
+def test_instance_norm_fwd_schedule(dev, shape, dt, kw, relu):
+    plan = None
+    if kw:
+        b, h, w, c = shape
+        plan = norm.fwd_plan(b, h * w, c, 2 if dt == BF else 4,
+                             torch.cuda.get_device_properties(
+                                 dev).multi_processor_count, **kw)
+        assert plan.resident and plan.chunks > 1 and plan.group < b
+    _in_fwd_case(dev, shape, dt, relu, plan)
+
+
+def _device_events(fn) -> list:
+    """The names of the device events (kernels, memsets, copies) of one
+    call of ``fn``, in order (``_captured``)."""
+    return [e.name for e in _captured(fn)]
+
+
+def _captured(fn) -> list:
+    """The device events of one call of ``fn``, in order of start. The
+    capture opens with a marker fill, which is dropped: CUPTI at times
+    loses a session's first device record (on an H100 the first of a
+    K4s forward's two kernels, twice in 231 tests). A capture that
+    recorded nothing of ``fn`` is taken again, up to three calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.empty(1, device="cuda")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(1.0)
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events and "FillFunctor" in events[0].name:
+            events = events[1:]
+        if events:
+            break
+    return events
+
+
+def test_instance_norm_fwd_is_one_launch(dev):
+    """One kernel a call, no memset: the counters are reset by the kernel's
+    last block."""
+    for dt, shape in ((torch.float32, (8, 64, 64, 256)),
+                      (BF, (16, 256, 256, 64)), (torch.float32, (2, 9, 9, 6))):
+        x = _randn_dev(dev, *shape).to(dt)
+        g = torch.ones(shape[-1], device=dev)
+        instance_norm(x, g, g)  # the counters' buffer, once a stream
+        names = _device_events(lambda: instance_norm(x, g, g, relu=True))
+        assert len(names) == 1 and "in_fwd_kernel" in names[0], names
+
+
+# The repair: K2f and K2b take every C (here none a multiple of 4 but C =
+# 1, 3, 6 and 10 in both dtypes), forward and backward against the plain
+# versions, repeats bit-equal. The backward is compared where the
+# pre-activation is at least 1e-4 from the ReLU's kink.
+@pytest.mark.parametrize("c", [1, 3, 6, 10])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_instance_norm_any_channels(dev, c, dt):
+    x = _randn(dev, 3, 9, 11, c, scale=2.0, shift=0.5).to(dt)
+    g = _randn(dev, c, scale=0.2, shift=1.0, seed=1)
+    b = _randn(dev, c, scale=0.2, seed=2)
+    dy = _randn(dev, 3, 9, 11, c, seed=3).to(dt)
+    close = _close if dt == torch.float32 else _ulps_close
+    for relu in (False, True):
+        y, stats = _instance_norm_fwd(x, g, b, 1e-5, relu)
+        close(y, instance_norm_reference(x, g, b, relu=relu))
+        dx, dg, db = instance_norm_bwd(x, g, b, dy, stats, relu=relu)
+        rdx, rdg, rdb = instance_norm_bwd_reference(x, g, b, dy, stats,
+                                                    relu=relu)
+        keep = torch.ones_like(x, dtype=torch.bool)
+        if relu:
+            xn = instance_norm_reference(x.float(), torch.ones_like(g),
+                                         torch.zeros_like(b))
+            keep = (xn * g + b).abs() >= 1e-4
+        close(torch.where(keep, dx, 0.0), torch.where(keep, rdx, 0.0))
+        _rel_close(dg, rdg)
+        _rel_close(db, rdb)
+        assert torch.equal(y, _instance_norm_fwd(x, g, b, 1e-5, relu)[0])
+        again = instance_norm_bwd(x, g, b, dy, stats, relu=relu)
+        assert all(torch.equal(u, v) for u, v in zip((dx, dg, db), again))
+
+
+# The generator input's seed: every ReLU pre-activation of the CPU run at
+# least KINK_MARGIN from 0 (at least 2.1e-4 for seed 2), so the card and
+# the CPU take the same side of every kink
+GEN6_SEED, KINK_MARGIN = 2, 1e-4
+
+
+def _kink_margin(gen, x) -> float:
+    """The least |pre-activation| of the generator's ReLUs (the fused
+    IN + ReLU norms and each residual block's first conv + IN) on ``x``,
+    from the plain versions on the CPU."""
+    from uig_torch.kernels import conv3_in_act_reference
+    from uig_torch.models.layers import InstanceNorm, ResnetBlock
+
+    mins = []
+
+    def norm_hook(m, args, kwargs, out):
+        if kwargs.get("relu"):
+            mins.append(instance_norm_reference(
+                args[0], m.scale, m.bias, m.eps).abs().min().item())
+
+    def block_hook(m, args, out):
+        c0, n0 = m.PadConv_0, m.InstanceNorm_0
+        mins.append(conv3_in_act_reference(
+            args[0], c0.kernel, c0.bias, n0.scale, n0.bias, relu=False,
+            eps=n0.eps, pad_mode=m.pad_mode).abs().min().item())
+
+    hooks = [m.register_forward_hook(norm_hook, with_kwargs=True)
+             for m in gen.modules() if isinstance(m, InstanceNorm)]
+    hooks += [m.register_forward_hook(block_hook) for m in gen.modules()
+              if isinstance(m, ResnetBlock)]
+    with torch.no_grad():
+        gen(x)
+    for h in hooks:
+        h.remove()
+    return min(mins)
+
+
+def test_generator_with_six_base_features(dev):
+    """ResNetGenerator(base_features=6) trains on the card: its norms at C
+    = 6 and 12 run K2f and K2b (the stride-2 conv from 6 channels runs the
+    library conv, as in JAX). Forward and backward at (1, 32, 32, 3)
+    against the same parameters on the CPU (plain versions): the output
+    within 1e-4 of its largest value, every parameter gradient within 1e-3
+    of the largest."""
+    from uig_torch.models import ResNetGenerator
+
+    torch.manual_seed(0)
+    cpu = ResNetGenerator(base_features=6, n_res_blocks=1)
+    x = _randn("cpu", 1, 32, 32, 3, seed=GEN6_SEED)
+    ct = _randn("cpu", 1, 32, 32, 3, seed=GEN6_SEED + 1)
+    assert _kink_margin(cpu, x) >= KINK_MARGIN
+    card = copy.deepcopy(cpu).to(dev)
+    K.reset_launch_counts()
+    y = card(x.to(dev))
+    grads = torch.autograd.grad(y, list(card.parameters()), ct.to(dev))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    # 5 norms (C = 6, 12, 24, 12, 6); the norm backward for each and for
+    # the residual block's two conv + IN
+    assert counts["instance_norm"] == 5 and counts["instance_norm_bwd"] == 7
+    ry = cpu(x)
+    rgrads = torch.autograd.grad(ry, list(cpu.parameters()), ct)
+    _rel_close(y.cpu(), ry, rel=1e-4)
+    top = max(t.abs().max().item() for t in rgrads)
+    for u, v in zip(grads, rgrads):
+        _rel_close(u.cpu(), v, rel=1e-3, scale=top)
 
 
 # fp32 runs the conv on the tensor cores in the three-term TF32 split: C =
@@ -157,9 +376,11 @@ def test_cuda_operands_are_checked_not_bypassed(dev):
         instance_norm(x.permute(0, 2, 1, 3), g, g)
     with pytest.raises(ValueError, match="several devices"):
         instance_norm(x, g.cpu(), g.cpu())
-    with pytest.raises(ValueError, match="multiple of 4"):
-        instance_norm(_randn(dev, 1, 4, 4, 6), torch.ones(6, device=dev),
-                      torch.ones(6, device=dev))
+    # every C is taken (C = 6: scalar channels), no plain fallback
+    x6, g6 = _randn(dev, 1, 4, 4, 6), _randn(dev, 6, shift=1.0, seed=1)
+    before = instance_norm.launches
+    _close(instance_norm(x6, g6, g6), instance_norm_reference(x6, g6, g6))
+    assert instance_norm.launches == before + 1
     with pytest.raises(ValueError, match="Cout"):
         conv7(x, _randn(dev, 7, 7, 8, 5), None)
 
@@ -491,21 +712,9 @@ def _conv_fp64(x, w, b, stride, pad):
 
 def _functions_run(fn) -> set:
     """The CUDA functions one call of ``fn`` launched, by name:
-    "void (anonymous namespace)::f<64>(...)" -> f. A capture that recorded
-    no device event at all (one or two sessions in a hundred on an H100)
-    is taken again, up to three calls; the last capture counts."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        fns = {m.group(1) for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               for m in [re.search(r"(\w+)[<(]", e.name)] if m}
-        if fns:
-            break
-    return fns
+    "void (anonymous namespace)::f<64>(...)" -> f (``_captured``)."""
+    return {m.group(1) for e in _captured(fn)
+            for m in [re.search(r"(\w+)[<(]", e.name)] if m}
 
 
 @pytest.mark.parametrize("nb,h,cin,cout", [

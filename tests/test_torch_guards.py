@@ -129,15 +129,19 @@ def test_chip_smoke_reads_the_design_that_ran(ran):
     and wgrad and the 7x7 head's forward, dgrad and wgrad in the TF32
     split, "tf32x3" (K4w's kernel and its sum 4 times each); "wgmma": the
     bf16 step (the head's forward on mma.sync, "mma"; K4d and K4w on wgmma,
-    K4w with its sum). The norm backward runs its two-pass design in both;
-    a step that launches another design's function (the removed FMA
-    forward, dgrad and wgrad of K4s and of the head among them), or one
-    design's function too few times, fails."""
+    K4w with its sum). The norm forward runs its one-launch design and the
+    norm backward its two-pass design in both; a step that launches
+    another design's function (the removed FMA forward, dgrad and wgrad of
+    K4s and of the head, and the norm forward's partials kernel, among
+    them), or one design's function too few times, fails."""
     cs = _chip_smoke()
     assert set(cs.DESIGNS) == {"conv3_in_act", "conv7", "conv7_dgrad",
                                "conv7_wgrad", "conv3s2", "conv3s2_dgrad",
-                               "conv3s2_wgrad", "instance_norm_bwd",
-                               "attention_fwd", "attention_bwd"}
+                               "conv3s2_wgrad", "instance_norm",
+                               "instance_norm_bwd", "attention_fwd",
+                               "attention_bwd"}
+    assert want_norm(cs, ran) == "one_launch"
+    assert "instance_norm" in cs.REPEAT_BIT_EQUAL
     want = cs.STEP_DESIGNS["float32" if ran == "fma" else "bfloat16"]
     assert set(want) == {name for name in cs.DESIGNS if cs.PER_STEP[name]}
     assert want["conv3_in_act"] == ("tf32x3" if ran == "fma" else "wgmma")
@@ -164,10 +168,16 @@ def test_chip_smoke_reads_the_design_that_ran(ran):
         cs.designs_run(calls, "train", expect=other)
 
 
+def want_norm(cs, ran: str) -> str:
+    return cs.STEP_DESIGNS["float32" if ran == "fma" else "bfloat16"][
+        "instance_norm"]
+
+
 def test_chip_smoke_reads_the_slice_designs():
     """fp32 serving: a translate apply runs K3, both downsamples and the
-    head in the TF32 split, each its PER_APPLY times; an apply that
-    launched the removed FMA forward of K4s or of the head, or the split
+    head in the TF32 split and the norm forward in one launch, each its
+    PER_APPLY times; an apply that launched the removed FMA forward of K4s
+    or of the head, the norm forward's partials kernel, or the split
     forward once, fails."""
     cs = _chip_smoke()
     calls = {fn: cs.PER_APPLY[name] for name, d in cs.SLICE_DESIGNS.items()
@@ -175,8 +185,9 @@ def test_chip_smoke_reads_the_slice_designs():
     assert calls["conv_fwd_tf32_kernel"] == 2
     assert cs.designs_run(calls, "slice", cs.PER_APPLY,
                           cs.SLICE_DESIGNS) == cs.SLICE_DESIGNS
-    assert calls["conv7_tf32_kernel"] == 1
+    assert calls["conv7_tf32_kernel"] == 1 and calls["in_fwd_kernel"] == 5
     for bad in ({**calls, "conv_fwd_kernel": 2},
+                {**calls, "in_partials_kernel": 5},
                 {**calls, "conv_fwd_tf32_kernel": 1},
                 {**calls, "conv7_mma_kernel": 1},
                 {**calls, "conv7_kernel": 1}):
@@ -187,17 +198,18 @@ def test_chip_smoke_reads_the_slice_designs():
 def test_chip_smoke_reads_the_attention_design():
     """The VQGAN step: every function of the tf32x3 attention design its
     VQ_PER_STEP times, none of the FMA design, no conv kernel; the norm
-    backward in its two-pass design."""
+    forward in one launch, the norm backward in its two-pass design."""
     cs = _chip_smoke()
     calls = {fn: cs.VQ_PER_STEP[name] for name, d in
              cs.VQ_STEP_DESIGNS.items()
              for fn in cs.design_functions(name, d)}
-    assert len(calls) == 7 and set(calls.values()) == {4, 12}
+    assert len(calls) == 8 and set(calls.values()) == {4, 9, 12}
     assert cs.designs_run(calls, "vqgan_train", cs.VQ_PER_STEP,
                           cs.VQ_STEP_DESIGNS) == {
         "attention_fwd": "tf32x3", "attention_bwd": "tf32x3",
-        "instance_norm_bwd": "two_pass"}
+        "instance_norm": "one_launch", "instance_norm_bwd": "two_pass"}
     for bad in ({**calls, "attn_dq_kernel": 4},
+                {**calls, "in_partials_kernel": 9},
                 {**calls, "attn_dq_tc_kernel": 3},
                 {**calls, "conv_fwd_kernel": 1},
                 {**calls, "in_bwd_apply_kernel": 12}):

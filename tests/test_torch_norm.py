@@ -8,7 +8,18 @@ and the autograd function that pairs it with the forward) is held against
 within 1e-5, dgamma and dbeta (sums over the batch too) within 1e-5 of
 their largest value. The statistics the port's forwards keep (mean and
 1/sqrt(var + eps)) match those of JAX's fused conv+IN forward within 1e-6
-(sums of 144 values in another order)."""
+(sums of 144 values in another order).
+
+The forward kernel's plan (``fwd_plan``) and its static tasks, mirrored
+here from ``csrc/instance_norm_fwd.cu``, are checked in pure Python: every
+pixel is covered once by a moment task and once by an apply task of the
+same block, a resident run fits the ring beside the next group's first
+stages (at most two groups in flight), and the plan fits the kernel at the
+path's shapes. The kernel's summation order is emulated in numpy (fp32, the
+squares' sums as fused multiply-adds): within 1e-5 of the Pallas kernel
+and at most twice the plain version's error from float64."""
+
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +33,7 @@ from uig.models.layers import InstanceNorm as JaxInstanceNorm
 from uig_torch.kernels import (instance_norm, instance_norm_act,
                                instance_norm_bwd)
 from uig_torch.kernels.convin import _conv3_in_fwd
-from uig_torch.kernels.norm import _instance_norm_fwd
+from uig_torch.kernels.norm import _instance_norm_fwd, fwd_plan
 from uig_torch.models.layers import InstanceNorm
 
 ATOL = 1e-5
@@ -37,7 +48,8 @@ def _inputs(c, seed=0):
     return x, g, b
 
 
-@pytest.mark.parametrize("c", [8, 128])
+# C = 6: no lane packing on the TPU side (P = 1), scalar channels on the card
+@pytest.mark.parametrize("c", [8, 128, 6])
 @pytest.mark.parametrize("relu", [False, True])
 def test_instance_norm_matches_pallas_and_flax(c, relu):
     x, g, b = _inputs(c)
@@ -152,3 +164,154 @@ def test_backward_checks_shapes():
         instance_norm_bwd(x, torch.ones(8), torch.zeros(8), x[:, :2], stats)
     with pytest.raises(ValueError, match="stats has shape"):
         instance_norm_bwd(x, torch.ones(8), torch.zeros(8), x, stats[:, :, :4])
+
+
+# ----------------------------------------------- the forward kernel's plan --
+
+SMS = 132  # an H100 SXM
+# the instance norms of a cyclegan256_dp step at batch 8, (batch, H, C):
+# the generator's at 2B and B, the discriminator's
+PATH = [(nb, h, c) for nb in (16, 8) for h, c in (
+    (256, 64), (128, 128), (64, 256), (64, 128), (32, 256), (31, 512))]
+
+
+def _check_plan(b, hw, c, isz, plan):
+    """The plan fits the kernel, and its tasks cover every pixel once:
+    task t of group u is chunk t % chunks of image u * group + t /
+    chunks, taken by task block t % blocks (csrc/instance_norm_fwd.cu);
+    its moments and its apply cover the same pixels."""
+    row = c * isz
+    assert plan == fwd_plan(b, hw, c, isz, SMS)
+    width = row // 16 if plan.vec else min(c, 256)
+    assert plan.lanes >= 1 and plan.lanes * width <= 256
+    assert 2 * plan.lanes * (c if plan.vec else width) <= 4096
+    pieces = c // 4 if c % 4 == 0 else c
+    assert plan.fin_lanes >= 1 and plan.fin_lanes * min(pieces, 256) <= 256
+    if plan.vec:
+        assert row % 16 == 0 and plan.ring == 12
+        assert plan.stage_rows % plan.lanes == 0
+        assert plan.lanes <= plan.stage_rows and plan.stage_rows * row <= 16384
+    assert (plan.chunks - 1) * plan.rows < hw <= plan.chunks * plan.rows
+    assert 1 <= plan.reducers <= min(4, b) and plan.grid <= SMS
+    blocks = plan.grid - plan.reducers
+    groups = -(-b // plan.group)
+    seen = np.zeros((b, hw), np.int64)
+    taken = np.zeros((groups, blocks), np.int64)
+    for u in range(groups):
+        images = min((u + 1) * plan.group, b) - u * plan.group
+        for t in range(images * plan.chunks):
+            i, k = u * plan.group + t // plan.chunks, t % plan.chunks
+            seen[i, k * plan.rows:(k + 1) * plan.rows] += 1
+            taken[u, t % blocks] += 1
+    assert (seen == 1).all()
+    if plan.resident:
+        # one task a block a group; a run in at most 9 of the 12 stages, so
+        # that the next group's first stages arrive while it waits
+        assert plan.vec and taken.max() == 1
+        assert -(-plan.rows // plan.stage_rows) <= 9
+
+
+@pytest.mark.parametrize("isz", [4, 2], ids=["fp32", "bf16"])
+def test_fwd_plan_fits_the_path(isz):
+    """At the path's widths every plan stages 16-byte columns and keeps
+    each run in the ring from its moments to its apply, so x is read from
+    device memory once; every SM but the reducers' takes a task."""
+    for nb, h, c in PATH:
+        plan = fwd_plan(nb, h * h, c, isz, SMS)
+        assert plan.vec and plan.resident
+        _check_plan(nb, h * h, c, isz, plan)
+
+
+@pytest.mark.parametrize("b,hw,c,isz", [
+    (3, 221, 36, 4), (3, 221, 36, 2), (1, 5, 4, 4), (1, 5, 4, 2),
+    (1, 1024, 1, 4), (2, 100, 3, 2), (5, 37, 6, 4), (4, 777, 10, 2),
+    (2, 10, 3000, 4), (7, 4096, 64, 4), (33, 2048, 96, 2),
+    (1, 262144, 64, 4), (2, 600 * 600, 32, 2)])
+def test_fwd_plan_covers_every_pixel(b, hw, c, isz):
+    """Ragged shapes: scalar channels (C * isz % 16 != 0, or more than 256
+    16-byte columns), runs cut at the last pixels, a last group of fewer
+    images, and images too large to stay in the ring (staged twice)."""
+    plan = fwd_plan(b, hw, c, isz, SMS)
+    _check_plan(b, hw, c, isz, plan)
+    if hw * c * isz > SMS * 9 * 16384:
+        assert not plan.resident
+
+
+def _fma32(a, b, c):
+    """fp32 a * b + c rounded once (float64 holds the exact product)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _emulate_fwd(x, g, be, eps, relu, plan):
+    """The forward kernel's arithmetic in numpy: chunk pixel q of image b
+    summed by lane q % lanes in pixel order (x, and x * x as a fused
+    multiply-add), the lanes added in order into the chunk's partial; the
+    finalize's lane f adding chunks f per .. (f + 1) per - 1 in order (per
+    = ceil(chunks / fin_lanes)), the lanes added in order; then the fp32 statistics and y = x scale + shift
+    as the kernel computes them. Returns (y, mean, rstd)."""
+    b, h, w, c = x.shape
+    hw = h * w
+    xf = x.reshape(b, hw, c)
+    lanes, fl = plan.lanes, plan.fin_lanes
+    part = np.zeros((b, plan.chunks, 2, c), np.float32)
+    for i, k in itertools.product(range(b), range(plan.chunks)):
+        run = xf[i, k * plan.rows:(k + 1) * plan.rows]
+        acc = np.zeros((lanes, 2, c), np.float32)
+        for q, v in enumerate(run):
+            acc[q % lanes, 0] += v
+            acc[q % lanes, 1] = _fma32(v, v, acc[q % lanes, 1])
+        for ln in range(lanes):
+            part[i, k] += acc[ln]
+    y = np.empty_like(xf)
+    mean = np.empty((b, c), np.float32)
+    rstd = np.empty((b, c), np.float32)
+    n = np.float32(hw)
+    per = -(-plan.chunks // fl)
+    for i in range(b):
+        t = np.zeros((2, c), np.float32)
+        for f in range(fl):
+            a = np.zeros((2, c), np.float32)
+            for k in range(f * per, min((f + 1) * per, plan.chunks)):
+                a += part[i, k]
+            t += a
+        m = t[0] / n
+        var = np.maximum(_fma32(-m, m, t[1] / n), np.float32(0))
+        r = np.float32(1) / np.sqrt(var + np.float32(eps))
+        sc = r * g
+        sh = _fma32(-m, sc, be)
+        y[i] = _fma32(xf[i], sc, sh)
+        mean[i], rstd[i] = m, r
+    if relu:
+        y = np.maximum(y, np.float32(0))
+    return y.reshape(x.shape), mean, rstd
+
+
+def _reference_fp64(x, g, be, eps, relu):
+    x64 = x.astype(np.float64)
+    m = x64.mean(axis=(1, 2), keepdims=True)
+    var = (x64 ** 2).mean(axis=(1, 2), keepdims=True) - m ** 2
+    y = (x64 - m) / np.sqrt(var + eps) * g + be
+    return np.maximum(y, 0) if relu else y
+
+
+# C = 8 and 6 (one and two lane pieces of a 32-byte or 24-byte pixel) and
+# 128 (vec: 32 columns, 8 lanes), each cut into 6 chunks of 24 pixels and
+# finalized by 4 lanes
+@pytest.mark.parametrize("c", [8, 128, 6])
+def test_fwd_summation_order_emulated(c):
+    x, g, b = _inputs(c)
+    plan = fwd_plan(2, 144, c, 4, SMS)._replace(rows=24, chunks=6,
+                                                 fin_lanes=4)
+    assert plan.vec == (c % 4 == 0)
+    y, mean, rstd = _emulate_fwd(x, g, b, 1e-5, True, plan)
+    pallas = np.asarray(instance_norm_pallas(jnp.asarray(x), jnp.asarray(g),
+                                             jnp.asarray(b), relu=True))
+    np.testing.assert_allclose(y, pallas, atol=ATOL)
+    plain, stats = _instance_norm_fwd(*map(torch.from_numpy, (x, g, b)),
+                                      1e-5, True)
+    np.testing.assert_allclose(np.stack([mean, rstd]), stats.numpy(),
+                               rtol=0, atol=STATS_ATOL)
+    exact = _reference_fp64(x, g, b, 1e-5, True)
+    err = np.abs(y - exact).max()
+    plain_err = np.abs(plain.numpy() - exact).max()
+    assert err <= 2 * plain_err, (err, plain_err)

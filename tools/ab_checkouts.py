@@ -3,30 +3,40 @@ unpacked with ``git archive``) on one card, each checkout in its own
 process with its own build:
 
 - outputs at the training step's shapes that must be bit-identical: every
-  CycleGAN kernel in both dtypes (K1, K2f, K2b, K3, K4f, K4d, K4w and K4s's
-  forward, dgrad and wgrad) and the attention kernels K5f and K5b at the
-  VQGAN shapes, except the outputs in ``REPORTED``: K4d's and K4w's fp32
-  gradients, whose design differs from the parent's (the three-term TF32
-  split on wgmma against FMAs), are reported as their largest difference
-  and not held;
+  CycleGAN kernel in both dtypes (K1, K2b, K3, K4f, K4d, K4w and K4s's
+  forward, dgrad and wgrad; K2b from the plain version's statistics) and
+  the attention kernels K5f and K5b at the VQGAN shapes, except the
+  outputs in ``REPORTED``: K2f's (its sums run in another order than the
+  parent's three-pass design) are reported as their largest difference and
+  not held;
 - the SASS of every kernel of the sources in ``SASS``: the bf16 wgmma and
   mma.sync kernels (``conv3_in_tc.cu``, ``conv3s2_tc.cu``,
   ``conv7_bwd_tc.cu``, ``conv7_wgrad_tc.cu``, ``conv7_tc.cu``), the fp32
   split kernels (``conv3_in_tf32.cu``, ``conv3s2_tf32.cu``,
-  ``conv7_tf32.cu``) and ``attention.cu``'s, compiled from each checkout
-  with the same nvcc flags and compared instruction by instruction (the
-  kernels' anonymous-namespace prefix left out of their names;
-  ``attention.cu``'s kernels by their identifier, so that a plain kernel
-  and the fp32 instantiation of the same kernel as a template on the
-  storage type meet): all must match; kernels only this checkout has are
-  listed as new;
+  ``conv7_tf32.cu``, ``conv7_bwd_tf32.cu``, ``conv7_wgrad_tf32.cu``),
+  ``attention.cu``'s and the FMA sources' (``augment.cu``, ``conv3_in.cu``,
+  ``conv3s2.cu``, ``conv7.cu``, ``conv7_bwd.cu``), compiled from each
+  checkout with the same nvcc flags and compared instruction by
+  instruction (the kernels' anonymous-namespace prefix left out of their
+  names; ``attention.cu``'s kernels by their identifier, so that a plain
+  kernel and the fp32 instantiation of the same kernel as a template on
+  the storage type meet): all must match; kernels only this checkout has
+  are listed as new; ``instance_norm_bwd.cu`` (templated on the channels a
+  thread holds) is compared and reported, not held;
 - the ``cyclegan256_dp`` training step, timed in fp32 and in bf16, and the
   ``vqgan512`` step (union batch 8, D on from the first step) in fp32 and
   as published in bf16, in turns (this, other, other, this); after each
   run's steps, a digest of every tensor of its train state: the steps
-  whose kernels ``STATE_REPORTED`` does not name (the fp32 CycleGAN step
-  runs the fp32 K4d and K4w) must end in the same state as the other
-  checkout's.
+  whose kernels ``STATE_REPORTED`` does not name must end in the same
+  state as the other checkout's (every step runs K2f: all reported). The
+  first step's gradients, from one seeded state and batch, are held to
+  the other checkout's: in fp32 within ``GRAD_GAP`` of each network's
+  largest gradient, in bf16 no further in the Euclidean norm than this
+  checkout's bf16 step is from its fp32 step (``chip_smoke.py``'s
+  card-vs-CPU gates); its losses reported as their relative difference; a
+  ``Translator``
+  apply of ``cyclegan256_dp`` (seeded weights, batch 8) within one uint8
+  step (the smoke's card-vs-CPU translate gate).
 
     python3 tools/ab_checkouts.py OTHER_CHECKOUT
 
@@ -53,17 +63,28 @@ VQ_OVERRIDES = OVERRIDES["float32"] + ["loss.vq_disc_start=0"]
 VQ_OVERRIDES_BF16 = ["loss.vq_disc_start=0"]
 VQ_BATCH, VQ_TIMED = 4, 5  # per domain: the step trains on a union of 8
 # outputs reported as their largest difference, not held bit-identical
-REPORTED = tuple(f"{name} {nb} reflect" for nb in (2 * BATCH, BATCH)
-                 for name in ("conv7_dgrad float32", "conv7_wgrad float32"))
+REPORTED = tuple(f"{name} {t}" for t in ("float32", "bfloat16")
+                 for name in ("instance_norm", "instance_norm stats"))
 # training steps whose end state is reported, not held identical
-STATE_REPORTED = ("float32",)
+STATE_REPORTED = ("float32", "bfloat16", "vqgan512", "vqgan512_bf16")
+# the first step's gradient gap: fp32, relative to each network's largest
+# gradient (chip_smoke.py GRAD_GAP); bf16, in the Euclidean norm, at most
+# the gap between this checkout's bf16 and fp32 steps (FP32_TWIN; the bf16
+# card-vs-CPU gate, compare_card_cpu_bf16: the kernels add less than bf16
+# itself does); a translated image's, in uint8 steps
+GRAD_GAP, TRANSLATE_GAP = 1e-2, 1
+FP32_TWIN = {"bfloat16": "float32", "vqgan512_bf16": "vqgan512"}
 # (source, the kernels compared: a substring of the name, whether their
 # SASS must match)
 SASS = (("conv3_in_tc.cu", "", True), ("conv3s2_tc.cu", "", True),
         ("conv7_bwd_tc.cu", "", True), ("conv7_wgrad_tc.cu", "", True),
         ("conv7_tc.cu", "", True), ("conv3_in_tf32.cu", "", True),
         ("conv3s2_tf32.cu", "", True), ("conv7_tf32.cu", "", True),
-        ("attention.cu", "", True))
+        ("conv7_bwd_tf32.cu", "", True), ("conv7_wgrad_tf32.cu", "", True),
+        ("attention.cu", "", True), ("augment.cu", "", True),
+        ("conv3_in.cu", "", True), ("conv3s2.cu", "", True),
+        ("conv7.cu", "", True), ("conv7_bwd.cu", "", True),
+        ("instance_norm_bwd.cu", "", False))
 
 
 def worker(out: Path) -> None:
@@ -78,8 +99,8 @@ def worker(out: Path) -> None:
                                    conv3s2_dgrad, conv3s2_wgrad, conv7,
                                    conv7_dgrad, conv7_wgrad, instance_norm,
                                    instance_norm_bwd)
-    from uig_torch.kernels.norm import _instance_norm_fwd
-    from uig_torch.serving import exact_fp32
+    from uig_torch.kernels.norm import _instance_norm_fwd, _reference_fwd
+    from uig_torch.serving import Translator, exact_fp32
     from uig_torch.train import CycleGANTrainer, VQGANTrainer
 
     dev = torch.device("cuda", 0)
@@ -103,7 +124,11 @@ def worker(out: Path) -> None:
                                  relu=relu).cpu()
             outs[f"instance_norm {t}"] = instance_norm(
                 x.to(dt), g, be, relu=True).cpu()
-            stats = _instance_norm_fwd(x.to(dt), g, be, 1e-5, True)[1]
+            outs[f"instance_norm stats {t}"] = _instance_norm_fwd(
+                x.to(dt), g, be, 1e-5, True)[1].cpu()
+            # the backward from the plain version's statistics, which both
+            # checkouts compute alike
+            stats = _reference_fwd(x.to(dt), g, be, 1e-5, True)[1]
             for name, v in zip(("dx", "dgamma", "dbeta"), instance_norm_bwd(
                     x.to(dt), g, be, dyn.to(dt), stats, relu=True)):
                 outs[f"instance_norm_bwd {name} {t}"] = v.cpu()
@@ -148,7 +173,16 @@ def worker(out: Path) -> None:
     for dt in (torch.float32, torch.bfloat16):
         outs[f"augment_batch {dt}"] = augment_batch(u8, oy, ox, flip, 256,
                                                     dt).cpu()
-    torch.save(outs, out)
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke
+
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "g.npz")
+        chip_smoke.seeded_flax_weights(weights)
+        img = rng.integers(0, 256, (BATCH, 286, 286, 3), dtype=np.uint8)
+        translated = Translator("cyclegan256_dp", weights, batch_size=BATCH)(
+            img)
+    outs["translate"] = torch.from_numpy(np.asarray(translated))
 
     times = {}
     torch.use_deterministic_algorithms(True)
@@ -161,10 +195,20 @@ def worker(out: Path) -> None:
     for key, preset, trainer, overrides, nb, timed in runs:
         cfg = apply_overrides(get_preset(preset), overrides)
         load = cfg.data.load_size
-        a_u8, b_u8 = (rng.integers(0, 256, (nb, load, load, 3),
-                                   dtype=np.uint8) for _ in range(2))
+        # one batch for a preset's fp32 and bf16 runs (FP32_TWIN)
+        batch_rng = np.random.default_rng(SEED + (preset == "vqgan512"))
+        a_u8, b_u8 = (batch_rng.integers(0, 256, (nb, load, load, 3),
+                                         dtype=np.uint8) for _ in range(2))
         tr = trainer(cfg)
         st = tr.init_state(SEED)
+        # the first step's gradients and losses, from a copy of the state
+        draws = tr.draw(st, nb, load, load)
+        with exact_fp32():
+            grads, metrics = tr._grads(st.clone(), (a_u8, b_u8), draws)
+        outs[f"grads {key}"] = {k: v.detach().float().cpu()
+                                for k, v in chip_smoke._flatten(grads).items()}
+        outs[f"losses {key}"] = {k: float(v) for k, v in metrics.items()}
+        del grads
         ms = []
         for i in range(WARMUP + timed):
             e0 = torch.cuda.Event(enable_timing=True)
@@ -179,6 +223,7 @@ def worker(out: Path) -> None:
                       "state_sha256": state_digest(st)}
         del tr, st
         torch.cuda.empty_cache()
+    torch.save(outs, out)
     print(json.dumps(times), flush=True)
 
 
@@ -313,20 +358,56 @@ def main() -> int:
                       for k in theirs[src] if k not in mine[src]})
     sass_new = [f"{src} {k}" for src in mine for k in mine[src]
                 if k not in theirs[src]]
-    same = {k: torch.equal(v, outputs["other"][k])
-            for k, v in outputs["this"].items() if k not in REPORTED}
-    differ = {k: (outputs["this"][k].double()
-                  - outputs["other"][k].double()).abs().max().item()
+    mine_out, theirs_out = outputs["this"], outputs["other"]
+    same = {k: torch.equal(v, theirs_out[k]) for k, v in mine_out.items()
+            if k not in REPORTED and k != "translate"
+            and not k.startswith(("grads ", "losses "))}
+    differ = {k: (mine_out[k].double()
+                  - theirs_out[k].double()).abs().max().item()
               for k in REPORTED}
+    # the steps' first gradients, per network, relative to its largest
+    # gradient; the losses, relative; the translated batch, in uint8 steps
+    gaps, held = {}, {}
+    for key in states["this"]:
+        mg, tg = mine_out[f"grads {key}"], theirs_out[f"grads {key}"]
+        for net in ("g", "d"):
+            leaves = [k for k in tg if k.startswith(net + "/")]
+            top = max(tg[k].abs().max().item() for k in leaves)
+            gaps[f"{key} {net}_grad"] = max(
+                (mg[k] - tg[k]).abs().max().item() for k in leaves) / top
+            if key not in FP32_TWIN:
+                held[f"{key} {net}_grad"] = gaps[f"{key} {net}_grad"] <= GRAD_GAP
+                continue
+            fg = mine_out[f"grads {FP32_TWIN[key]}"]
+
+            def norm(u, v):
+                return sum(((u[k].double() - v[k].double()) ** 2).sum()
+                           .item() for k in leaves) ** 0.5
+
+            ratio = norm(mg, tg) / max(norm(mg, fg), 1e-30)
+            gaps[f"{key} {net}_grad_norm_over_bf16_fp32"] = ratio
+            held[f"{key} {net}_grad"] = ratio <= 1.0
+    losses = {f"{key} {name}": abs(v - theirs_out[f"losses {key}"][name])
+              / max(abs(theirs_out[f"losses {key}"][name]), 1e-30)
+              for key in states["this"]
+              for name, v in mine_out[f"losses {key}"].items()}
+    translate_gap = (mine_out["translate"].int()
+                     - theirs_out["translate"].int()).abs().max().item()
     required = [src for src, _, must in SASS if must]
     state_same = {k: v == states["other"].get(k)
                   for k, v in states["this"].items()}
     print(json.dumps({"bit_identical": same, "sass_identical": sass_same,
                       "sass_new": sass_new, "max_abs_difference": differ,
-                      "step_state_identical": state_same}), flush=True)
+                      "step_state_identical": state_same,
+                      "first_step_grad_gap": gaps,
+                      "grad_gap_gate": GRAD_GAP, "grad_gap_held": held,
+                      "first_step_loss_rel_diff": losses,
+                      "translate_u8_gap": translate_gap,
+                      "translate_gate": TRANSLATE_GAP}), flush=True)
     return 0 if all(same.values()) and all(
         v for k, v in state_same.items() if k not in STATE_REPORTED) and all(
-        v for k, v in sass_same.items() if k.split()[0] in required) else 1
+        v for k, v in sass_same.items() if k.split()[0] in required) and all(
+        held.values()) and translate_gap <= TRANSLATE_GAP else 1
 
 
 if __name__ == "__main__":
