@@ -82,10 +82,27 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    with only ``loss.vq_disc_start=0``; its batch-1 check takes the step
    four ways as 3b's does (``compare_card_cpu_bf16``);
    ``VQ_BF16_TRAIN_STEPS`` steps.
+8. fit, last (its training processes share the card with this one):
+   ``python -m uig_torch.cli train --preset cyclegan256_dp`` as
+   published (bf16, LPIPS on) in training processes of its own, with only
+   the data and the cadences set (``FIT_OVERRIDES``): run A goes 6 steps
+   (its kernel launches counted around the command line's ``main``: 6
+   steps and one sample grid's two translate applies); run B goes 3, the
+   process exits, and a second process resumes it to 6; every tensor of
+   the two final checkpoints must be byte-identical and the counts and
+   cursors equal. The checkpoint restored onto the card and saved again
+   (ms, bytes); ``translate --run-dir`` on run A must give the PNGs of a
+   direct ``Translator`` call on the restored EMA; a run sent SIGTERM
+   after its first metrics line must exit 0 with a checkpoint at the step
+   it reached. Reports fit's step ms between log lines that no checkpoint
+   or grid falls between, its ``images_per_sec_chip`` and
+   ``input_stall_pct``, beside 3b's bare step. The training processes get
+   no ``CUBLAS_WORKSPACE_CONFIG``: ``fit`` sets it.
 
 Then one ``kernels`` line (every kernel with its launches on its own path:
 one CycleGAN training step and translate apply, or one VQGAN training step
-and reconstruct apply for the attention kernels; its error, and its times
+and reconstruct apply for the attention kernels, and ``launches_fit``, the
+fit phase's run A; its error, and its times
 and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
 ``train_bf16`` step, with the design each dtype launched: "wgmma" on the
@@ -107,6 +124,7 @@ import io
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1628,7 +1646,7 @@ def phase_train(dev, overrides=TRAIN_OVERRIDES, phase: str = "train",
         emit(prof)
     finally:
         torch.use_deterministic_algorithms(False)
-    return launches, prof["designs"]
+    return launches, prof["designs"], step_ms
 
 
 def lpips_parts(tr, state0, a, b, phase: str) -> dict:
@@ -1682,6 +1700,258 @@ def lpips_parts(tr, state0, a, b, phase: str) -> dict:
     out["lpips_term_device_kernels"] = prof["device_kernels"]
     out["lpips_term_top"] = prof["top"][:5]
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: fit, through the command line
+# ---------------------------------------------------------------------------
+
+# python -m uig_torch.cli train --preset cyclegan256_dp as published (bf16,
+# LPIPS on); the overrides set the data and the cadences, never a width
+FIT_OVERRIDES = ["data.source=synthetic", "data.load_size=286",
+                 "data.batch_size=8", "run.log_every=2", "run.ckpt_every=3",
+                 "eval.sample_grid_every=6"]
+FIT_STEPS = 6
+FIT_TIMEOUT = 240  # seconds a training process may take
+FIT_IMAGES = 4     # images translate --run-dir turns into PNGs
+# a training process under launch counting: the counts set to 0 just
+# before the command line's main() and written to argv[1] just after
+FIT_COUNTED = ("import json, sys\n"
+               "from uig_torch import kernels as K\n"
+               "from uig_torch.cli.__main__ import main\n"
+               "K.reset_launch_counts()\n"
+               "rc = main(sys.argv[2:])\n"
+               "json.dump(K.launch_counts(), open(sys.argv[1], 'w'))\n"
+               "sys.exit(rc)\n")
+
+
+def _train_cmd(workdir: str, name: str, steps: int, extra=()) -> list:
+    args = ["train", "--preset", PRESET, "--max-steps", str(steps)]
+    for o in [*FIT_OVERRIDES, f"run.workdir={workdir}", f"run.name={name}",
+              *extra]:
+        args += ["--set", o]
+    return args
+
+
+def _child_env() -> dict:
+    """The environment of a training process: the checkout's sources, and
+    no cuBLAS workspace setting (fit has to arrange it itself)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    return env
+
+
+def _run_child(cmd: list, what: str) -> tuple:
+    """(wall clock at the start, seconds) of a training process that must
+    exit 0 and print its final metrics."""
+    start, t0 = time.time(), time.perf_counter()
+    r = subprocess.run(cmd, env=_child_env(), cwd=ROOT, capture_output=True,
+                       text=True, timeout=FIT_TIMEOUT)
+    if r.returncode != 0 or '"final_metrics"' not in r.stdout:
+        raise AssertionError(f"fit: {what} exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    return start, time.perf_counter() - t0
+
+
+def _metrics(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _clean_intervals(recs: list, every: tuple) -> list:
+    """(ms a step, the later line) between consecutive log lines whose
+    steps ran no checkpoint or sample grid: those of the earlier line's
+    step come after it, so they fall in its interval."""
+    out = []
+    for r0, r1 in zip(recs, recs[1:]):
+        s0, s1 = r0["step"], r1["step"]
+        if any(s % e == 0 for s in range(s0, s1) for e in every if e):
+            continue
+        out.append((1e3 * (r1["time"] - r0["time"]) / (s1 - s0), r1))
+    return out
+
+
+def _sigterm_run(workdir: str) -> dict:
+    """A run that gets SIGTERM once its first metrics line is written: it
+    must exit 0 with a checkpoint at the step it reached (the only one: no
+    cadence saves)."""
+    from uig_torch.checkpoint import CheckpointManager
+
+    name = "sigterm"
+    run_dir = os.path.join(workdir, name)
+    cmd = [sys.executable, "-m", "uig_torch.cli",
+           *_train_cmd(workdir, name, 1000,
+                       ["run.ckpt_every=0", "eval.sample_grid_every=0"])]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=_child_env(), cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        path = os.path.join(run_dir, "metrics.jsonl")
+        while not (os.path.exists(path) and os.path.getsize(path) > 0):
+            if proc.poll() is not None or time.perf_counter() - t0 > FIT_TIMEOUT:
+                raise AssertionError("fit: the SIGTERM run ended or stalled "
+                                     "before its first metrics line")
+
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=FIT_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    mgr = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    steps = mgr.all_steps()
+    meta = mgr.read()[1] if steps else {}
+    reached = _metrics(run_dir)[-1]["step"]
+    ok = (proc.returncode == 0 and len(steps) == 1 and steps[0] >= reached
+          and meta["ints"]["step"] == steps[0]
+          and meta["data_state"] == {"t_consumed": steps[0]}
+          and '"final_metrics"' in out)
+    if not ok:
+        raise AssertionError(f"fit: SIGTERM run rc {proc.returncode}, "
+                             f"checkpoints {steps}, meta {meta.get('ints')}:"
+                             f" {err[-2000:]}")
+    return {"rc": proc.returncode, "first_log_step": reached,
+            "saved_step": steps[0], "seconds": time.perf_counter() - t0}
+
+
+def phase_fit(bare_step_ms: float) -> dict:
+    """``python -m uig_torch.cli train`` for ``PRESET`` as published:
+    run A goes FIT_STEPS steps in one process (its launches counted), run
+    B half of them, exits, and a second process resumes it to FIT_STEPS;
+    the two final checkpoints must hold byte-identical tensors and equal
+    counts and cursors. ``translate --run-dir`` on run A must give the PNGs
+    of a direct ``Translator`` call on the restored EMA. A run that gets
+    SIGTERM must save the step it reached. Reports fit's step time between
+    clean log lines beside the bare step's (``bare_step_ms``, phase 3b),
+    its images/s and input stall, and the checkpoint's bytes and save and
+    restore times. Returns run A's launches."""
+    import torch
+    from PIL import Image
+
+    from uig_torch.checkpoint import CheckpointManager
+    from uig_torch.cli.__main__ import main as cli_main
+    from uig_torch.config import apply_overrides, get_preset, load_config
+    from uig_torch.data import SyntheticUnpairedDataset
+    from uig_torch.serving import Translator
+    from uig_torch.train import CycleGANTrainer
+
+    torch.cuda.empty_cache()
+    half = FIT_STEPS // 2
+    out = {"phase": "fit", "preset": PRESET, "overrides": FIT_OVERRIDES,
+           "steps": FIT_STEPS}
+    with tempfile.TemporaryDirectory() as work:
+        counts = os.path.join(work, "launches.json")
+        module = [sys.executable, "-m", "uig_torch.cli"]
+        procs = {
+            "run_a": _run_child([sys.executable, "-c", FIT_COUNTED, counts,
+                                 *_train_cmd(work, "a", FIT_STEPS)],
+                                "run A"),
+            "run_b_first": _run_child(
+                module + _train_cmd(work, "b", half), "run B"),
+        }
+        run_a, run_b = os.path.join(work, "a"), os.path.join(work, "b")
+        # run B's first process's lines, before the resumed one appends
+        first_b = len(_metrics(run_b))
+        procs["run_b_resumed"] = _run_child(
+            module + _train_cmd(work, "b", FIT_STEPS), "run B resumed")
+        with open(counts) as f:
+            launches = json.load(f)
+        recs_a, recs_b = _metrics(run_a), _metrics(run_b)
+        # seconds from a process's start to its first metrics line (import,
+        # CUDA, the trainer and LPIPS built, restore, the first two steps)
+        firsts = {"run_a": recs_a[0], "run_b_first": recs_b[0],
+                  "run_b_resumed": recs_b[first_b]}
+        secs = {k: {"seconds": v[1],
+                    "to_first_log_line": firsts[k]["time"] - v[0]}
+                for k, v in procs.items()}
+        mgr_a = CheckpointManager(os.path.join(run_a, "ckpt"))
+        ta, ma = mgr_a.read()
+        tb, mb = CheckpointManager(os.path.join(run_b, "ckpt")).read()
+        differ = sorted(k for k in set(ta) | set(tb)
+                        if k not in ta or k not in tb
+                        or not torch.equal(ta[k], tb[k]))
+        if differ or ma["ints"] != mb["ints"] or ma["step"] != FIT_STEPS \
+                or ma["data_state"] != mb["data_state"] \
+                or ma["data_state"] != {"t_consumed": FIT_STEPS}:
+            raise AssertionError(f"fit: resumed run differs in {differ[:5]} "
+                                 f"({len(differ)}), {ma['ints']} vs "
+                                 f"{mb['ints']}")
+        out.update(resume_byte_identical=True, tensors_compared=len(ta),
+                   cursor=ma["data_state"], counts=ma["ints"],
+                   ckpt_steps_a=mgr_a.all_steps())
+        del ta, tb
+
+        # the checkpoint: restore onto the card, save again, its bytes
+        cfg = apply_overrides(load_config(os.path.join(run_a, "config.json")),
+                              ["loss.lambda_lpips=0"])  # the template's VGG
+        tr = CycleGANTrainer(cfg)
+        template = tr.init_state(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, data_state, _ = mgr_a.restore(template)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        del template
+        t0 = time.perf_counter()
+        saved = CheckpointManager(os.path.join(work, "resave")).save(
+            FIT_STEPS, state, data_state)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = sum(os.path.getsize(os.path.join(saved, n))
+                     for n in os.listdir(saved))
+        out.update(ckpt_bytes=nbytes, ckpt_save_ms=save_ms,
+                   ckpt_restore_ms=restore_ms)
+
+        # translate --run-dir against a direct Translator call on the EMA
+        load = cfg.data.load_size
+        src, dst = os.path.join(work, "in"), os.path.join(work, "out")
+        os.makedirs(src)
+        dom = SyntheticUnpairedDataset(FIT_IMAGES, load, SEED + 5).domain_a
+        raw = np.stack([dom[i] for i in range(FIT_IMAGES)])
+        for i in range(FIT_IMAGES):
+            Image.fromarray(raw[i]).save(os.path.join(src, f"im{i}.png"))
+        if cli_main(["translate", "--run-dir", run_a, "--input-dir", src,
+                     "--output-dir", dst, "--batch-size", str(FIT_IMAGES)]
+                    ) != 0:
+            raise AssertionError("fit: translate --run-dir failed")
+        got = np.stack([np.asarray(Image.open(os.path.join(dst, f"im{i}.png")))
+                        for i in range(FIT_IMAGES)])
+        direct = Translator(os.path.join(run_a, "config.json"),
+                            state.ema["a2b"], batch_size=FIT_IMAGES)(raw)
+        if not np.array_equal(got, direct):
+            raise AssertionError("fit: translate --run-dir differs from a "
+                                 "direct Translator call")
+        spread = int(got.max()) - int(got.min())
+        out.update(translate_run_dir_byte_identical=True,
+                   translate_images=FIT_IMAGES, translate_spread=spread)
+        del state, tr
+
+        out["sigterm"] = _sigterm_run(work)
+        every = (3, 6)  # run.ckpt_every, eval.sample_grid_every
+        clean = (_clean_intervals(recs_a, every)
+                 + _clean_intervals(recs_b[first_b:], every))
+        recs = recs_a + recs_b
+    bad = [r for r in recs if not all(np.isfinite(v) for k, v in r.items()
+                                      if isinstance(v, float))]
+    if bad or not clean:
+        raise AssertionError(f"fit: non-finite metrics {bad[:1]} or no clean "
+                             "interval")
+    grids = FIT_STEPS // 6  # eval.sample_grid_every: a2b and b2a applies
+    want = {k: FIT_STEPS * PER_STEP[k] + grids * 2 * PER_APPLY[k]
+            for k in PER_STEP}
+    if launches != want:
+        raise AssertionError(f"fit: run A launched {launches}, want {want}")
+    ms = [c[0] for c in clean]
+    out.update(
+        fit_step_ms_median=float(np.median(ms)), fit_step_ms=ms,
+        fit_images_per_sec_chip=[c[1]["images_per_sec_chip"] for c in clean],
+        fit_input_stall_pct=[c[1]["input_stall_pct"] for c in clean],
+        fit_hbm_gb_peak=max(r.get("hbm_gb_peak", 0.0) for r in recs),
+        bare_step_ms_median=bare_step_ms, launches=launches,
+        process_seconds=secs, nvidia_smi=nvidia_smi())
+    emit(out)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2188,10 +2458,10 @@ def main() -> int:
           "ptxas_mma": wgmma_ptxas(log, "_mma_kernel")})
     dev = torch.device("cuda", 0)
     totals = phase_kernels(dev)
-    step_launches, designs = phase_train(dev, steps=FP32_TRAIN_STEPS)
+    step_launches, designs, _ = phase_train(dev, steps=FP32_TRAIN_STEPS)
     torch.cuda.empty_cache()
-    bf16_launches, bf16_designs = phase_train(dev, TRAIN_OVERRIDES_BF16,
-                                              "train_bf16")
+    bf16_launches, bf16_designs, bf16_step_ms = phase_train(
+        dev, TRAIN_OVERRIDES_BF16, "train_bf16")
     designs = {"float32": designs, "bfloat16": bf16_designs}
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2209,6 +2479,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     vq_bf16_launches, vq_bf16_designs = phase_vqgan_train(
         VQ_OVERRIDES_BF16, "vqgan_train_bf16", VQ_BF16_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    fit_launches = phase_fit(bf16_step_ms)
     kernels = []
     for name in PER_STEP:
         if name.startswith("attention"):
@@ -2249,6 +2521,7 @@ def main() -> int:
                  "replaces": REPLACES[name],
                  "launches": step_l["float32"][name],
                  "launches_per_translate_apply": apply_l[name],
+                 "launches_fit": fit_launches[name],
                  "max_abs_err": t["max_abs_err"], **t["step"],
                  "bound_by": t["bound_by"], "dtypes": list(dtypes),
                  "per_dtype": per_dtype, "per": per}

@@ -1,3 +1,15 @@
-from uig_torch.data.folder import FolderDataset
+from uig_torch.data.datasets import (FolderDataset, PackedDataset,
+                                     SyntheticUnpairedDataset, eval_datasets,
+                                     open_dataset)
+from uig_torch.data.pipeline import UnpairedPipeline, make_input_pipeline
 
-__all__ = ["FolderDataset"]
+
+__all__ = [
+    "FolderDataset",
+    "PackedDataset",
+    "SyntheticUnpairedDataset",
+    "UnpairedPipeline",
+    "eval_datasets",
+    "make_input_pipeline",
+    "open_dataset",
+]

@@ -1,6 +1,6 @@
-"""A directory of images for translate: PIL RGB decode, bilinear resize to
-``load_size``, uint8 HWC, as the JAX package's FolderDataset does with its
-PIL decoder."""
+"""A directory of images for training and translate: PIL RGB decode,
+bilinear resize to ``load_size``, uint8 HWC, as the JAX package's
+FolderDataset does with its PIL decoder."""
 
 from __future__ import annotations
 
@@ -34,6 +34,17 @@ class FolderDataset:
 
     def __getitem__(self, idx: int) -> np.ndarray:
         return decode_resize(self.files[idx], self.load_size)
+
+    def get_batch(self, idxs: list[int], n_threads: int = 8) -> np.ndarray:
+        """Decode ``idxs`` into one uint8 (k, load, load, 3) array, over
+        ``n_threads`` threads (PIL releases the GIL while it decodes)."""
+        n = min(n_threads, len(idxs))
+        if n <= 1:
+            return np.stack([self[i] for i in idxs])
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(n) as pool:
+            return np.stack(list(pool.map(self.__getitem__, idxs)))
 
     def names(self) -> list[str]:
         """Output file stems: the basenames, or zero-padded indices where

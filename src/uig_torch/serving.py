@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from uig_torch.config import apply_overrides, get_preset, load_config
-from uig_torch.convert import generator_state_from_flax, load_generator_npz
+from uig_torch.convert import (check_state, generator_state_from_flax,
+                               load_generator_npz)
 from uig_torch.kernels.augment import center_crop_normalize, denormalize_to_u8
 from uig_torch.models import generator_from_config
 from uig_torch.runtime import resolve_device
@@ -67,21 +68,27 @@ class Translator:
     or VQGAN).
 
     ``config``: preset name or ``config.json``. ``weights``: flat flax
-    ``.npz`` of one generator; ``direction`` names the direction it
-    translates, for ``.meta``. Runs on ``device`` (the card by default; ``"cpu"`` runs the plain
-    PyTorch versions of every kernel). Call it from one thread at a time:
+    ``.npz`` of one generator, or its state dict (tensors keyed as the
+    module's, as a checkpoint's EMA holds them; ``from_run_dir``);
+    ``direction`` names the direction it translates, for ``.meta``. Runs on
+    ``device`` (the card by default; ``"cpu"`` runs the plain PyTorch
+    versions of every kernel). Call it from one thread at a time:
     ``exact_fp32`` sets process-wide flags for the duration of a call (the
     server's single dispatcher thread serializes calls)."""
 
-    def __init__(self, config: str, weights: str, direction: str = "a2b",
+    def __init__(self, config: str, weights, direction: str = "a2b",
                  batch_size: int = 8, device: str = "cuda", overrides=()):
         if direction not in ("a2b", "b2a"):
             raise ValueError(f"direction must be a2b or b2a, got {direction!r}")
         self.device = resolve_device(device)
         self.cfg = load_serving_config(config, overrides)
         self.generator = generator_from_config(self.cfg.model)
-        state = generator_state_from_flax(load_generator_npz(weights),
-                                          self.generator)
+        if isinstance(weights, dict):
+            state = weights
+            check_state(state, self.generator)
+        else:
+            state = generator_state_from_flax(load_generator_npz(weights),
+                                              self.generator)
         self.generator.load_state_dict(state, strict=True)
         self.generator.to(self.device).eval().requires_grad_(False)
         self.vqgan = self.cfg.model.kind == "vqgan"
@@ -99,9 +106,34 @@ class Translator:
             "output_dtype": "uint8",
             "eval_dtype": self.cfg.model.eval_dtype,
             "platforms": [self.device.type],
-            "weights": os.path.abspath(weights),
+            "weights": (os.path.abspath(weights)
+                        if isinstance(weights, str) else None),
             "preset": self.cfg.run.name,
         }
+
+    @classmethod
+    def from_run_dir(cls, run_dir: str, step: int | None = None,
+                     direction: str = "a2b", batch_size: int = 8,
+                     device: str = "cuda", overrides=()) -> "Translator":
+        """The EMA generator of ``direction`` from a training run of the
+        port (``fit``): its ``config.json`` and checkpoint ``step`` (default:
+        the newest) under ``ckpt/``."""
+        from uig_torch.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
+        if step is None:
+            step = ckpt.latest_step()
+        tensors, _ = ckpt.read(step)
+        prefix = f"ema/{direction}/"
+        ema = {k[len(prefix):]: t for k, t in tensors.items()
+               if k.startswith(prefix)}
+        if not ema:
+            raise KeyError(f"{run_dir}: checkpoint {step} has no EMA "
+                           f"generator for {direction!r}")
+        tr = cls(os.path.join(run_dir, "config.json"), ema, direction,
+                 batch_size, device, overrides)
+        tr.meta["weights"] = f"{os.path.abspath(ckpt.path(step))}:{prefix}"
+        return tr
 
     def _apply(self, x: torch.Tensor) -> torch.Tensor:
         y = self.generator(x)

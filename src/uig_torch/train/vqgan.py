@@ -97,6 +97,8 @@ class VQGANTrainer:
     ``perceptual_fn`` as in ``CycleGANTrainer``.
     """
 
+    directions = ("a2b",)  # translate is reconstruct
+
     def __init__(self, cfg, device: str = "cuda", perceptual_fn=None):
         self.device = resolve_device(device)
         _refuse_unported(cfg)

@@ -41,6 +41,7 @@ kernels are also held bit-equal to the fp32 kernels on the widened inputs.
 """
 
 import copy
+import os
 import re
 
 import numpy as np
@@ -67,6 +68,10 @@ from uig_torch.kernels import norm
 from uig_torch.kernels.norm import _instance_norm_fwd
 from uig_torch.kernels.reflect import reflect_fold, reflect_pad
 from uig_torch.serving import exact_fp32
+
+# fit refuses a process whose CUDA started before cuBLAS's fixed workspace
+# was set (test_fit_resume_is_byte_identical): set it before the first call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -1186,3 +1191,68 @@ def test_bf16_operands_are_checked(dev):
     g = torch.ones(8, device=dev)
     with pytest.raises(TypeError, match="gamma must be float32"):
         instance_norm(x.to(BF), g.to(BF), g.to(BF))
+
+
+# ---------------------------------------------------------------------------
+# the input pipeline and fit on the card
+# ---------------------------------------------------------------------------
+
+
+def test_pipeline_pinned_copy_under_a_concurrent_step(dev):
+    """The pipeline's batches on the card hold the host batches' bytes
+    while the consumer's stream runs a long step before it reads them and
+    allocates and frees as it goes (so the allocator recycles memory a
+    later copy could land in), with three producer threads copying."""
+    from uig_torch.data import UnpairedPipeline
+    from uig_torch.data.datasets import SyntheticUnpairedDataset
+
+    syn = SyntheticUnpairedDataset(7, 64, 1)
+    host = UnpairedPipeline(syn.domain_a, syn.domain_b, 4, device="cpu",
+                            num_workers=2)
+    pipe = UnpairedPipeline(syn.domain_a, syn.domain_b, 4, device=dev,
+                            num_workers=2, prefetch=2,
+                            producer_threads=3).start()
+    w = torch.randn(2048, 2048, device=dev) / 64
+    try:
+        for _ in range(10):
+            a, b = next(pipe)
+            assert a.device == dev and a.dtype == torch.uint8
+            y = w
+            for _ in range(12):  # the step's work, queued before the read
+                y = torch.tanh(y @ w)
+            got = (a.clone(), b.clone(), y.sum())
+            del a, b, y
+            want = next(host)
+            assert torch.equal(got[0].cpu(), want[0])
+            assert torch.equal(got[1].cpu(), want[1])
+    finally:
+        pipe.stop()
+    assert pipe.state_dict() == host.state_dict() == {"t_consumed": 10}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fit_resume_is_byte_identical(dev, tmp_path, dtype):
+    """fit on the card at a small width: 2 steps, a restore and 2 more end
+    byte-identical to 4 unbroken steps (every tensor and the cursor)."""
+    from uig_torch.checkpoint import CheckpointManager
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.train.loop import fit
+
+    over = ["model.image_size=32", "data.load_size=36", "model.n_res_blocks=1",
+            "model.g_base_features=16", "model.d_base_features=16",
+            "model.d_layers=2", "data.batch_size=2", "data.synthetic_len=12",
+            "data.num_workers=1", "opt.pool_size=4", "run.log_every=2",
+            "run.ckpt_every=2", "eval.sample_grid_every=0",
+            f"model.compute_dtype={dtype}", f"run.workdir={tmp_path}"]
+    cfg = apply_overrides(get_preset("smoke64"), over)
+    fit(apply_overrides(cfg, ["run.name=a"]), max_steps=4, device="cuda")
+    fit(apply_overrides(cfg, ["run.name=b"]), max_steps=2, device="cuda")
+    fit(apply_overrides(cfg, ["run.name=b"]), max_steps=4, device="cuda")
+    ta, ma = CheckpointManager(str(tmp_path / "a" / "ckpt")).read()
+    tb, mb = CheckpointManager(str(tmp_path / "b" / "ckpt")).read()
+    assert ma["ints"] == mb["ints"] and ma["ints"]["step"] == 4
+    assert ma["data_state"] == mb["data_state"] == {"t_consumed": 4}
+    assert set(ta) == set(tb)
+    differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    assert not differ, differ[:5]
+    assert ta["pool_a/buffer"].dtype == getattr(torch, dtype)

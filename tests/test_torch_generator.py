@@ -18,14 +18,23 @@ from uig_torch.convert import generator_state_from_flax
 from uig_torch.models import ResNetGenerator
 
 ATOL = 5e-5
+# XLA's backend at optimization level 0: the same results, compiled in
+# about a third of the time (the Pallas kernels run in interpret mode)
+JAX_OPTIONS = {"xla_backend_optimization_level": 0}
+
+
+def _compiled(fn, *args):
+    """``fn(*args)`` under one ``jax.jit``, compiled with ``JAX_OPTIONS``."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=JAX_OPTIONS)(
+        *args)
 
 
 @pytest.fixture(scope="module")
 def setup():
     rng = np.random.default_rng(8)
     x = rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
-    params = JaxGenerator(n_res_blocks=1).init(jax.random.PRNGKey(0),
-                                               jnp.asarray(x))
+    params = _compiled(JaxGenerator(n_res_blocks=1).init,
+                       jax.random.PRNGKey(0), jnp.asarray(x))
     flat = {k: np.asarray(v) for k, v in
             traverse_util.flatten_dict(params, sep="/").items()}
     # move IN scale/bias and conv biases off their init values
@@ -48,7 +57,7 @@ def test_generator_matches_jax(setup, jax_kernels):
     kw = dict(conv_impl="pallas", convin_pallas=True) if jax_kernels else {}
     gen = JaxGenerator(n_res_blocks=1, **kw)
     with jax.default_matmul_precision("highest"):
-        ref = np.asarray(gen.apply(params, jnp.asarray(x)))
+        ref = np.asarray(_compiled(gen.apply, params, jnp.asarray(x)))
     assert got.shape == ref.shape == (2, 16, 16, 3)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=ATOL)

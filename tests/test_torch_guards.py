@@ -40,6 +40,8 @@ def test_import_leaves_jax_out_and_builds_nothing():
             "uig_torch.cli.__main__, uig_torch.train.cyclegan, "
             "uig_torch.models.vqgan, uig_torch.train.vqgan, "
             "uig_torch.convert, uig_torch.kernels.conv_s2, uig_torch.eval, "
+            "uig_torch.data, uig_torch.checkpoint, uig_torch.metrics, "
+            "uig_torch.train.loop, uig_torch.cli.train, "
             "uig_torch.kernels._build as b; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'uig' or m.startswith('uig.') for m in sys.modules); "

@@ -26,6 +26,14 @@ from uig_torch.serving import Translator
 
 OVERRIDES = ["model.image_size=16", "data.load_size=20",
              "model.g_base_features=8", "model.n_res_blocks=1"]
+# XLA's backend at optimization level 0: the same results, compiled faster
+JAX_OPTIONS = {"xla_backend_optimization_level": 0}
+
+
+def _compiled(fn, *args):
+    """``fn(*args)`` under one ``jax.jit``, compiled with ``JAX_OPTIONS``."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=JAX_OPTIONS)(
+        *args)
 
 
 @pytest.fixture(scope="module")
@@ -38,15 +46,17 @@ def run(tmp_path_factory):
     rng = np.random.default_rng(0)
     raw = rng.integers(0, 256, (5, 20, 20, 3), dtype=np.uint8)
     gen = JaxGenerator(base_features=8, n_res_blocks=1)
-    params = gen.init(jax.random.PRNGKey(1), jnp.zeros((1, 16, 16, 3)))
+    # one compile of the init (op by op, it compiles every op)
+    params = _compiled(gen.init, jax.random.PRNGKey(1),
+                       jnp.zeros((1, 16, 16, 3)))
     flat = {k: np.asarray(v) + 0.05 * rng.standard_normal(v.shape).astype(np.float32)
             for k, v in traverse_util.flatten_dict(params, sep="/").items()}
     np.savez(d / "g.npz", **flat)
     params = traverse_util.unflatten_dict(
         {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
     with jax.default_matmul_precision("highest"):
-        ref = np.asarray(jax.jit(lambda p, r: denormalize_to_u8(gen.apply(
-            p, center_crop_normalize(r, 16))))(params, jnp.asarray(raw)))
+        ref = np.asarray(_compiled(lambda p, r: denormalize_to_u8(gen.apply(
+            p, center_crop_normalize(r, 16))), params, jnp.asarray(raw)))
     return str(d), raw, ref
 
 
