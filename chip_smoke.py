@@ -97,12 +97,31 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    it reached. Reports fit's step ms between log lines that no checkpoint
    or grid falls between, its ``images_per_sec_chip`` and
    ``input_stall_pct``, beside 3b's bare step. The training processes get
-   no ``CUBLAS_WORKSPACE_CONFIG``: ``fit`` sets it.
+   no ``CUBLAS_WORKSPACE_CONFIG``: ``fit`` sets it. The runs take the
+   in-training FID every 3 steps (random-conv features, 16 images, one
+   translate apply each): both runs must write the same FIDs, the resumed
+   one's included, keep the checkpoints of the best-FID retention, and
+   leave the intervals with a FID out of the step time.
+9. eval, on phase fit's run A (``phase_eval``): its EMA translated in bf16
+   beside fp32 at batch 8 (one bf16 apply's launches, byte-identical
+   repeats, generator ms and img/s of both, card against CPU in bf16 at
+   batch 1 with bf16's own distance from fp32 as the yardstick,
+   ``BF16_OVER_FLOOR``); ``run_eval_fid`` in-process on 64 eval images a
+   side with the random-conv and the untrained InceptionV3 extractors (FID
+   twice, bit for bit; KID and PRDC with the random-conv one; the first
+   call's launches counted); each
+   extractor on the card against the CPU at batch 2 (``EVAL_FEATURE_TOL``)
+   and the img/s of translate and of each extractor; ``fid-stats`` of the
+   B eval images, then ``--ref-stats``, equal to the streamed FID; one
+   in-training FID at 200 samples, timed; ``vqgan512`` through ``sample``
+   and ``eval-fid`` in bf16 (a run directory of its seeded state).
 
 Then one ``kernels`` line (every kernel with its launches on its own path:
 one CycleGAN training step and translate apply, or one VQGAN training step
-and reconstruct apply for the attention kernels, and ``launches_fit``, the
-fit phase's run A; its error, and its times
+and reconstruct apply for the attention kernels, ``launches_fit``, the
+fit phase's run A, ``launches_per_bf16_translate_apply`` and
+``launches_eval``, the eval phase's commands (not its timing loops);
+its error, and its times
 and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
 ``train_bf16`` step, with the design each dtype launched: "wgmma" on the
@@ -435,7 +454,13 @@ VQ_PER_STEP = {k: 0 for k in PER_STEP} | {
 VQ_TOL = {"z": 1e-3, "image": 4e-3}
 
 
+START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line carries the run's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1708,9 +1733,13 @@ def lpips_parts(tr, state0, a, b, phase: str) -> dict:
 
 # python -m uig_torch.cli train --preset cyclegan256_dp as published (bf16,
 # LPIPS on); the overrides set the data and the cadences, never a width
+FIT_FID_EVERY = 3
+FIT_FID_SAMPLES = 16  # one translate apply a FID (eval.fid_batch_size 16)
 FIT_OVERRIDES = ["data.source=synthetic", "data.load_size=286",
                  "data.batch_size=8", "run.log_every=2", "run.ckpt_every=3",
-                 "eval.sample_grid_every=6"]
+                 "eval.sample_grid_every=6",
+                 f"eval.fid_every={FIT_FID_EVERY}",
+                 f"eval.fid_num_samples={FIT_FID_SAMPLES}"]
 FIT_STEPS = 6
 FIT_TIMEOUT = 240  # seconds a training process may take
 FIT_IMAGES = 4     # images translate --run-dir turns into PNGs
@@ -1760,9 +1789,11 @@ def _metrics(run_dir: str) -> list:
 
 def _clean_intervals(recs: list, every: tuple) -> list:
     """(ms a step, the later line) between consecutive log lines whose
-    steps ran no checkpoint or sample grid: those of the earlier line's
-    step come after it, so they fall in its interval."""
+    steps ran no checkpoint, sample grid or FID: those of the earlier
+    line's step come after it, so they fall in its interval. The FID lines
+    are not log lines (a FID runs after its step's log line)."""
     out = []
+    recs = [r for r in recs if "fid" not in r]
     for r0, r1 in zip(recs, recs[1:]):
         s0, s1 = r0["step"], r1["step"]
         if any(s % e == 0 for s in range(s0, s1) for e in every if e):
@@ -1816,17 +1847,40 @@ def _sigterm_run(workdir: str) -> dict:
             "saved_step": steps[0], "seconds": time.perf_counter() - t0}
 
 
-def phase_fit(bare_step_ms: float) -> dict:
-    """``python -m uig_torch.cli train`` for ``PRESET`` as published:
-    run A goes FIT_STEPS steps in one process (its launches counted), run
-    B half of them, exits, and a second process resumes it to FIT_STEPS;
-    the two final checkpoints must hold byte-identical tensors and equal
-    counts and cursors. ``translate --run-dir`` on run A must give the PNGs
-    of a direct ``Translator`` call on the restored EMA. A run that gets
-    SIGTERM must save the step it reached. Reports fit's step time between
-    clean log lines beside the bare step's (``bare_step_ms``, phase 3b),
-    its images/s and input stall, and the checkpoint's bytes and save and
-    restore times. Returns run A's launches."""
+def _fids(recs: list) -> dict:
+    return {r["step"]: r["fid"] for r in recs if "fid" in r}
+
+
+def _retention(run_dir: str, saves: list) -> dict:
+    """The run's checkpoints against those orbax's best-FID retention keeps
+    of ``saves`` ((step, metrics or None) in order, as fit saved them)."""
+    from uig_torch.checkpoint import CheckpointManager
+    from uig_torch.checkpoint.ckpt import preserved
+
+    mgr = CheckpointManager(os.path.join(run_dir, "ckpt"))
+    keep = [s for (s, _), k in zip(saves, preserved(saves, 3, "fid")) if k]
+    got = {s: mgr.metrics(s) for s in mgr.all_steps()}
+    if sorted(got) != keep or any(got[s] != m for s, m in saves if s in got):
+        raise AssertionError(f"fit: {run_dir} keeps {got}, the retention "
+                             f"rule {keep} of {saves}")
+    return got
+
+
+def phase_fit(bare_step_ms: float, work: str) -> tuple:
+    """``python -m uig_torch.cli train`` for ``PRESET`` as published, with the
+    in-training FID every FIT_FID_EVERY steps (random features,
+    FIT_FID_SAMPLES images): run A goes FIT_STEPS steps in one process (its
+    launches counted), run B half of them, exits, and a second process
+    resumes it to FIT_STEPS; the two final checkpoints must hold
+    byte-identical tensors and equal counts and cursors, both runs must
+    write the same FIDs (the resumed run's first one included) and keep the
+    checkpoints of the best-FID retention. ``translate --run-dir`` on run A
+    must give the PNGs of a direct ``Translator`` call on the restored EMA.
+    A run that gets SIGTERM must save the step it reached. Reports fit's
+    step time between clean log lines beside the bare step's
+    (``bare_step_ms``, phase 3b), its images/s and input stall, and the
+    checkpoint's bytes and save and restore times. The runs live under
+    ``work``. Returns run A's launches and its directory."""
     import torch
     from PIL import Image
 
@@ -1841,104 +1895,120 @@ def phase_fit(bare_step_ms: float) -> dict:
     half = FIT_STEPS // 2
     out = {"phase": "fit", "preset": PRESET, "overrides": FIT_OVERRIDES,
            "steps": FIT_STEPS}
-    with tempfile.TemporaryDirectory() as work:
-        counts = os.path.join(work, "launches.json")
-        module = [sys.executable, "-m", "uig_torch.cli"]
-        procs = {
-            "run_a": _run_child([sys.executable, "-c", FIT_COUNTED, counts,
-                                 *_train_cmd(work, "a", FIT_STEPS)],
-                                "run A"),
-            "run_b_first": _run_child(
-                module + _train_cmd(work, "b", half), "run B"),
-        }
-        run_a, run_b = os.path.join(work, "a"), os.path.join(work, "b")
-        # run B's first process's lines, before the resumed one appends
-        first_b = len(_metrics(run_b))
-        procs["run_b_resumed"] = _run_child(
-            module + _train_cmd(work, "b", FIT_STEPS), "run B resumed")
-        with open(counts) as f:
-            launches = json.load(f)
-        recs_a, recs_b = _metrics(run_a), _metrics(run_b)
-        # seconds from a process's start to its first metrics line (import,
-        # CUDA, the trainer and LPIPS built, restore, the first two steps)
-        firsts = {"run_a": recs_a[0], "run_b_first": recs_b[0],
-                  "run_b_resumed": recs_b[first_b]}
-        secs = {k: {"seconds": v[1],
-                    "to_first_log_line": firsts[k]["time"] - v[0]}
-                for k, v in procs.items()}
-        mgr_a = CheckpointManager(os.path.join(run_a, "ckpt"))
-        ta, ma = mgr_a.read()
-        tb, mb = CheckpointManager(os.path.join(run_b, "ckpt")).read()
-        differ = sorted(k for k in set(ta) | set(tb)
-                        if k not in ta or k not in tb
-                        or not torch.equal(ta[k], tb[k]))
-        if differ or ma["ints"] != mb["ints"] or ma["step"] != FIT_STEPS \
-                or ma["data_state"] != mb["data_state"] \
-                or ma["data_state"] != {"t_consumed": FIT_STEPS}:
-            raise AssertionError(f"fit: resumed run differs in {differ[:5]} "
-                                 f"({len(differ)}), {ma['ints']} vs "
-                                 f"{mb['ints']}")
-        out.update(resume_byte_identical=True, tensors_compared=len(ta),
-                   cursor=ma["data_state"], counts=ma["ints"],
-                   ckpt_steps_a=mgr_a.all_steps())
-        del ta, tb
+    counts = os.path.join(work, "launches.json")
+    module = [sys.executable, "-m", "uig_torch.cli"]
+    procs = {
+        "run_a": _run_child([sys.executable, "-c", FIT_COUNTED, counts,
+                             *_train_cmd(work, "a", FIT_STEPS)],
+                            "run A"),
+        "run_b_first": _run_child(
+            module + _train_cmd(work, "b", half), "run B"),
+    }
+    run_a, run_b = os.path.join(work, "a"), os.path.join(work, "b")
+    # run B's first process's lines, before the resumed one appends
+    first_b = len(_metrics(run_b))
+    procs["run_b_resumed"] = _run_child(
+        module + _train_cmd(work, "b", FIT_STEPS), "run B resumed")
+    with open(counts) as f:
+        launches = json.load(f)
+    recs_a, recs_b = _metrics(run_a), _metrics(run_b)
+    # seconds from a process's start to its first metrics line (import,
+    # CUDA, the trainer and LPIPS built, restore, the first two steps)
+    firsts = {"run_a": recs_a[0], "run_b_first": recs_b[0],
+              "run_b_resumed": recs_b[first_b]}
+    secs = {k: {"seconds": v[1],
+                "to_first_log_line": firsts[k]["time"] - v[0]}
+            for k, v in procs.items()}
+    mgr_a = CheckpointManager(os.path.join(run_a, "ckpt"))
+    ta, ma = mgr_a.read()
+    tb, mb = CheckpointManager(os.path.join(run_b, "ckpt")).read()
+    differ = sorted(k for k in set(ta) | set(tb)
+                    if k not in ta or k not in tb
+                    or not torch.equal(ta[k], tb[k]))
+    if differ or ma["ints"] != mb["ints"] or ma["step"] != FIT_STEPS \
+            or ma["data_state"] != mb["data_state"] \
+            or ma["data_state"] != {"t_consumed": FIT_STEPS}:
+        raise AssertionError(f"fit: resumed run differs in {differ[:5]} "
+                             f"({len(differ)}), {ma['ints']} vs "
+                             f"{mb['ints']}")
+    out.update(resume_byte_identical=True, tensors_compared=len(ta),
+               cursor=ma["data_state"], counts=ma["ints"],
+               ckpt_steps_a=mgr_a.all_steps())
+    del ta, tb
+    # the in-training FID: A's and the resumed B's values agree, and the
+    # checkpoints kept are the retention rule's (A saves at 3 and 6 with
+    # the FID just taken; B at 3, then at 6 after its resume)
+    fa, fb = _fids(recs_a), _fids(recs_b)
+    want_steps = list(range(FIT_FID_EVERY, FIT_STEPS + 1, FIT_FID_EVERY))
+    if sorted(fa) != want_steps or fa != fb \
+            or not all(np.isfinite(v) for v in fa.values()):
+        raise AssertionError(f"fit: FIDs {fa} (unbroken) vs {fb} "
+                             "(resumed)")
+    saves = [(s, {"fid": fa[s]}) for s in range(3, FIT_STEPS + 1, 3)]
+    kept = {"a": _retention(run_a, saves), "b": _retention(run_b, saves)}
+    log6 = [r for r in recs_a if r["step"] == FIT_STEPS and "fid" not in r]
+    fid6 = [r for r in recs_a if r["step"] == FIT_STEPS and "fid" in r]
+    out.update(fid=fa, fid_resumed_equal=True, ckpt_kept=kept,
+               fid_seconds_at_step_6=fid6[0]["time"] - log6[0]["time"])
 
-        # the checkpoint: restore onto the card, save again, its bytes
-        cfg = apply_overrides(load_config(os.path.join(run_a, "config.json")),
-                              ["loss.lambda_lpips=0"])  # the template's VGG
-        tr = CycleGANTrainer(cfg)
-        template = tr.init_state(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, data_state, _ = mgr_a.restore(template)
-        torch.cuda.synchronize()
-        restore_ms = 1e3 * (time.perf_counter() - t0)
-        del template
-        t0 = time.perf_counter()
-        saved = CheckpointManager(os.path.join(work, "resave")).save(
-            FIT_STEPS, state, data_state)
-        save_ms = 1e3 * (time.perf_counter() - t0)
-        nbytes = sum(os.path.getsize(os.path.join(saved, n))
-                     for n in os.listdir(saved))
-        out.update(ckpt_bytes=nbytes, ckpt_save_ms=save_ms,
-                   ckpt_restore_ms=restore_ms)
+    # the checkpoint: restore onto the card, save again, its bytes
+    cfg = apply_overrides(load_config(os.path.join(run_a, "config.json")),
+                          ["loss.lambda_lpips=0"])  # the template's VGG
+    tr = CycleGANTrainer(cfg)
+    template = tr.init_state(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, data_state, _ = mgr_a.restore(template)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    del template
+    t0 = time.perf_counter()
+    saved = CheckpointManager(os.path.join(work, "resave")).save(
+        FIT_STEPS, state, data_state)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    nbytes = sum(os.path.getsize(os.path.join(saved, n))
+                 for n in os.listdir(saved))
+    out.update(ckpt_bytes=nbytes, ckpt_save_ms=save_ms,
+               ckpt_restore_ms=restore_ms)
 
-        # translate --run-dir against a direct Translator call on the EMA
-        load = cfg.data.load_size
-        src, dst = os.path.join(work, "in"), os.path.join(work, "out")
-        os.makedirs(src)
-        dom = SyntheticUnpairedDataset(FIT_IMAGES, load, SEED + 5).domain_a
-        raw = np.stack([dom[i] for i in range(FIT_IMAGES)])
-        for i in range(FIT_IMAGES):
-            Image.fromarray(raw[i]).save(os.path.join(src, f"im{i}.png"))
-        if cli_main(["translate", "--run-dir", run_a, "--input-dir", src,
-                     "--output-dir", dst, "--batch-size", str(FIT_IMAGES)]
-                    ) != 0:
-            raise AssertionError("fit: translate --run-dir failed")
-        got = np.stack([np.asarray(Image.open(os.path.join(dst, f"im{i}.png")))
-                        for i in range(FIT_IMAGES)])
-        direct = Translator(os.path.join(run_a, "config.json"),
-                            state.ema["a2b"], batch_size=FIT_IMAGES)(raw)
-        if not np.array_equal(got, direct):
-            raise AssertionError("fit: translate --run-dir differs from a "
-                                 "direct Translator call")
-        spread = int(got.max()) - int(got.min())
-        out.update(translate_run_dir_byte_identical=True,
-                   translate_images=FIT_IMAGES, translate_spread=spread)
-        del state, tr
+    # translate --run-dir against a direct Translator call on the EMA
+    load = cfg.data.load_size
+    src, dst = os.path.join(work, "in"), os.path.join(work, "out")
+    os.makedirs(src)
+    dom = SyntheticUnpairedDataset(FIT_IMAGES, load, SEED + 5).domain_a
+    raw = np.stack([dom[i] for i in range(FIT_IMAGES)])
+    for i in range(FIT_IMAGES):
+        Image.fromarray(raw[i]).save(os.path.join(src, f"im{i}.png"))
+    if cli_main(["translate", "--run-dir", run_a, "--input-dir", src,
+                 "--output-dir", dst, "--batch-size", str(FIT_IMAGES)]
+                ) != 0:
+        raise AssertionError("fit: translate --run-dir failed")
+    got = np.stack([np.asarray(Image.open(os.path.join(dst, f"im{i}.png")))
+                    for i in range(FIT_IMAGES)])
+    direct = Translator(os.path.join(run_a, "config.json"),
+                        state.ema["a2b"], batch_size=FIT_IMAGES)(raw)
+    if not np.array_equal(got, direct):
+        raise AssertionError("fit: translate --run-dir differs from a "
+                             "direct Translator call")
+    spread = int(got.max()) - int(got.min())
+    out.update(translate_run_dir_byte_identical=True,
+               translate_images=FIT_IMAGES, translate_spread=spread)
+    del state, tr
 
-        out["sigterm"] = _sigterm_run(work)
-        every = (3, 6)  # run.ckpt_every, eval.sample_grid_every
-        clean = (_clean_intervals(recs_a, every)
-                 + _clean_intervals(recs_b[first_b:], every))
-        recs = recs_a + recs_b
+    out["sigterm"] = _sigterm_run(work)
+    # run.ckpt_every, eval.sample_grid_every, eval.fid_every
+    every = (3, 6, FIT_FID_EVERY)
+    clean = (_clean_intervals(recs_a, every)
+             + _clean_intervals(recs_b[first_b:], every))
+    recs = recs_a + recs_b
     bad = [r for r in recs if not all(np.isfinite(v) for k, v in r.items()
                                       if isinstance(v, float))]
     if bad or not clean:
         raise AssertionError(f"fit: non-finite metrics {bad[:1]} or no clean "
                              "interval")
     grids = FIT_STEPS // 6  # eval.sample_grid_every: a2b and b2a applies
-    want = {k: FIT_STEPS * PER_STEP[k] + grids * 2 * PER_APPLY[k]
+    fids = FIT_STEPS // FIT_FID_EVERY  # one a2b translate apply each
+    want = {k: FIT_STEPS * PER_STEP[k] + (grids * 2 + fids) * PER_APPLY[k]
             for k in PER_STEP}
     if launches != want:
         raise AssertionError(f"fit: run A launched {launches}, want {want}")
@@ -1951,7 +2021,267 @@ def phase_fit(bare_step_ms: float) -> dict:
         bare_step_ms_median=bare_step_ms, launches=launches,
         process_seconds=secs, nvidia_smi=nvidia_smi())
     emit(out)
-    return launches
+    return launches, run_a
+
+
+# ---------------------------------------------------------------------------
+# phase 9: evaluate the run of phase fit
+# ---------------------------------------------------------------------------
+
+EVAL_SAMPLES = 64   # eval images a side for eval-fid (batch 16)
+EVAL_BATCH = 16     # eval-fid's --batch-size and the timing batch
+INLINE_FID_SAMPLES = 200  # smalldata64's eval.fid_num_samples
+# card bf16 against CPU bf16, with bf16's own distance from fp32 (the CPU
+# bf16 output against the card's fp32) as the yardstick: at most these
+# multiples of it at the largest element and in the mean
+BF16_OVER_FLOOR = {"max": 1.5, "mean": 1.25}
+EVAL_FEATURE_TOL = 1e-4  # extractor features, card vs CPU, of the largest
+VQ_SAMPLES = 4       # vqgan512 sample -n, and eval-fid's batch
+VQ_EVAL_SAMPLES = 8
+
+
+def _bf16_translate(run_a: str) -> dict:
+    """fp32 and bf16 translate of run A's EMA at batch BATCH: launches of
+    a bf16 apply, byte-identical repeats, generator ms a batch and img/s of
+    both, and the card against the CPU in bf16 at batch 1."""
+    import torch
+
+    from uig_torch import kernels as K
+    from uig_torch.kernels.augment import (center_crop_normalize,
+                                           denormalize_to_u8)
+    from uig_torch.serving import Translator
+
+    tr = {dt: Translator.from_run_dir(
+        run_a, batch_size=BATCH, overrides=[f"model.eval_dtype={dt}"])
+        for dt in DTYPE_NAMES}
+    tr16 = tr["bfloat16"]
+    rng = np.random.default_rng(SEED + 3)
+    raw = rng.integers(0, 256, (BATCH, tr16.load, tr16.load, 3),
+                       dtype=np.uint8)
+    K.reset_launch_counts()
+    out1 = tr16(raw)  # the bf16 serving path's run
+    launches = K.launch_counts()
+    if launches != PER_APPLY:
+        raise AssertionError(f"eval: bf16 apply launched {launches}")
+    out2 = tr16(raw)
+    spread = int(out1.max()) - int(out1.min())
+    if not np.array_equal(out1, out2) or spread < 16:
+        raise AssertionError(f"eval: bf16 repeats differ or flat ({spread})")
+    x = center_crop_normalize(torch.from_numpy(raw).to(tr16.device),
+                              tr16.crop)
+    res = {"bf16_launches_per_apply": launches, "bf16_byte_identical": True,
+           "bf16_spread": spread}
+    for dt, t in tr.items():
+        ms = cuda_ms(lambda: t.translate_float(x), iters=10, warmup=2)
+        res[f"generator_ms_per_batch_{dt}"] = ms
+        res[f"generator_img_per_s_{dt}"] = 1e3 * BATCH / ms
+    y16 = tr16.translate_float(x[:1]).float().cpu()
+    y32 = tr["float32"].translate_float(x[:1]).cpu()
+    t0 = time.perf_counter()
+    cpu = Translator.from_run_dir(run_a, batch_size=1, device="cpu",
+                                  overrides=["model.eval_dtype=bfloat16"])
+    c16 = cpu.translate_float(x[:1].cpu()).float()
+    d, floor = (y16 - c16).abs(), (c16 - y32).abs()
+    gap = {"max": d.max().item(), "mean": d.mean().item(),
+           "floor_max": floor.max().item(), "floor_mean": floor.mean().item()}
+    if gap["max"] > BF16_OVER_FLOOR["max"] * gap["floor_max"] \
+            or gap["mean"] > BF16_OVER_FLOOR["mean"] * gap["floor_mean"]:
+        raise AssertionError(f"eval: bf16 card vs CPU {gap}")
+    u8 = [denormalize_to_u8(y).to(torch.int16) for y in (y16, c16)]
+    res.update(bf16_card_vs_cpu=gap,
+               bf16_card_vs_cpu_u8_max=int((u8[0] - u8[1]).abs().max()),
+               bf16_cpu_seconds=time.perf_counter() - t0,
+               bf16_tolerance=BF16_OVER_FLOOR)
+    return res
+
+
+def _features_and_rates(run_a: str) -> dict:
+    """Each extractor on the card against the CPU at batch 2 (two 256²
+    eval images; the InceptionV3 resizes them to 299²), and img/s of
+    translate and of each extractor at batch EVAL_BATCH."""
+    import torch
+
+    from uig_torch.cli.translate import load_run
+    from uig_torch.config import apply_overrides
+    from uig_torch.data import eval_datasets
+    from uig_torch.eval.fid import make_feature_fn
+    from uig_torch.kernels.augment import center_crop_normalize
+
+    cfg, trainer, state = load_run(run_a, overrides=["loss.lambda_lpips=0"])
+    ds_a, _ = eval_datasets(cfg)
+    raw = torch.from_numpy(np.stack([ds_a[i] for i in range(EVAL_BATCH)]))
+    x = center_crop_normalize(raw.to(trainer.device), cfg.model.image_size)
+    ms = cuda_ms(lambda: trainer.translate(state.ema, x), iters=5, warmup=1)
+    out = {"translate_img_per_s": 1e3 * EVAL_BATCH / ms}
+    for kind in ("random", "inception"):
+        c = apply_overrides(cfg, [f"eval.fid_features={kind}"])
+        card, name = make_feature_fn(c, "cuda")
+        cpu, _ = make_feature_fn(c, "cpu")
+        got, want = card(x[:2]).cpu(), cpu(x[:2].cpu())
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if not err <= EVAL_FEATURE_TOL * scale:
+            raise AssertionError(f"eval: {name} card vs CPU {err} of {scale}")
+        ms = cuda_ms(lambda: card(x), iters=5, warmup=1)
+        out[name] = {"card_vs_cpu_err": err, "largest": scale,
+                     "img_per_s": 1e3 * EVAL_BATCH / ms,
+                     "ms_per_batch": ms}
+    return out
+
+
+def _vqgan_eval(work: str, count) -> dict:
+    """``vqgan512`` through the same commands, in bf16: a run directory of
+    its seeded state (checkpoint 0); ``sample`` of VQ_SAMPLES uniform codes
+    (the decoder's 2 attention blocks, one batch) and eval-fid of its
+    reconstructions (4 attention blocks an apply). ``count()`` adds the
+    launches so far to the phase's and sets them to 0."""
+    from PIL import Image
+
+    from uig_torch import kernels as K
+    from uig_torch.checkpoint import CheckpointManager, dump_run_config
+    from uig_torch.cli.eval_fid import run_eval_fid
+    from uig_torch.cli.sample import run_sample
+    from uig_torch.config import apply_overrides, config_to_dict, get_preset
+    from uig_torch.train import VQGANTrainer
+
+    t0 = time.perf_counter()
+    run = os.path.join(work, "vq")
+    cfg = get_preset(VQ_PRESET)
+    dump_run_config(config_to_dict(cfg), run)
+    state = VQGANTrainer(apply_overrides(cfg, ["loss.lambda_lpips=0"])
+                         ).init_state(SEED)
+    CheckpointManager(os.path.join(run, "ckpt")).save(0, state)
+    del state
+    bf16 = ["model.eval_dtype=bfloat16", "eval.fid_features=random"]
+    count()
+    n = run_sample(run, os.path.join(work, "vq_samples"), n=VQ_SAMPLES,
+                   overrides=bf16)
+    sample_launches = K.launch_counts()["attention_fwd"]
+    count()
+    imgs = np.stack([np.asarray(Image.open(os.path.join(
+        work, "vq_samples", f"{i:05d}.png"))) for i in range(n)])
+    fid = run_eval_fid(run, num_samples=VQ_EVAL_SAMPLES,
+                       batch_size=VQ_SAMPLES, overrides=bf16)
+    eval_launches = K.launch_counts()["attention_fwd"]
+    count()
+    want = (2, 4 * VQ_EVAL_SAMPLES // VQ_SAMPLES)
+    if (sample_launches, eval_launches) != want or not np.isfinite(fid) \
+            or imgs.shape != (VQ_SAMPLES, 512, 512, 3):
+        raise AssertionError(f"eval: vqgan512 sample/eval launched "
+                             f"{sample_launches}/{eval_launches} (want "
+                             f"{want}), FID {fid}, {imgs.shape}")
+    return {"vqgan512_bf16_fid": fid, "vqgan512_samples": list(imgs.shape),
+            "vqgan512_attention_launches": {"sample": sample_launches,
+                                            "eval_fid": eval_launches},
+            "vqgan512_seconds": time.perf_counter() - t0}
+
+
+def phase_eval(run_a: str, work: str) -> dict:
+    """Evaluate phase fit's run A (``cyclegan256_dp`` as published, 6
+    steps): bf16 translate of its EMA beside fp32 (``_bf16_translate``);
+    ``run_eval_fid`` in-process on EVAL_SAMPLES eval images a side with the
+    random-conv and the untrained InceptionV3 extractors (FID twice, bit
+    for bit, each; KID and PRDC with the random-conv one), launches
+    counted over the first; the extractors on the card against the CPU
+    and the img/s of each step; ``fid-stats`` of the B eval images then
+    ``--ref-stats``, equal to the streamed FID; one in-training FID
+    (``loop._inline_fid``) at INLINE_FID_SAMPLES; and ``vqgan512`` through
+    ``sample`` and ``eval-fid`` in bf16. Returns the launches of the eval
+    commands (eval-fid, fid-stats, the in-training FID, sample; not the
+    timing loops nor the comparisons with the CPU) and those of one bf16
+    translate apply."""
+    import torch
+
+    from uig_torch import kernels as K
+    from uig_torch.cli.eval_fid import run_eval_fid
+    from uig_torch.cli.fid_stats import run_fid_stats
+    from uig_torch.cli.translate import load_run
+    from uig_torch.config import load_config
+    from uig_torch.data import eval_datasets
+    from uig_torch.eval.fid import make_feature_fn
+    from uig_torch.train.loop import _inline_fid
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    totals = {k: 0 for k in PER_APPLY}
+
+    def add_counts():
+        for k, v in K.launch_counts().items():
+            totals[k] += v
+        K.reset_launch_counts()
+
+    out = {"phase": "eval", "preset": PRESET, "run": "fit run A",
+           "samples": EVAL_SAMPLES, "batch": EVAL_BATCH}
+    out.update(_bf16_translate(run_a))
+    K.reset_launch_counts()  # timing loops: not counted
+    metrics = {}
+    for kind in ("random", "inception"):
+        over = [f"eval.fid_features={kind}"]
+        kw = dict(num_samples=EVAL_SAMPLES, batch_size=EVAL_BATCH,
+                  overrides=over)
+        t0 = time.perf_counter()
+        fid = run_eval_fid(run_a, **kw)
+        secs = time.perf_counter() - t0
+        counts = K.launch_counts()
+        add_counts()
+        applies = EVAL_SAMPLES // EVAL_BATCH
+        if counts != {k: applies * v for k, v in PER_APPLY.items()}:
+            raise AssertionError(f"eval: eval-fid ({kind}) launched {counts}")
+        again = run_eval_fid(run_a, **kw)
+        metrics[kind] = {"fid": fid, "fid_repeat_bit_equal": True,
+                         "fid_seconds": secs, "launches": counts}
+        if kind == "random":
+            metrics[kind].update(kid=run_eval_fid(run_a, kid=True, **kw),
+                                 prdc=run_eval_fid(run_a, prdc=True, **kw))
+        add_counts()
+        kid = metrics[kind].get("kid", (0.0,))
+        if again != fid or not np.isfinite(fid) or not np.isfinite(kid[0]):
+            raise AssertionError(f"eval: {kind} FID {fid} then {again}, "
+                                 f"KID {kid}")
+    out["eval_fid"] = metrics
+    out["extractors"] = _features_and_rates(run_a)
+    K.reset_launch_counts()  # timing loops: not counted
+
+    # fid-stats of the B eval images, then --ref-stats
+    cfg = load_config(os.path.join(run_a, "config.json"))
+    _, ds_b = eval_datasets(cfg)
+    packed = os.path.join(work, "b_eval.npy")
+    np.save(packed, np.stack([ds_b[i] for i in range(EVAL_SAMPLES)]))
+    stats = os.path.join(work, "b_stats.npz")
+    t0 = time.perf_counter()
+    name = run_fid_stats(packed, stats, cfg.model.image_size,
+                         batch_size=EVAL_BATCH, load_size=cfg.data.load_size)
+    stats_s = time.perf_counter() - t0
+    ref = run_eval_fid(run_a, num_samples=EVAL_SAMPLES, batch_size=EVAL_BATCH,
+                       ref_stats=stats)
+    add_counts()
+    if name != "random_conv" or ref != metrics["random"]["fid"]:
+        raise AssertionError(f"eval: --ref-stats FID {ref} != streamed "
+                             f"{metrics['random']['fid']} ({name})")
+    out.update(ref_stats_fid_equal=True, fid_stats_seconds=stats_s)
+
+    # one in-training FID at smalldata64's sample count
+    c200, trainer, state = load_run(run_a, overrides=[
+        f"eval.fid_num_samples={INLINE_FID_SAMPLES}", "loss.lambda_lpips=0"])
+    feature, _ = make_feature_fn(c200, trainer.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fid200 = _inline_fid(c200, trainer, state, feature)
+    out.update(inline_fid_200=fid200,
+               inline_fid_200_seconds=time.perf_counter() - t0)
+    del trainer, state
+    add_counts()
+    torch.cuda.empty_cache()
+    out.update(_vqgan_eval(work, add_counts))
+    missing = [k for k in ("instance_norm", "conv3_in_act", "conv7",
+                           "conv3s2", "attention_fwd") if totals[k] < 1]
+    if missing:
+        raise AssertionError(f"eval: {missing} never launched")
+    out.update(launches=totals, seconds=time.perf_counter() - t_phase,
+               nvidia_smi=nvidia_smi())
+    emit(out)
+    return totals, out["bf16_launches_per_apply"]
 
 
 # ---------------------------------------------------------------------------
@@ -2480,7 +2810,9 @@ def main() -> int:
     vq_bf16_launches, vq_bf16_designs = phase_vqgan_train(
         VQ_OVERRIDES_BF16, "vqgan_train_bf16", VQ_BF16_TRAIN_STEPS)
     torch.cuda.empty_cache()
-    fit_launches = phase_fit(bf16_step_ms)
+    with tempfile.TemporaryDirectory() as work:
+        fit_launches, run_a = phase_fit(bf16_step_ms, work)
+        eval_launches, bf16_apply_launches = phase_eval(run_a, work)
     kernels = []
     for name in PER_STEP:
         if name.startswith("attention"):
@@ -2522,6 +2854,9 @@ def main() -> int:
                  "launches": step_l["float32"][name],
                  "launches_per_translate_apply": apply_l[name],
                  "launches_fit": fit_launches[name],
+                 "launches_per_bf16_translate_apply":
+                     bf16_apply_launches[name],
+                 "launches_eval": eval_launches[name],
                  "max_abs_err": t["max_abs_err"], **t["step"],
                  "bound_by": t["bound_by"], "dtypes": list(dtypes),
                  "per_dtype": per_dtype, "per": per}

@@ -13,11 +13,22 @@ A checkpoint is one directory per step, ``<directory>/<step>/``:
 
 A save writes a temporary directory and renames it into place with
 ``os.replace``, so a process killed mid-save leaves the checkpoints before
-it readable (the manager removes the leftover at its first save). The last
-``keep`` checkpoints stay. Saves are synchronous: ``wait`` and ``close``
-have nothing to wait for. Restore puts every tensor on the device of the
-template's tensor, and checks names, shapes and dtypes against it, so a
-resumed run continues bit for bit.
+it readable (the manager removes the leftover at its first save).
+Saves are synchronous: ``wait`` and ``close`` have nothing to wait for.
+
+Retention is orbax's, which the JAX package's manager uses: without
+``best_metric`` the last ``keep`` checkpoints stay. With it (``fit`` sets
+``best_metric="fid"`` when ``eval.fid_every`` is on) a save may carry
+``metrics`` (kept in ``meta.json``), and once there are more than ``keep``
+checkpoints the ``keep`` with the lowest metric stay (ties keep the later
+save), and so does every checkpoint saved without metrics: orbax's
+``BestN`` with ``keep_checkpoints_without_metrics=True``. So the newest
+checkpoint may go while older ones stay, and ``latest_step`` is the newest
+that stays.
+
+Restore puts every tensor on the device of the template's tensor, and
+checks names, shapes and dtypes against it, so a resumed run continues bit
+for bit.
 """
 
 from __future__ import annotations
@@ -123,14 +134,38 @@ def _array_from_json(d: dict) -> np.ndarray:
     return np.asarray(d["data"], dtype=np.dtype(d["dtype"])).reshape(d["shape"])
 
 
-class CheckpointManager:
-    """Keep-last-``keep`` checkpoints of one run under ``directory``."""
+def preserved(infos: list, keep: int, best_metric: str | None = None
+              ) -> list[bool]:
+    """Which of ``infos`` ((step, metrics or None), in step order) orbax's
+    default preservation policy keeps: ``LatestN(keep)`` without
+    ``best_metric``, else ``BestN(keep)`` for ``best_mode="min"``, ranking
+    by ``metrics.get(best_metric, inf)`` and keeping every checkpoint saved
+    without metrics."""
+    if len(infos) <= keep:
+        return [True] * len(infos)
+    if best_metric is None:
+        return [i >= len(infos) - keep for i in range(len(infos))]
+    ranked = sorted(((i, m) for i, (_, m) in enumerate(infos)
+                     if m is not None),
+                    key=lambda im: im[1].get(best_metric, float("inf")),
+                    reverse=True)
+    keep_idx = {i for i, _ in ranked[-keep:]}
+    keep_idx |= {i for i, (_, m) in enumerate(infos) if m is None}
+    return [i in keep_idx for i in range(len(infos))]
 
-    def __init__(self, directory: str, keep: int = 3):
+
+class CheckpointManager:
+    """The checkpoints of one run under ``directory``: the last ``keep``,
+    or with ``best_metric`` the ``keep`` lowest by it and those saved
+    without metrics (module docstring)."""
+
+    def __init__(self, directory: str, keep: int = 3,
+                 best_metric: str | None = None):
         if keep < 1:
             raise ValueError(f"run.ckpt_keep must be >= 1, got {keep}")
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.best_metric = best_metric
         self._swept = False
 
     def path(self, step: int) -> str:
@@ -148,14 +183,23 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def metrics(self, step: int) -> dict | None:
+        """The metrics checkpoint ``step`` was saved with, or None."""
+        with open(os.path.join(self.path(step), META_FILE)) as f:
+            return json.load(f).get("metrics")
+
     def save(self, step: int, state, data_state: dict | None = None,
-             extra: dict | None = None) -> str:
-        """Write ``state`` with the pipeline cursor ``data_state`` and a
-        JSON ``extra`` as checkpoint ``step``; returns its directory."""
+             extra: dict | None = None, metrics: dict | None = None) -> str:
+        """Write ``state`` with the pipeline cursor ``data_state``, a JSON
+        ``extra`` and, when the manager has a ``best_metric``, ``metrics``
+        as checkpoint ``step``; then apply the retention. Returns its
+        directory (gone if the retention dropped it)."""
         tensors, ints, arrays = state_to_flat(state)
         meta = {"step": int(step), "ints": ints,
                 "arrays": {k: _array_json(a) for k, a in arrays.items()},
                 "data_state": data_state or {}, "extra": extra or {}}
+        if self.best_metric is not None and metrics is not None:
+            meta["metrics"] = {k: float(v) for k, v in metrics.items()}
         if not self._swept:  # a killed save's leftovers go at the first save
             os.makedirs(self.directory, exist_ok=True)
             for name in os.listdir(self.directory):
@@ -177,8 +221,13 @@ class CheckpointManager:
         os.replace(tmp, final)
         if old is not None:
             shutil.rmtree(old, ignore_errors=True)
-        for s in self.all_steps()[:-self.keep]:
-            shutil.rmtree(self.path(s), ignore_errors=True)
+        steps = self.all_steps()
+        infos = [(s, self.metrics(s) if self.best_metric else None)
+                 for s in steps]
+        for s, kept in zip(steps, preserved(infos, self.keep,
+                                            self.best_metric)):
+            if not kept:
+                shutil.rmtree(self.path(s), ignore_errors=True)
         return final
 
     def read(self, step: int | None = None) -> tuple[dict, dict]:

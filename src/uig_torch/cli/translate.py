@@ -1,10 +1,31 @@
-"""Batch translate a directory of images through the port's Translator."""
+"""Batch translate a directory of images through the port's Translator;
+``load_run``, the restore of a training run that the eval commands share."""
 
 from __future__ import annotations
 
 import os
 
 import numpy as np
+
+
+def load_run(run_dir: str, step: int | None = None, overrides=(),
+             device: str = "cuda"):
+    """(cfg, trainer, state) of a training run of the port (``fit``): its
+    ``config.json`` with the dotted ``overrides``, the trainer of its kind
+    on ``device`` (``build_trainer``) and the state of checkpoint ``step``
+    (default: the newest) under ``ckpt/``."""
+    from uig_torch.checkpoint import CheckpointManager
+    from uig_torch.config import apply_overrides, load_config
+    from uig_torch.train.loop import build_trainer
+
+    cfg = load_config(os.path.join(run_dir, "config.json"))
+    if overrides:
+        cfg = apply_overrides(cfg, list(overrides))
+    trainer = build_trainer(cfg, device)
+    state = trainer.init_state(cfg.run.seed)
+    state, _, _ = CheckpointManager(os.path.join(run_dir, "ckpt")).restore(
+        state, step=step)
+    return cfg, trainer, state
 
 
 def run_translate(config: str | None, weights: str | None, input_dir: str,

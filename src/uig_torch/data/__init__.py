@@ -1,6 +1,6 @@
 from uig_torch.data.datasets import (FolderDataset, PackedDataset,
                                      SyntheticUnpairedDataset, eval_datasets,
-                                     open_dataset)
+                                     open_dataset, resolve_dataset)
 from uig_torch.data.pipeline import UnpairedPipeline, make_input_pipeline
 
 
@@ -12,4 +12,5 @@ __all__ = [
     "eval_datasets",
     "make_input_pipeline",
     "open_dataset",
+    "resolve_dataset",
 ]

@@ -12,11 +12,14 @@ pipeline (``data/pipeline.py``) gathers them into batches. Three sources:
   drawn from ``default_rng((seed, crc32(kind) & 0xFFFF, idx))`` with JAX's
   float32 arithmetic, so the port and JAX give the same bytes.
 
-``tfrecord`` and ``webdataset`` are not ported (``open_dataset`` raises).
+``tfrecord`` and ``webdataset`` are not ported (``open_dataset`` and
+``resolve_dataset`` raise). ``resolve_dataset`` detects a path's source as
+the JAX package does, for the translate and eval commands.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
 
 import numpy as np
@@ -39,6 +42,49 @@ def open_dataset(source: str, path: str, load_size: int):
     if source == "packed":
         return PackedDataset(path, load_size)
     raise ValueError(f"unknown data source {source!r}")
+
+
+def resolve_dataset(path: str, load_size: int, source: str = "auto"):
+    """Open an index-addressable dataset of any supported on-disk format.
+
+    ``source``: folders | packed | tfrecord | webdataset | auto. "auto"
+    detects by path shape, as the JAX package's ``resolve_dataset``: a
+    ``.npy`` file -> packed; a ``.tfrecord(s)`` file or a directory holding
+    one -> tfrecord; a ``.tar`` file or a directory holding one ->
+    webdataset; any other directory -> image folder. tfrecord and
+    webdataset are not ported yet (ROADMAP §1 item 14) and raise.
+    """
+    if source == "auto":
+        if path.endswith(".npy"):
+            source = "packed"
+        elif path.endswith((".tfrecord", ".tfrecords")):
+            source = "tfrecord"
+        elif path.endswith(".tar"):
+            source = "webdataset"
+        elif os.path.isdir(path):
+            entries = os.listdir(path)
+            if any(f.endswith((".tfrecord", ".tfrecords")) for f in entries):
+                source = "tfrecord"
+            elif any(f.endswith(".tar") for f in entries):
+                source = "webdataset"
+            elif any(f.endswith(".npy") for f in entries):
+                raise ValueError(
+                    f"{path!r} is a directory of packed .npy shards — point "
+                    "at one .npy file (source=packed), not the directory")
+            else:
+                source = "folders"
+        elif os.path.exists(path):
+            raise ValueError(
+                f"dataset path {path!r} exists but has an unrecognized "
+                "format (expected an image directory, a packed .npy file, "
+                "or a .tfrecord file)")
+        else:
+            raise FileNotFoundError(
+                f"dataset path {path!r} does not exist (expected an image "
+                "directory, a packed .npy file, or a .tfrecord file)")
+    if source in ("folders", "packed", "tfrecord", "webdataset"):
+        return open_dataset(source, path, load_size)
+    raise ValueError(f"unknown dataset source {source!r}")
 
 
 class PackedDataset:

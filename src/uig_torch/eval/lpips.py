@@ -31,6 +31,8 @@ compute the same term.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -147,6 +149,13 @@ def load_lins(path: str) -> list[np.ndarray]:
         return [np.asarray(z[f"lin{i}"], np.float32) for i in range(N_LAYERS)]
 
 
+@functools.lru_cache(maxsize=1)
+def _seed0_vgg() -> dict:
+    """The seed-0 VGG, drawn once a process (every trainer and evaluation
+    in one process shares it)."""
+    return seeded_flax(VGG16Features(), 0)
+
+
 def make_lpips(cfg=None, weights_path: str | None = None,
                lin_path: str | None = None, *,
                device: str = "cuda") -> LPIPS:
@@ -158,7 +167,7 @@ def make_lpips(cfg=None, weights_path: str | None = None,
         lin_path = getattr(cfg.eval, "lpips_lin_weights", "") or None
     dev = resolve_device(device)
     flat = (load_generator_npz(weights_path) if weights_path
-            else seeded_flax(VGG16Features(), 0))
+            else _seed0_vgg())
     lins = load_lins(lin_path) if lin_path else None
     return LPIPS(vgg_from_flax(flat), lins).to(dev)
 

@@ -10,22 +10,18 @@ from uig_torch.models.vqgan import VQGANGenerator
 
 def model_dtype(model_cfg, dtype_field: str) -> torch.dtype:
     """The torch dtype of ``model_cfg.<dtype_field>`` (``eval_dtype`` for
-    serving, ``compute_dtype`` for training). float32 always; bfloat16 for
-    training (CycleGAN and VQGAN). bf16 serving raises: it is on the
-    ROADMAP."""
+    serving, ``compute_dtype`` for training): float32 always; bfloat16 for
+    CycleGAN and VQGAN, in training and in serving."""
     name = getattr(model_cfg, dtype_field)
     if name == "float32":
         return torch.float32
-    if name == "bfloat16" and dtype_field == "compute_dtype" \
-            and model_cfg.kind in ("cyclegan", "vqgan"):
+    if name == "bfloat16" and model_cfg.kind in ("cyclegan", "vqgan"):
         return torch.bfloat16
-    if name == "bfloat16" and dtype_field == "eval_dtype":
-        why = "bf16 serving is not ported yet (ROADMAP: bf16 serving)"
-    elif name == "bfloat16":
-        why = (f"kind={model_cfg.kind!r} trains in float32 only (ROADMAP: "
+    if name == "bfloat16":
+        why = (f"kind={model_cfg.kind!r} runs in float32 only (ROADMAP: "
                f"{model_cfg.kind} in bf16)")
     else:
-        why = "the port runs float32 and, for training, bfloat16"
+        why = "the port runs float32 and bfloat16"
     raise NotImplementedError(
         f"model.{dtype_field}={name!r}: {why}; pass "
         f"model.{dtype_field}=float32")

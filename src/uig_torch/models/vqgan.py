@@ -357,6 +357,7 @@ class VQGANGenerator(nn.Module):
                  resolution: int = 512, in_channels: int = 3,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.encoder = VQGANEncoder(base_features, channel_mults, embed_dim,
                                     attn_resolutions, resolution, in_channels,
                                     dtype)

@@ -1,8 +1,11 @@
 """The serving translator: uint8 (n, load, load, 3) in, uint8 (n, crop,
-crop, 3) out, through center crop + normalize, the fp32 generator and
-denormalize, on the card. For ``model.kind == "vqgan"`` the generator's
-output is the reconstruction through the codebook (translate is
-reconstruct), and ``decode_codes`` turns codebook indices into images.
+crop, 3) out, through center crop + normalize, the generator and
+denormalize, on the card. The generator computes in ``model.eval_dtype``
+(float32 under ``exact_fp32``, or bfloat16 under ``exact_bf16`` with the
+training forward's casts: fp32 parameters cast at each op). For
+``model.kind == "vqgan"`` the generator's output is the reconstruction
+through the codebook (translate is reconstruct), and ``decode_codes``
+turns codebook indices into images.
 
 The port's counterpart of the JAX package's ``ExportedTranslator`` over
 ``export_translate``: the same static batch with the pad-the-tail-then-trim
@@ -63,6 +66,12 @@ def exact_bf16():
         matmul.allow_bf16_reduced_precision_reduction = reduced
 
 
+def exact_for(dtype: torch.dtype):
+    """The precision scope of a model computing in ``dtype``:
+    ``exact_fp32`` for float32, ``exact_bf16`` for bfloat16."""
+    return exact_fp32 if dtype == torch.float32 else exact_bf16
+
+
 class Translator:
     """``y_u8 = translator(x_u8)`` for the generator of ``config`` (CycleGAN
     or VQGAN).
@@ -73,8 +82,9 @@ class Translator:
     ``direction`` names the direction it translates, for ``.meta``. Runs on
     ``device`` (the card by default; ``"cpu"`` runs the plain PyTorch
     versions of every kernel). Call it from one thread at a time:
-    ``exact_fp32`` sets process-wide flags for the duration of a call (the
-    server's single dispatcher thread serializes calls)."""
+    ``exact_fp32`` and ``exact_bf16`` set process-wide flags for the
+    duration of a call (the server's single dispatcher thread serializes
+    calls)."""
 
     def __init__(self, config: str, weights, direction: str = "a2b",
                  batch_size: int = 8, device: str = "cuda", overrides=()):
@@ -91,6 +101,7 @@ class Translator:
                                               self.generator)
         self.generator.load_state_dict(state, strict=True)
         self.generator.to(self.device).eval().requires_grad_(False)
+        self._precision = exact_for(self.generator.dtype)
         self.vqgan = self.cfg.model.kind == "vqgan"
         self.batch = batch_size
         self.crop = self.cfg.model.image_size
@@ -141,7 +152,7 @@ class Translator:
 
     def translate_float(self, x: torch.Tensor) -> torch.Tensor:
         """[-1, 1] NHWC fp32 on the device -> the generator's output."""
-        with torch.inference_mode(), exact_fp32():
+        with torch.inference_mode(), self._precision():
             return self._apply(x)
 
     def _pad(self, arr: np.ndarray) -> np.ndarray:
@@ -165,7 +176,7 @@ class Translator:
         if codes.ndim != 3 or codes.min() < 0 or codes.max() >= k:
             raise ValueError(f"codes must be (n, h, w) in [0, {k})")
         codes = self._pad(codes)
-        with torch.inference_mode(), exact_fp32():
+        with torch.inference_mode(), self._precision():
             c = torch.from_numpy(codes).to(self.device)
             out = denormalize_to_u8(self.generator.decode_codes(c))
             return out.cpu().numpy()[:n]
@@ -177,7 +188,7 @@ class Translator:
         if tuple(raw_u8.shape[1:]) != expect or raw_u8.dtype != np.uint8:
             raise ValueError(f"expected uint8 (n, {self.load}, {self.load}, 3), "
                              f"got {raw_u8.dtype} {raw_u8.shape}")
-        with torch.inference_mode(), exact_fp32():
+        with torch.inference_mode(), self._precision():
             raw = torch.from_numpy(raw_u8).to(self.device)
             x = center_crop_normalize(raw, self.crop)
             out = denormalize_to_u8(self._apply(x))

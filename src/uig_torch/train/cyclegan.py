@@ -42,7 +42,8 @@ as the JAX package's ``build_trainer`` does (``eval/lpips.py``: the VGG from
 may pass its own ``perceptual_fn`` instead. LPIPS runs in fp32 whatever the
 compute dtype, as in JAX, and is not part of the train state. Not ported
 yet, and refused: R1, ADA, gradient accumulation, gradient clipping, weight
-decay, SGD, and translating in bf16 (``model.eval_dtype=bfloat16``).
+decay and SGD. ``translate`` runs the EMA generator in ``model.eval_dtype``,
+float32 or bfloat16.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from uig_torch.models import (PatchDiscriminator, generator_from_config,
                               model_dtype)
 from uig_torch.runtime import resolve_device
 from uig_torch.runtime.prng import step_generator
-from uig_torch.serving import exact_bf16, exact_fp32
+from uig_torch.serving import exact_for, exact_fp32
 from uig_torch.train import losses as L
 from uig_torch.train.ema import ema_update
 from uig_torch.train.pool import ImagePool
@@ -103,14 +104,15 @@ class CycleGANTrainer:
                               if perceptual_fn is None else perceptual_fn)
         m = cfg.model
         self.dtype = model_dtype(m, "compute_dtype")
-        self._precision = (exact_fp32 if self.dtype == torch.float32
-                           else exact_bf16)
+        self._precision = exact_for(self.dtype)
         self.generator = generator_from_config(
             m, "compute_dtype").to(self.device)
         # translate's generator, in model.eval_dtype (the same parameters)
+        eval_dtype = model_dtype(m, "eval_dtype")
         self.eval_generator = (
-            self.generator if model_dtype(m, "eval_dtype") == self.dtype
+            self.generator if eval_dtype == self.dtype
             else generator_from_config(m, "eval_dtype").to(self.device))
+        self._eval_precision = exact_for(eval_dtype)
         self.discriminator = PatchDiscriminator(
             base_features=m.d_base_features, n_layers=m.d_layers, norm=m.norm,
             in_channels=m.out_channels, dtype=self.dtype).to(self.device)
@@ -301,11 +303,12 @@ class CycleGANTrainer:
     # ------------------------------------------------------------- translate
     def translate(self, ema: dict, x: torch.Tensor,
                   direction: str = "a2b") -> torch.Tensor:
-        """[-1, 1] NHWC fp32 images -> the EMA generator's translation
-        (``model.eval_dtype`` float32, no gradient)."""
+        """[-1, 1] NHWC images -> the EMA generator's translation, computed
+        in ``model.eval_dtype`` (float32, or bfloat16 with the training
+        forward's casts; the output in that dtype), no gradient."""
         if direction not in ("a2b", "b2a"):
             raise ValueError(f"direction must be a2b or b2a, got {direction!r}")
-        with torch.inference_mode(), exact_fp32():
+        with torch.inference_mode(), self._eval_precision():
             return functional_call(self.eval_generator, ema[direction],
                                    (x.to(self.device, torch.float32),))
 

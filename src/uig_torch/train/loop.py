@@ -1,8 +1,12 @@
 """The training loop: the port of the JAX package's ``train/loop.py``.
 
 ``fit`` composes config -> trainer -> input pipeline -> hot loop
-(``train_step``) -> metrics (``metrics.jsonl``) -> checkpoints -> sample
-grids -> profiler window, on one device. It resumes from the newest
+(``train_step``) -> metrics (``metrics.jsonl``) -> in-training FID ->
+checkpoints -> sample grids -> profiler window, on one device. With
+``eval.fid_every`` the FID of the EMA's a2b translations against the B eval
+images (``_inline_fid``) is written as a ``{"fid": ...}`` line every
+``fid_every`` steps, and each cadence save carries the last one for the
+best-FID retention (``checkpoint/ckpt.py``). It resumes from the newest
 checkpoint under ``<run.workdir>/<run.name>/ckpt`` with the pipeline's
 cursor, so a resumed run continues bit for bit; SIGTERM or SIGINT ends the
 loop after the step in flight and saves once more.
@@ -109,8 +113,6 @@ def refuse_unported(cfg: Config, device: torch.device) -> None:
         "parallel.num_devices=1)":
             par.num_devices == 0 and device.type == "cuda"
             and torch.cuda.device_count() > 1,
-        "eval.fid_every > 0 (the in-training FID and best-FID retention "
-        "wait for the FID port, ROADMAP §1 item 5)": cfg.eval.fid_every > 0,
     }
     for what, hit in unported.items():
         if hit:
@@ -141,7 +143,8 @@ def fit(cfg: Config, max_steps: int | None = None, device="cuda") -> dict:
     os.makedirs(workdir, exist_ok=True)
     dump_run_config(config_to_dict(cfg), workdir)
     ckpt = CheckpointManager(os.path.join(workdir, "ckpt"),
-                             keep=cfg.run.ckpt_keep)
+                             keep=cfg.run.ckpt_keep,
+                             best_metric="fid" if cfg.eval.fid_every else None)
     writer = MetricsWriter(workdir, tensorboard=cfg.run.tensorboard)
     deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
@@ -167,6 +170,7 @@ def fit(cfg: Config, max_steps: int | None = None, device="cuda") -> dict:
         total = max_steps if max_steps is not None else cfg.opt.total_steps
         timer = StepTimer()
         metrics = {}
+        last_fid = feature = None
         step = int(state.step)
         last_saved = step if ckpt.latest_step() == step else -1
         prof_start, prof_stop = cfg.run.profile_steps
@@ -195,8 +199,17 @@ def fit(cfg: Config, max_steps: int | None = None, device="cuda") -> dict:
                 host_m.update(_hbm_stats(dev))
                 writer.write(step, host_m)
                 timer.reset()
+            if cfg.eval.fid_every and step % cfg.eval.fid_every == 0:
+                if feature is None:  # one extractor for the run
+                    from uig_torch.eval.fid import make_feature_fn
+
+                    feature, _ = make_feature_fn(cfg, dev)
+                last_fid = _inline_fid(cfg, trainer, state, feature)
+                writer.write(step, {"fid": last_fid})
             if cfg.run.ckpt_every and step % cfg.run.ckpt_every == 0:
-                ckpt.save(step, state, data_state=pipe.state_dict())
+                ckpt.save(step, state, data_state=pipe.state_dict(),
+                          metrics=None if last_fid is None
+                          else {"fid": last_fid})
                 last_saved = step
             if (cfg.eval.sample_grid_every
                     and step % cfg.eval.sample_grid_every == 0):
@@ -247,6 +260,21 @@ def _hbm_stats(dev: torch.device) -> dict:
     s = torch.cuda.memory_stats(dev)
     return {"hbm_gb_in_use": s.get("allocated_bytes.all.current", 0) / 2**30,
             "hbm_gb_peak": s.get("allocated_bytes.all.peak", 0) / 2**30}
+
+
+def _inline_fid(cfg, trainer, state, feature_fn) -> float:
+    """In-training FID (a2b) on up to ``eval.fid_num_samples`` eval images,
+    in batches of ``eval.fid_batch_size``: the B images against the EMA's
+    translations of the A images, through ``feature_fn``
+    (``make_feature_fn`` of the config); the streams of ``eval-fid``. One
+    process: the JAX package's per-host shards are not ported (ROADMAP §1
+    item 12)."""
+    from uig_torch.eval.fid import compute_fid, translation_streams
+
+    _, real, fake = translation_streams(cfg, trainer, state,
+                                        cfg.eval.fid_num_samples,
+                                        cfg.eval.fid_batch_size)
+    return compute_fid(real, fake, feature_fn)
 
 
 def _write_sample_grid(cfg, trainer, state, workdir: str, step: int,

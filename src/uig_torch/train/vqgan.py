@@ -36,8 +36,8 @@ bf16 the augmented batches, the generator's and D's activations and the
 reconstruction are bf16, with JAX's explicit casts; parameters and their
 gradients, Adam, the EMA, the quantizer and its codebook terms, the losses
 and the adaptive weight's gradient norms are fp32. ``translate`` and
-``decode_codes`` run a generator in ``model.eval_dtype`` (float32; bf16
-serving is refused).
+``decode_codes`` run a generator in ``model.eval_dtype`` (float32, or
+bfloat16 under ``serving.exact_bf16``).
 LPIPS is built and passed as in the CycleGAN trainer (``perceptual_fn``).
 Not ported yet, and refused: ``model.fused_applies``,
 ``opt.grad_accum > 1``, ``model.remat``, weight decay, gradient clipping
@@ -58,7 +58,7 @@ from uig_torch.models import (PatchDiscriminator, generator_from_config,
                               model_dtype)
 from uig_torch.runtime import resolve_device
 from uig_torch.runtime.prng import step_generator
-from uig_torch.serving import exact_bf16, exact_fp32
+from uig_torch.serving import exact_for, exact_fp32
 from uig_torch.train import losses as L
 from uig_torch.train.ema import ema_update
 from uig_torch.train.state import (Adam, VQGANState, normal_init, tree_leaves,
@@ -107,14 +107,15 @@ class VQGANTrainer:
                               if perceptual_fn is None else perceptual_fn)
         m = cfg.model
         self.dtype = model_dtype(m, "compute_dtype")
-        self._precision = (exact_fp32 if self.dtype == torch.float32
-                           else exact_bf16)
+        self._precision = exact_for(self.dtype)
         self.generator = generator_from_config(
             m, "compute_dtype").to(self.device)
         # translate's generator, in model.eval_dtype (the same parameters)
+        eval_dtype = model_dtype(m, "eval_dtype")
         self.eval_generator = (
-            self.generator if model_dtype(m, "eval_dtype") == self.dtype
+            self.generator if eval_dtype == self.dtype
             else generator_from_config(m, "eval_dtype").to(self.device))
+        self._eval_precision = exact_for(eval_dtype)
         self.discriminator = PatchDiscriminator(
             base_features=m.d_base_features, n_layers=m.d_layers, norm=m.norm,
             in_channels=m.out_channels, dtype=self.dtype).to(self.device)
@@ -261,20 +262,23 @@ class VQGANTrainer:
     # ------------------------------------------------------------- serving
     def translate(self, ema: dict, x: torch.Tensor,
                   direction: str = "a2b") -> torch.Tensor:
-        """VQGAN 'translation' is reconstruction through the shared codebook:
-        [-1, 1] NHWC fp32 images -> the EMA generator's reconstructions
-        (``model.eval_dtype`` float32, no gradient)."""
-        if direction != "a2b":
-            raise ValueError(f"VQGAN has one direction, a2b; got {direction!r}")
-        with torch.inference_mode(), exact_fp32():
+        """VQGAN 'translation' is reconstruction through the shared codebook
+        in either direction (as in the JAX package, ``direction`` picks no
+        weights): [-1, 1] NHWC images -> the EMA generator's
+        reconstructions, computed in ``model.eval_dtype`` (the output in
+        it), no gradient."""
+        if direction not in ("a2b", "b2a"):
+            raise ValueError(f"direction must be a2b or b2a, got {direction!r}")
+        with torch.inference_mode(), self._eval_precision():
             return functional_call(self.eval_generator, ema["a2b"],
                                    (x.to(self.device, torch.float32),))[0]
 
     def decode_codes(self, ema: dict, codes: torch.Tensor) -> torch.Tensor:
-        """codes (B, h, w) -> the EMA decoder's images of those codewords."""
+        """codes (B, h, w) -> the EMA decoder's images of those codewords,
+        in ``model.eval_dtype``."""
         p = ema["a2b"]
         dec = {k[len("decoder."):]: t for k, t in p.items()
                if k.startswith("decoder.")}
-        with torch.inference_mode(), exact_fp32():
+        with torch.inference_mode(), self._eval_precision():
             z = p["quantizer.codebook"][codes.to(self.device).long()]
             return functional_call(self.eval_generator.decoder, dec, (z,))

@@ -52,16 +52,24 @@ def _inputs(shape, seed):
     return [rng.standard_normal(shape).astype(np.float32) for _ in range(4)]
 
 
+def _pallas_fwd_bwd(q, k, v, do):
+    o, vjp = jax.vjp(lambda a, b, c: jax_attention(a, b, c, impl="pallas"),
+                     q, k, v)
+    return (o, *vjp(do))
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
-    """{shape: (q, k, v, do, o, dq, dk, dv)} from the Pallas kernels."""
+    """{shape: (q, k, v, do, o, dq, dk, dv)} from the Pallas kernels, the
+    forward and its VJP under one ``jax.jit`` a shape, compiled with XLA's
+    backend at optimization level 0 (a fraction of the compile time)."""
     out = {}
     for i, shape in enumerate(SHAPES):
         q, k, v, do = _inputs(shape, i)
-        o, vjp = jax.vjp(lambda a, b, c: jax_attention(a, b, c, impl="pallas"),
-                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-        grads = vjp(jnp.asarray(do))
-        out[shape] = (q, k, v, do, np.asarray(o), *map(np.asarray, grads))
+        args = tuple(map(jnp.asarray, (q, k, v, do)))
+        res = jax.jit(_pallas_fwd_bwd).lower(*args).compile(
+            compiler_options={"xla_backend_optimization_level": 0})(*args)
+        out[shape] = (q, k, v, do, *map(np.asarray, res))
     return out
 
 
@@ -188,14 +196,16 @@ def _bf16_inputs(case, seed):
 @pytest.fixture(scope="module")
 def jax_bf16_runs():
     """{case: (q, k, v, do, o, dq, dk, dv)}, fp32 numpy of bf16 values,
-    from the Pallas kernels in bf16."""
+    from the Pallas kernels in bf16, compiled as ``jax_runs`` and with
+    excess precision off (the program rounds to bf16 where it says, as
+    its ops run one by one)."""
     out = {}
     for i, case in enumerate(BF16_CASES):
         q, k, v, do = _bf16_inputs(case, 10 + i)
-        qkv = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
-        o, vjp = jax.vjp(lambda a, b, c: jax_attention(a, b, c, impl="pallas"),
-                         *qkv)
-        grads = vjp(jnp.asarray(do, jnp.bfloat16))
+        args = tuple(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+        o, *grads = jax.jit(_pallas_fwd_bwd).lower(*args).compile(
+            compiler_options={"xla_backend_optimization_level": 0,
+                              "xla_allow_excess_precision": False})(*args)
         assert o.dtype == jnp.bfloat16 and grads[1].dtype == jnp.bfloat16
         out[case] = (q, k, v, do, *(np.asarray(t, np.float32)
                                     for t in (o, *grads)))

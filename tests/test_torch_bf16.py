@@ -63,6 +63,20 @@ def _close32(got: torch.Tensor, want, what: str) -> None:
                                err_msg=what)
 
 
+def _vjp(fn, dy, *args):
+    """(fn(*args), the VJP of ``dy``) under one ``jax.jit``, compiled with
+    excess precision off (XLA rounds to bf16 where the program says, as
+    when its ops run one by one) and XLA's backend at optimization level 0
+    (a fraction of the compile time)."""
+    def both(dy, *a):
+        y, vjp = jax.vjp(fn, *a)
+        return y, vjp(dy)
+
+    return jax.jit(both).lower(dy, *args).compile(compiler_options={
+        "xla_allow_excess_precision": False,
+        "xla_backend_optimization_level": 0})(dy, *args)
+
+
 def _arrays(seed, *specs):
     """fp32 numpy arrays, each ``(shape, scale, shift)``."""
     rng = np.random.default_rng(seed)
@@ -102,9 +116,8 @@ def test_instance_norm(relu):
                           ((16,), 0.2, 0.0), ((2, 8, 8, 16), 1.0, 0.0))
     (jx, tx), (jdy, tdy) = _pair(x), _pair(dy)
     (jg, tg), (jb, tb) = _pair(g, False), _pair(b, False)
-    want, vjp = jax.vjp(
-        lambda *a: instance_norm_pallas(*a, relu=relu), jx, jg, jb)
-    wdx, wdg, wdb = vjp(jdy)
+    want, (wdx, wdg, wdb) = _vjp(
+        lambda *a: instance_norm_pallas(*a, relu=relu), jdy, jx, jg, jb)
     ins = [t.clone().requires_grad_(True) for t in (tx, tg, tb)]
     y = instance_norm_act(*ins, relu=relu)
     _close(y, want, 1, "y")
@@ -124,10 +137,9 @@ def test_conv3_in(pad_mode, relu):
     (jx, tx), (jdy, tdy) = _pair(x), _pair(dy)
     jw, tw = _pair(w, False)
     params = [_pair(a, False) for a in (b, g, be)]
-    want, vjp = jax.vjp(
+    want, (wdx, wdw, wdb, wdg, wdbe) = _vjp(
         lambda *a: jax_conv3_in_act(*a, relu=relu, pad_mode=pad_mode),
-        jx, jw, *(p[0] for p in params))
-    wdx, wdw, wdb, wdg, wdbe = vjp(jdy)
+        jdy, jx, jw, *(p[0] for p in params))
     # the port's layer casts the fp32 kernel to bf16, as JAX's kernel call
     ins = [t.clone().requires_grad_(True) for t in (tx, tw)]
     ins += [p[1].clone().requires_grad_(True) for p in params]
@@ -151,9 +163,8 @@ def test_conv7(pad_mode):
                           ((7, 7, 32, 3), 0.05, 0.0), ((3,), 0.1, 0.0),
                           ((2, 16, 16, 3), 1.0, 0.0))
     (jx, tx), (jw, tw), (jb, tb), (jdy, tdy) = map(_pair, (x, w, b, dy))
-    want, vjp = jax.vjp(lambda *a: conv7_s2d(*a, pad_mode=pad_mode),
-                        jx, jw, jb)
-    wdx, wdw, wdb = vjp(jdy)
+    want, (wdx, wdw, wdb) = _vjp(
+        lambda *a: conv7_s2d(*a, pad_mode=pad_mode), jdy, jx, jw, jb)
     ins = [t.clone().requires_grad_(True) for t in (tx, tw, tb)]
     y = conv7_act(*ins, pad_mode)
     _close(y, want, 1, "y")
@@ -164,8 +175,9 @@ def test_conv7(pad_mode):
 
 
 def test_bf16_refusals_point_to_the_roadmap():
-    """bf16 training of CycleGAN and VQGAN is ported; bf16 serving raises,
-    for either kind, with its ROADMAP item."""
+    """bf16 training and bf16 serving of CycleGAN and VQGAN are ported
+    (``model.eval_dtype=bfloat16`` builds the generator in bf16); bf16 for
+    a kind that runs in float32 only raises with its ROADMAP item."""
     from uig_torch.config import apply_overrides, get_preset
     from uig_torch.models import generator_from_config, model_dtype
 
@@ -175,12 +187,15 @@ def test_bf16_refusals_point_to_the_roadmap():
     assert generator_from_config(cyc, "compute_dtype").dtype == BF
     served = apply_overrides(get_preset("cyclegan256_dp"),
                              ["model.eval_dtype=bfloat16"]).model
-    with pytest.raises(NotImplementedError, match="ROADMAP: bf16 serving"):
-        generator_from_config(served)
+    assert generator_from_config(served).dtype == BF
+    other = apply_overrides(get_preset("cyclegan256_dp"),
+                            ["model.eval_dtype=bfloat16",
+                             "model.kind=unit"]).model
+    with pytest.raises(NotImplementedError, match="ROADMAP: unit in bf16"):
+        model_dtype(other, "eval_dtype")
     vq = get_preset("vqgan512").model
     assert vq.compute_dtype == "bfloat16"
     assert generator_from_config(vq, "compute_dtype").encoder.dtype == BF
     served = apply_overrides(get_preset("vqgan512"),
                              ["model.eval_dtype=bfloat16"]).model
-    with pytest.raises(NotImplementedError, match="ROADMAP: bf16 serving"):
-        generator_from_config(served)
+    assert generator_from_config(served).encoder.dtype == BF

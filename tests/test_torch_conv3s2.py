@@ -51,8 +51,10 @@ K4S_DGRAD_DEPTH = 1
 K4S_WGRAD_DEPTH = 2
 # JAX's references are compiled whole (op by op, every op compiles) with
 # excess precision off, so that XLA on the CPU rounds to bf16 where the
-# program says instead of fusing across the roundings
-JAX_OPTIONS = {"xla_allow_excess_precision": False}
+# program says instead of fusing across the roundings, and with XLA's
+# backend at optimization level 0 (the same bits, compiled faster)
+JAX_OPTIONS = {"xla_allow_excess_precision": False,
+               "xla_backend_optimization_level": 0}
 
 
 def _close(got: torch.Tensor, want, rel: float, what: str) -> None:

@@ -32,11 +32,20 @@ ATOL = 1e-5
 K3_DEPTH = 2
 
 
+def _compiled(fn, *args):
+    """``fn(*args)`` under one ``jax.jit``, compiled with XLA's backend at
+    optimization level 0 (the Pallas kernel in interpret mode compiles in
+    a fraction of the time)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_forward(pad_mode, relu):
     """JAX's output on ``_inputs()``, computed once a mode."""
-    return np.asarray(jax_conv3_in_act(*map(jnp.asarray, _inputs()),
-                                       relu=relu, pad_mode=pad_mode))
+    return np.asarray(_compiled(
+        lambda *a: jax_conv3_in_act(*a, relu=relu, pad_mode=pad_mode),
+        *map(jnp.asarray, _inputs())))
 
 
 def _inputs(seed=0, shape=(2, 8, 8, 16)):
@@ -77,10 +86,13 @@ def test_gradients_match_jax_vjp(pad_mode, relu):
     ins = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
     y = conv3_in_act(*ins, relu=relu, pad_mode=pad_mode)
     got = torch.autograd.grad(y, ins, torch.from_numpy(dy))
-    _, vjp = jax.vjp(lambda *a: jax_conv3_in_act(*a, relu=relu,
-                                                 pad_mode=pad_mode),
-                     *map(jnp.asarray, arrs))
-    want = [np.asarray(v) for v in vjp(jnp.asarray(dy))]
+    def grads(dy, *a):
+        _, vjp = jax.vjp(lambda *a: jax_conv3_in_act(*a, relu=relu,
+                                                     pad_mode=pad_mode), *a)
+        return vjp(dy)
+
+    want = [np.asarray(v) for v in
+            _compiled(grads, *map(jnp.asarray, (dy, *arrs)))]
     np.testing.assert_allclose(got[0].numpy(), want[0], atol=ATOL)
     scale = max(np.abs(w).max() for w in want[1:])
     for name, u, v in zip(("dw", "db", "dgamma", "dbeta"), got[1:], want[1:]):

@@ -1256,3 +1256,100 @@ def test_fit_resume_is_byte_identical(dev, tmp_path, dtype):
     differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
     assert not differ, differ[:5]
     assert ta["pool_a/buffer"].dtype == getattr(torch, dtype)
+
+
+# ---------------------------------------------------------------------------
+# evaluation on the card: bf16 serving, the extractors, eval-fid
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def eval_run(tmp_path_factory):
+    """A small CycleGAN run trained on the card with the in-training FID
+    (every 2 steps, 6 samples): 4 steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.train.loop import fit
+
+    tmp = tmp_path_factory.mktemp("eval_run")
+    over = ["model.image_size=32", "data.load_size=36", "model.n_res_blocks=1",
+            "model.g_base_features=16", "model.d_base_features=16",
+            "model.d_layers=2", "data.batch_size=2", "data.synthetic_len=12",
+            "data.num_workers=1", "opt.pool_size=4", "run.log_every=2",
+            "run.ckpt_every=2", "eval.sample_grid_every=0",
+            "eval.fid_every=2", "eval.fid_num_samples=6",
+            "eval.fid_batch_size=4", f"run.workdir={tmp}", "run.name=r"]
+    fit(apply_overrides(get_preset("smoke64"), over), max_steps=4,
+        device="cuda")
+    return str(tmp / "r")
+
+
+def test_bf16_translator_repeats_byte_identical(dev, eval_run):
+    """The run's EMA served in bf16 (K2f, K3, K4f and K4s in bf16, one
+    apply's launches): two calls on one batch give the same bytes, and the
+    output is not the fp32 one's."""
+    from uig_torch.serving import Translator
+
+    rng = np.random.default_rng(3)
+    raw = rng.integers(0, 256, (3, 36, 36, 3), dtype=np.uint8)
+    tr16 = Translator.from_run_dir(eval_run, batch_size=4, device="cuda",
+                                   overrides=["model.eval_dtype=bfloat16"])
+    assert tr16.generator.dtype == BF and tr16.meta["eval_dtype"] == "bfloat16"
+    K.reset_launch_counts()
+    a = tr16(raw)
+    counts = K.launch_counts()
+    assert counts["conv3_in_act"] == 2 and counts["instance_norm"] == 5
+    b = tr16(raw)
+    assert a.shape == (3, 32, 32, 3) and np.array_equal(a, b)
+    x = torch.from_numpy(raw).to(dev)
+    from uig_torch.kernels import center_crop_normalize
+
+    y16 = tr16.translate_float(center_crop_normalize(x, 32))
+    assert y16.dtype == BF
+    tr32 = Translator.from_run_dir(eval_run, batch_size=4, device="cuda")
+    y32 = tr32.translate_float(center_crop_normalize(x, 32))
+    gap = (y16.float() - y32).abs().max().item()
+    assert 0 < gap < 0.1, gap
+
+
+@pytest.mark.parametrize("kind,size", [("random", 64), ("inception", 64),
+                                       ("inception", 75)])
+def test_feature_extractors_on_the_card(dev, kind, size):
+    """The seed-0 extractors on the card against their CPU runs (library
+    convs, fp32 without TF32, another order of sums): within 1e-4 of the
+    largest feature; 64² inputs to InceptionV3 go through the resize to
+    299²; two card runs are bit-equal."""
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.eval.fid import make_feature_fn
+
+    cfg = apply_overrides(get_preset("smoke64"),
+                          [f"eval.fid_features={kind}"])
+    x = torch.from_numpy(np.random.default_rng(size).uniform(
+        -1, 1, (2, size, size, 3)).astype(np.float32))
+    card, name = make_feature_fn(cfg, "cuda")
+    cpu, _ = make_feature_fn(cfg, "cpu")
+    got, again = card(x.to(dev)), card(x.to(dev))
+    want = cpu(x)
+    assert torch.equal(got, again)
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), (name, err)
+
+
+def test_eval_fid_repeats_bit_equal(dev, eval_run, capsys):
+    """eval-fid on the card twice (random features; FID, then KID) gives
+    the same numbers; the in-training FID lines were written."""
+    import json
+
+    from uig_torch.cli.__main__ import main
+
+    with open(os.path.join(eval_run, "metrics.jsonl")) as f:
+        fids = [json.loads(x) for x in f if '"fid"' in x]
+    assert [r["step"] for r in fids] == [2, 4]
+    outs = []
+    for extra in ([], [], ["--kid"], ["--kid"]):
+        assert main(["eval-fid", "--run-dir", eval_run, "--num-samples",
+                     "6", "--batch-size", "4", *extra]) == 0
+        outs.append(json.loads(capsys.readouterr().out.splitlines()[-1]))
+    assert outs[0] == outs[1] and outs[2] == outs[3]
+    assert np.isfinite(outs[0]["fid"]) and outs[0]["fid"] > 0

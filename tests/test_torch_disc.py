@@ -18,15 +18,27 @@ from uig_torch.models import PatchDiscriminator
 ATOL = 1e-5
 
 
+def _init(shape, key: str, rng) -> np.ndarray:
+    """flax's default initial value of a parameter, drawn with numpy:
+    lecun-normal kernels, unit scales, zero biases."""
+    if key.endswith("kernel"):
+        return rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+    return np.ones(shape) if key.endswith("scale") else np.zeros(shape)
+
+
 def _pair(size, layers, norm, seed=0):
+    """JAX's and the port's D with the same parameters: the shapes from
+    ``jax.eval_shape`` of flax's init (an eager init compiles every random
+    op), the values drawn with numpy, then moved off their initial values
+    by 0.1 N."""
     jd = JaxDisc(base_features=8, n_layers=layers, norm=norm)
     x = np.random.default_rng(seed).standard_normal(
         (2, size, size, 3)).astype(np.float32)
-    params = jd.init(jax.random.PRNGKey(seed), jnp.asarray(x))
+    shapes = jax.eval_shape(jd.init, jax.random.PRNGKey(seed), jnp.asarray(x))
     rng = np.random.default_rng(seed + 1)
-    flat = {k: np.asarray(v) + 0.1 * rng.standard_normal(v.shape).astype(
-        np.float32) for k, v in traverse_util.flatten_dict(
-            params["params"], sep=".").items()}
+    flat = {k: (_init(v.shape, k, rng) + 0.1 * rng.standard_normal(v.shape)
+                ).astype(np.float32) for k, v in sorted(
+            traverse_util.flatten_dict(shapes["params"], sep=".").items())}
     pd = PatchDiscriminator(base_features=8, n_layers=layers, norm=norm)
     pd.load_state_dict({k: torch.from_numpy(v) for k, v in flat.items()},
                        strict=True)

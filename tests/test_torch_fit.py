@@ -260,7 +260,7 @@ def test_vqgan_resume_is_byte_identical(tmp_path):
 
 @pytest.mark.parametrize("override", [
     "run.steps_per_dispatch=2", "run.n_critic_fuse=true",
-    "parallel.multihost=true", "parallel.num_devices=2", "eval.fid_every=5",
+    "parallel.multihost=true", "parallel.num_devices=2", "model.kind=munit",
     "run.tensorboard=true", "data.source=tfrecord", "data.source=webdataset",
     "model.kind=cut", "model.kind=vaegan", "model.kind=stargan",
     "model.kind=vqgan_prior"])

@@ -53,7 +53,8 @@ def test_import_leaves_jax_out_and_builds_nothing():
 
 def test_vqgan_trains_in_bf16_and_serves_in_fp32():
     """vqgan512 as published trains in bf16 (its compute dtype is the
-    default's); serving stays fp32, and a bf16 eval_dtype is refused."""
+    default's); serving stays fp32 as published, and a bf16 eval_dtype
+    builds a bf16 eval generator."""
     import torch
 
     from uig_torch.config import apply_overrides, get_preset
@@ -74,9 +75,10 @@ def test_vqgan_trains_in_bf16_and_serves_in_fp32():
     state = tr.init_state(0)
     x = torch.zeros(1, 32, 32, 3)
     assert tr.translate(state.ema, x).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="eval_dtype"):
-        VQGANTrainer(apply_overrides(small, ["model.eval_dtype=bfloat16"]),
-                     device="cpu")
+    tr16 = VQGANTrainer(apply_overrides(small, ["model.eval_dtype=bfloat16"]),
+                        device="cpu")
+    assert tr16.eval_generator is tr16.generator  # one dtype, one module
+    assert tr16.translate(state.ema, x).dtype == torch.bfloat16
 
 
 def test_resolve_device():

@@ -32,13 +32,40 @@ def _port(module, flax_vars, perturb_seed=0):
     return {"params": params}
 
 
+def _init_vars(jmod, x) -> dict:
+    """flax's default initial parameters of ``jmod`` for ``x``, drawn with
+    numpy (lecun-normal kernels, unit scales, zero biases) in the shapes
+    ``jax.eval_shape`` gives: an eager flax init compiles every random op."""
+    shapes = jax.eval_shape(jmod.init, jax.random.PRNGKey(0), jnp.asarray(x))
+    rng = np.random.default_rng(0)
+
+    def init(key, s):
+        if key[-1] == "kernel":
+            return (rng.standard_normal(s.shape) /
+                    np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+        return (np.ones if key[-1] == "scale" else np.zeros)(s.shape,
+                                                             np.float32)
+
+    flat = traverse_util.flatten_dict(shapes["params"])
+    return {"params": traverse_util.unflatten_dict(
+        {k: init(k, flat[k]) for k in sorted(flat)})}
+
+
+def _apply(jmod, v, x) -> np.ndarray:
+    """flax's forward under one ``jax.jit``, compiled with XLA's backend at
+    optimization level 0 (op by op, every op compiles)."""
+    args = (v, jnp.asarray(x))
+    return np.asarray(jax.jit(jmod.apply).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args))
+
+
 def _x(shape, seed=1):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
 def _compare(jmod, tmod, x, atol=ATOL):
-    v = _port(tmod, jmod.init(jax.random.PRNGKey(0), jnp.asarray(x)))
-    ref = np.asarray(jmod.apply(v, jnp.asarray(x)))
+    v = _port(tmod, _init_vars(jmod, x))
+    ref = _apply(jmod, v, x)
     with torch.no_grad():
         got = tmod(torch.from_numpy(x)).numpy()
     assert got.shape == ref.shape
@@ -62,8 +89,8 @@ def test_conv_transpose_same_is_not_torch_convtranspose2d():
     output_padding=1) with or without the flip."""
     x = _x((1, 6, 6, 8), seed=3)
     m = tl.UpsampleConv(8, 8)
-    v = _port(m, jl.UpsampleConv(8).init(jax.random.PRNGKey(0), jnp.asarray(x)))
-    ref = np.asarray(jl.UpsampleConv(8).apply(v, jnp.asarray(x)))
+    v = _port(m, _init_vars(jl.UpsampleConv(8), x))
+    ref = _apply(jl.UpsampleConv(8), v, x)
     k = m.ConvTranspose_0.kernel.detach()
     b = m.ConvTranspose_0.bias.detach()
     xn = torch.from_numpy(x).permute(0, 3, 1, 2)

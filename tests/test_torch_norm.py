@@ -19,6 +19,7 @@ path's shapes. The kernel's summation order is emulated in numpy (fp32, the
 squares' sums as fused multiply-adds): within 1e-5 of the Pallas kernel
 and at most twice the plain version's error from float64."""
 
+import functools
 import itertools
 
 import jax
@@ -40,6 +41,22 @@ ATOL = 1e-5
 STATS_ATOL = 1e-6
 
 
+def _compiled(fn, *args):
+    """``fn(*args)`` under one ``jax.jit``, compiled with XLA's backend at
+    optimization level 0 (the Pallas kernels in interpret mode compile in
+    a fraction of the time)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_fwd(c, relu):
+    """The Pallas forward on ``_inputs(c)``, computed once a case."""
+    return np.asarray(_compiled(
+        lambda *a: instance_norm_pallas(*a, relu=relu),
+        *map(jnp.asarray, _inputs(c))))
+
+
 def _inputs(c, seed=0):
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((2, 12, 12, c)) * 2 + 0.5).astype(np.float32)
@@ -55,8 +72,7 @@ def test_instance_norm_matches_pallas_and_flax(c, relu):
     x, g, b = _inputs(c)
     got = instance_norm(torch.from_numpy(x), torch.from_numpy(g),
                         torch.from_numpy(b), relu=relu).numpy()
-    pallas = np.asarray(instance_norm_pallas(jnp.asarray(x), jnp.asarray(g),
-                                             jnp.asarray(b), relu=relu))
+    pallas = _pallas_fwd(c, relu)
     flax_y = JaxInstanceNorm().apply(
         {"params": {"scale": jnp.asarray(g), "bias": jnp.asarray(b)}},
         jnp.asarray(x))
@@ -100,11 +116,13 @@ def _backward_matches(x, g, b, dy, stats, relu):
     tx, tg, tb, tdy = map(torch.from_numpy, (x, g, b, dy))
     dx, dg, db = (t.numpy() for t in instance_norm_bwd(tx, tg, tb, tdy, stats,
                                                        relu=relu))
-    jx, jg, jb, jdy = map(jnp.asarray, (x, g, b, dy))
-    kdx, kdg, kdb = _bwd_impl(jx, jg, jb, jdy, eps=1e-5, relu=relu)
-    _, vjp = jax.vjp(lambda *a: instance_norm_pallas(*a, relu=relu),
-                     jx, jg, jb)
-    vdx, vdg, vdb = vjp(jdy)
+    def both(x, g, b, dy):
+        _, vjp = jax.vjp(lambda *a: instance_norm_pallas(*a, relu=relu),
+                         x, g, b)
+        return _bwd_impl(x, g, b, dy, eps=1e-5, relu=relu), vjp(dy)
+
+    (kdx, kdg, kdb), (vdx, vdg, vdb) = _compiled(
+        both, *map(jnp.asarray, (x, g, b, dy)))
     for want_dx, want_dg, want_db in ((kdx, kdg, kdb), (vdx, vdg, vdb)):
         np.testing.assert_allclose(dx, np.asarray(want_dx), atol=ATOL)
         _param_close(dg, np.asarray(want_dg))
@@ -141,9 +159,9 @@ def test_statistics_match_the_fused_forward_and_drive_the_backward():
     b = (rng.standard_normal(8) * 0.1).astype(np.float32)
     g = (rng.standard_normal(8) * 0.2 + 1.0).astype(np.float32)
     be = (rng.standard_normal(8) * 0.2).astype(np.float32)
-    _, yc, mean, rstd = _convin_fwd_impl(
-        *map(jnp.asarray, (x, w.reshape(72, 8), b, g, be)), relu=True,
-        eps=1e-5, reflect=True)
+    _, yc, mean, rstd = _compiled(
+        lambda *a: _convin_fwd_impl(*a, relu=True, eps=1e-5, reflect=True),
+        *map(jnp.asarray, (x, w.reshape(72, 8), b, g, be)))
     want = np.stack([np.asarray(mean), np.asarray(rstd)])
     _, _, conv_stats = _conv3_in_fwd(*map(torch.from_numpy, (x, w, b, g, be)),
                                      True, 1e-5, "reflect")
@@ -304,9 +322,7 @@ def test_fwd_summation_order_emulated(c):
                                                  fin_lanes=4)
     assert plan.vec == (c % 4 == 0)
     y, mean, rstd = _emulate_fwd(x, g, b, 1e-5, True, plan)
-    pallas = np.asarray(instance_norm_pallas(jnp.asarray(x), jnp.asarray(g),
-                                             jnp.asarray(b), relu=True))
-    np.testing.assert_allclose(y, pallas, atol=ATOL)
+    np.testing.assert_allclose(y, _pallas_fwd(c, True), atol=ATOL)
     plain, stats = _instance_norm_fwd(*map(torch.from_numpy, (x, g, b)),
                                       1e-5, True)
     np.testing.assert_allclose(np.stack([mean, rstd]), stats.numpy(),

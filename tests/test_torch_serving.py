@@ -177,3 +177,27 @@ def test_cli_translate_is_deterministic(run, tmp_path):
                               for i in range(3)]))
     np.testing.assert_array_equal(outs[0], outs[1])
     np.testing.assert_array_equal(outs[0], _translator(run_dir, 3)(raw[:3]))
+
+
+def test_http_server_serves_bf16(run):
+    """``model.eval_dtype=bfloat16`` through the server: the generator in
+    bf16, a response equal to a bf16 ``Translator``'s, and not the fp32
+    one's bytes everywhere."""
+    run_dir, raw, _ = run
+    bf16 = ["model.eval_dtype=bfloat16"]
+    tr = Translator(os.path.join(run_dir, "config.json"),
+                    os.path.join(run_dir, "g.npz"), batch_size=2,
+                    device="cpu", overrides=bf16)
+    assert tr.generator.dtype == torch.bfloat16
+    assert tr.meta["eval_dtype"] == "bfloat16"
+    handle = start_server(os.path.join(run_dir, "config.json"),
+                          os.path.join(run_dir, "g.npz"), batch_size=2,
+                          device="cpu", port=0, overrides=bf16)
+    try:
+        status, body = _post(handle.port, raw[0])
+    finally:
+        handle.close()
+    assert status == 200, body
+    got = np.asarray(Image.open(io.BytesIO(body)))
+    np.testing.assert_array_equal(got, tr(raw[:1])[0])
+    assert not np.array_equal(got, _translator(run_dir, batch=2)(raw[:1])[0])

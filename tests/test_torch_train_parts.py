@@ -221,7 +221,7 @@ _SMALL = ["model.image_size=32", "data.load_size=36", "data.batch_size=2",
 
 
 @pytest.mark.parametrize("override,match", [
-    ("model.eval_dtype=bfloat16", "eval_dtype"),
+    ("model.norm=batch", "norm"),
     ("loss.r1_gamma=1.0", "r1_gamma"),
     ("loss.ada_target=0.6", "ADA"),
     ("opt.grad_accum=2", "grad_accum"),

@@ -93,7 +93,9 @@ MODULES = (
 
 RTOL_BF16 = 2.0 ** -6
 CLOSER = 0.8
-BF16_OPTIONS = {"xla_allow_excess_precision": False}
+# XLA's backend at optimization level 0: the same bits, compiled faster
+FP32_OPTIONS = {"xla_backend_optimization_level": 0}
+BF16_OPTIONS = {**FP32_OPTIONS, "xla_allow_excess_precision": False}
 
 
 def _cfg():
@@ -165,7 +167,7 @@ def run():
     x = raw.astype(np.float32) * np.float32(2.0 / 255.0) - np.float32(1.0)
     gen = _jax_generator()
     params = _to_jax(flat)
-    recon, vq, inter = _jax_apply(gen, params, x)
+    recon, vq, inter = _jax_apply(gen, params, x, FP32_OPTIONS)
     codes = np.asarray(vq.codes)
     decoded = np.asarray(jax.jit(lambda p, c: gen.apply(
         p, c, method=JaxGenerator.decode_codes))(params, jnp.asarray(codes)))
@@ -342,9 +344,11 @@ def test_kind_dispatch_and_refusals():
         generator_from_config(apply_overrides(cfg, ["model.remat=blocks"]).model)
     with pytest.raises(NotImplementedError, match="kind"):
         generator_from_config(apply_overrides(cfg, ["model.kind=unit"]).model)
+    assert generator_from_config(apply_overrides(
+        cfg, ["model.eval_dtype=bfloat16"]).model).dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="float32"):
         generator_from_config(
-            apply_overrides(cfg, ["model.eval_dtype=bfloat16"]).model)
+            apply_overrides(cfg, ["model.eval_dtype=float16"]).model)
 
 
 # ------------------------------------------------------------------ bf16 --
