@@ -51,6 +51,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    steps. Before its result line, the same step with LPIPS off (timed, for
    continuity with earlier runs) and the LPIPS term alone (two distances at
    the step's batch and their input gradients), profiled.
+3c. cut: the contrastive trainers as published, bf16 at 256² and batch
+   16 with the pallas augment (``CUT_CASES``): ``fastcut256``, the CUT
+   recipe of ``cut256_multihost`` in one process
+   (``parallel.multihost=false``) and ``dclgan256``. For each, one step's
+   launches of every kernel (``contrastive_per_step``: the translation's
+   full apply, the query's encoder pass that stops at tap 16, D), 3 steps
+   twice byte-identical, the step's gradients at batch 16 with the kernels
+   against the plain versions, with bf16's own gap from fp32 as the
+   yardstick (``compare_kernels_plain``), the batch-1 step four ways
+   (``compare_card_cpu_bf16``), CUT_STEPS steps finite and timed, peak
+   memory, and one profiled step with its designs. Then, on a checkpoint of
+   the CUT run in a run directory written as ``fit`` writes it,
+   ``translate --run-dir`` (PNGs equal to the EMA's translate; b2a refused
+   with JAX's ValueError) and ``eval-fid`` (random-conv features, twice
+   bit-equal). Last, the norm forward's counters must be back at 0.
 4. slice: a ``Translator`` for ``cyclegan256_dp`` at full width, weights in
    the flax layout made from a seed with numpy and carried through
    ``uig_torch.convert``. A seeded uint8 batch (8, 286, 286, 3) goes through
@@ -59,7 +74,9 @@ Phases, each printing JSON lines; any failure raises and exits non-zero:
    must launch instance norm 5 times, conv3+IN 18 times, conv7 once and
    the stride-2 conv twice, and a profiled apply must run each in the
    design ``SLICE_DESIGNS`` names (K3, both downsamples and the head in
-   "tf32x3").
+   "tf32x3") and give the first apply's bytes. A profiled call whose
+   capture holds fewer launches of a kernel than its wrapper counted is
+   taken again and listed under ``lost_records`` (``profile_call``).
 5. serve: the HTTP server on the card answers 12 concurrent PNG requests,
    each equal to a direct ``Translator`` call, and reports its /stats.
 
@@ -120,7 +137,9 @@ Then one ``kernels`` line (every kernel with its launches on its own path:
 one CycleGAN training step and translate apply, or one VQGAN training step
 and reconstruct apply for the attention kernels, ``launches_fit``, the
 fit phase's run A, ``launches_per_bf16_translate_apply`` and
-``launches_eval``, the eval phase's commands (not its timing loops);
+``launches_eval``, the eval phase's commands (not its timing loops),
+``launches_cut`` and ``launches_dclgan``, one step of each contrastive
+trainer of phase cut;
 its error, and its times
 and bound summed over that step; the top level is the fp32 step's, and
 ``per_dtype`` holds the same for each dtype in ``dtypes``, bf16 from the
@@ -426,6 +445,7 @@ SLICE_DESIGNS = {"instance_norm": "one_launch", "conv3_in_act": "tf32x3",
 KERNEL_ITERS = 10
 # profile_call's captures of one call at most (see there)
 PROFILE_TRIES = 3
+PROFILE_SPIN_MS = 50
 FP32_TRAIN_STEPS = 10
 VQ_TRAIN_STEPS = 6
 VQ_BF16_TRAIN_STEPS = 10
@@ -857,44 +877,49 @@ def kernel_cases(dev, dtype: str = "float32"):
              ((64, 256), True, 1, 2, 18), ((64, 256), False, 0, 0, 18),
              ((64, 128), False, 0, 2, 0), ((32, 256), False, 0, 2, 0),
              ((31, 512), False, 0, 2, 0)]
-    for nb in (2 * BATCH, BATCH):
-        for (h, c), relu, per_apply, per_step, conv_bwd in norms:
-            x = randn_dev(nb, h, h, c, scale=2.0, shift=0.5)
-            ga = randn_dev(c, scale=0.1, shift=1.0, t=torch.float32)
-            be = randn_dev(c, scale=0.1, t=torch.float32)
-            n = x.numel()
-            label = f"({nb},{h},{h},{c}) relu={relu}"
-            if per_step:
-                yield case(
-                    "instance_norm", label, per_step,
-                    per_apply if nb == BATCH else 0,
-                    lambda x=x, ga=ga, be=be, r=relu: instance_norm(
-                        x, ga, be, relu=r),
-                    lambda x=x, ga=ga, be=be, r=relu: instance_norm_reference(
-                        x, ga, be, relu=r),
-                    lambda x=x, ga=ga, be=be: F.instance_norm(
-                        x.permute(0, 3, 1, 2), weight=ga, bias=be, eps=1e-5),
-                    2 * isz * n, 6.0 * n)
-            dy = randn_dev(nb, h, h, c)
-            stats = _instance_norm_fwd(x, ga, be, 1e-5, relu)[1]
-            xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
-            gl = ga.detach().requires_grad_(True)
-            bl = be.detach().requires_grad_(True)
-            yl = F.instance_norm(xl, weight=gl, bias=bl, eps=1e-5)
-            if relu:
-                yl = torch.relu(yl)
-            dyl = dy.permute(0, 3, 1, 2)
+    # the contrastive trainers' tap on d128's norm (CUT, FastCUT and DCLGAN
+    # as published, batch 16): the norm without its ReLU, and its backward
+    # on that tap's cotangent; on no CycleGAN step or apply
+    taps = [((128, 128), False, 0, 0, 0)]
+    for nb, (h, c), relu, per_apply, per_step, conv_bwd, path in (
+            [(nb, *n, "cyclegan") for nb in (2 * BATCH, BATCH)
+             for n in norms] + [(2 * BATCH, *n, "cut") for n in taps]):
+        x = randn_dev(nb, h, h, c, scale=2.0, shift=0.5)
+        ga = randn_dev(c, scale=0.1, shift=1.0, t=torch.float32)
+        be = randn_dev(c, scale=0.1, t=torch.float32)
+        n = x.numel()
+        label = f"({nb},{h},{h},{c}) relu={relu}"
+        if per_step or path == "cut":
             yield case(
-                "instance_norm_bwd", label, per_step + conv_bwd, 0,
-                lambda x=x, ga=ga, be=be, dy=dy, st=stats, r=relu:
-                instance_norm_bwd(x, ga, be, dy, st, relu=r),
-                lambda x=x, ga=ga, be=be, dy=dy, st=stats, r=relu:
-                instance_norm_bwd_reference(x, ga, be, dy, st, relu=r),
-                lambda yl=yl, xl=xl, gl=gl, bl=bl, dyl=dyl: torch.autograd.grad(
-                    yl, (xl, gl, bl), dyl, retain_graph=True),
-                3 * isz * n, 14.0 * n,
-                check=_norm_bwd_check(x, ga, be, dy, relu))
-            del x, dy, xl, yl, stats
+                "instance_norm", label, per_step,
+                per_apply if nb == BATCH else 0,
+                lambda x=x, ga=ga, be=be, r=relu: instance_norm(
+                    x, ga, be, relu=r),
+                lambda x=x, ga=ga, be=be, r=relu: instance_norm_reference(
+                    x, ga, be, relu=r),
+                lambda x=x, ga=ga, be=be: F.instance_norm(
+                    x.permute(0, 3, 1, 2), weight=ga, bias=be, eps=1e-5),
+                2 * isz * n, 6.0 * n, path=path)
+        dy = randn_dev(nb, h, h, c)
+        stats = _instance_norm_fwd(x, ga, be, 1e-5, relu)[1]
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        gl = ga.detach().requires_grad_(True)
+        bl = be.detach().requires_grad_(True)
+        yl = F.instance_norm(xl, weight=gl, bias=bl, eps=1e-5)
+        if relu:
+            yl = torch.relu(yl)
+        dyl = dy.permute(0, 3, 1, 2)
+        yield case(
+            "instance_norm_bwd", label, per_step + conv_bwd, 0,
+            lambda x=x, ga=ga, be=be, dy=dy, st=stats, r=relu:
+            instance_norm_bwd(x, ga, be, dy, st, relu=r),
+            lambda x=x, ga=ga, be=be, dy=dy, st=stats, r=relu:
+            instance_norm_bwd_reference(x, ga, be, dy, st, relu=r),
+            lambda yl=yl, xl=xl, gl=gl, bl=bl, dyl=dyl: torch.autograd.grad(
+                yl, (xl, gl, bl), dyl, retain_graph=True),
+            3 * isz * n, 14.0 * n,
+            check=_norm_bwd_check(x, ga, be, dy, relu), path=path)
+        del x, dy, xl, yl, stats
     # conv3 + IN forward: the 18 trunk pairs of each apply, half with ReLU;
     # fp32 in the three-term TF32 split, held against float64 too
     h, c = 64, 256
@@ -1241,18 +1266,20 @@ def _flatten(tree, prefix: str = "") -> dict:
 
 
 def state_tensors(st) -> dict:
-    """Every tensor of a train state (CycleGAN or VQGAN), by a path name."""
+    """Every tensor of a train state (CycleGAN, VQGAN, CUT or DCLGAN), by a
+    path name."""
     out = _flatten({"g_params": st.g_params, "d_params": st.d_params,
                     "ema": st.ema, "g_mu": st.g_opt.mu, "g_nu": st.g_opt.nu,
                     "d_mu": st.d_opt.mu, "d_nu": st.d_opt.nu})
-    if hasattr(st, "pool_a"):
-        out["pool_a"], out["pool_b"] = st.pool_a.buffer, st.pool_b.buffer
+    for name in ("pool_a", "pool_b"):
+        if hasattr(st, name):
+            out[name] = getattr(st, name).buffer
     return out
 
 
 def state_counts(st) -> tuple:
-    pools = ((st.pool_a.count, st.pool_b.count) if hasattr(st, "pool_a")
-             else ())
+    pools = tuple(getattr(st, n).count for n in ("pool_a", "pool_b")
+                  if hasattr(st, n))
     return (st.step, st.g_opt.count, st.d_opt.count, *pools)
 
 
@@ -1725,6 +1752,309 @@ def lpips_parts(tr, state0, a, b, phase: str) -> dict:
     out["lpips_term_device_kernels"] = prof["device_kernels"]
     out["lpips_term_top"] = prof["top"][:5]
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase cut: CUT, FastCUT and DCLGAN as published, bf16, batch 16
+# ---------------------------------------------------------------------------
+
+# (preset, overrides, phase name): fastcut256 as published, and the CUT
+# recipe of cut256_multihost in one process (its multi-process run waits
+# for ROADMAP item 12), then dclgan256 as published. bf16, 256², batch 16,
+# augment=pallas, taps (0, 4, 8, 12, 16), 256 patches a tap, as published.
+CUT_CASES = (("fastcut256", [], "cut_fastcut256"),
+             ("cut256_multihost", ["parallel.multihost=false"],
+              "cut_cut256"),
+             ("dclgan256", [], "cut_dclgan256"))
+CUT_STEPS = 20
+CUT_EVAL_SAMPLES = 32  # eval-fid on the CUT run's checkpoint, a side
+
+
+def contrastive_per_step(kind: str, identity: bool) -> dict:
+    """Launches in one step of a contrastive trainer at the presets' nine
+    blocks and taps (0, 4, 8, 12, 16), unfused applies (the presets'): a
+    full generator apply launches 5 norms (d128's, a tap, with its ReLU
+    apart), 18 conv3+IN, both downsamples and the head; an encoder pass
+    stops at layer 16 (3 norms, 8 blocks' 16 conv3+IN, both downsamples);
+    a discriminator apply 3 norms. CUT: the translation and its query pass,
+    with the identity term the same again, and D once in the G loss and
+    twice in the D loss. DCLGAN: two translations, two identities, two
+    query passes through the other generator, and D_a and D_b once in the
+    G loss and twice each in the D loss. Every norm, conv3+IN, downsample
+    and head is differentiated, and each conv3+IN backward runs the norm
+    backward once."""
+    if kind == "dclgan":
+        full, enc, d = 4, 2, 6
+    else:
+        full = enc = 2 if identity else 1
+        d = 3
+    k2f = 5 * full + 3 * enc + 3 * d
+    k3 = 18 * full + 16 * enc
+    s2 = 2 * (full + enc)
+    return {k: 0 for k in PER_STEP} | {
+        "augment_batch": 2, "instance_norm": k2f,
+        "instance_norm_bwd": k2f + k3, "conv3_in_act": k3, "conv7": full,
+        "conv7_dgrad": full, "conv7_wgrad": full, "conv3s2": s2,
+        "conv3s2_dgrad": s2, "conv3s2_wgrad": s2}
+
+
+def compare_kernels_plain(tr, cfg, state0, a, b, loss_keys,
+                          phase: str) -> dict:
+    """The bf16 step's gradients at the step's own batch (16 for the
+    contrastive trainers as published), from ``state0`` and one set of
+    draws, three ways on the card: A16 with the kernels; B16 with the plain
+    versions, which must launch no kernel; A32 the fp32 step with the
+    kernels from the same parameters, what bf16 itself moves. As
+    ``compare_card_cpu_bf16`` holds them at batch 1: per network, the
+    kernels' gap A16-B16 (Euclidean, relative to B16's norm) within the
+    A16-A32 gap, which must lie under 0.5 (a zero gradient reads 1.0, so
+    the gate can fail); B16's losses within LOSS_RTOL_BF16 of A16's."""
+    import torch
+
+    from uig_torch import kernels as K
+    from uig_torch.config import apply_overrides
+
+    batch = (a, b)
+    draws = tr.draw(state0, a.shape[0], a.shape[1], a.shape[2])
+    tr32 = type(tr)(apply_overrides(cfg, ["model.compute_dtype=float32"]))
+    s32 = tr32.init_state(SEED)
+    p16, p32 = _flatten(state0.g_params), _flatten(s32.g_params)
+    if p16.keys() != p32.keys() or not all(
+            torch.equal(p16[k], p32[k]) for k in p16):
+        raise AssertionError(f"{phase}: the fp32 trainer's parameters differ")
+    K.reset_launch_counts()
+    ga, ma = tr._grads(state0.clone(), batch, draws)
+    launched = K.launch_counts()
+    with plain_versions():
+        K.reset_launch_counts()
+        gb, mb = tr._grads(state0.clone(), batch, draws)
+        if any(K.launch_counts().values()):
+            raise AssertionError(f"{phase}: plain run launched "
+                                 f"{K.launch_counts()}")
+    g32, m32 = tr32._grads(s32, batch, draws)
+    torch.cuda.synchronize()
+    del tr32, s32
+    out = {"batch": int(a.shape[0]), "kernel_launches": launched,
+           "loss_rel_err_A16_B16": {k: _rel(ma[k], mb[k]) for k in loss_keys},
+           "loss_rel_err_A16_A32": {k: _rel(ma[k], m32[k])
+                                    for k in loss_keys}}
+    fa, fb, f32 = (flat_grads(g) for g in (ga, gb, g32))
+    bad = {k: v for k, v in out["loss_rel_err_A16_B16"].items()
+           if v > LOSS_RTOL_BF16}
+    for net in ("g", "d"):
+        norm = sum((t.double() ** 2).sum().item() for k, t in fb.items()
+                   if k.startswith(net + "/")) ** 0.5
+        gaps = {"A16_B16": _norm_gap(fa, fb, net, norm),
+                "A16_A32": _norm_gap(fa, f32, net, norm)}
+        out[f"{net}_grad_norm_gap"] = gaps
+        if gaps["A16_B16"] > gaps["A16_A32"] or gaps["A16_A32"] >= 0.5:
+            bad[f"{net}_grad"] = gaps
+    emit({"phase": phase, **out})
+    if bad:
+        raise AssertionError(f"{phase}: kernels vs plain versions at batch "
+                             f"{out['batch']}: {bad}")
+    return out
+
+
+def phase_contrastive(preset: str, overrides: list, phase: str) -> tuple:
+    """One contrastive trainer as published (bf16, 256², batch 16): one
+    step's launches per kernel (``contrastive_per_step``); 3 steps twice
+    from one state, byte-identical; the step's gradients at batch 16 with
+    the kernels against the plain versions (``compare_kernels_plain``); the
+    batch-1 step on the card against the CPU (``compare_card_cpu_bf16``);
+    CUT_STEPS steps finite and timed (CUDA events; the median of the last
+    CUT_STEPS - 5), peak memory; one
+    profiled step, its designs held to STEP_DESIGNS["bfloat16"]. Returns
+    (launches, the trainer, the state after the timed steps, config)."""
+    import torch
+
+    from uig_torch import kernels as K
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.train.loop import build_trainer
+
+    t_phase = time.perf_counter()
+    cfg = apply_overrides(get_preset(preset), overrides)
+    m = cfg.model
+    if (m.compute_dtype, m.image_size, cfg.data.batch_size,
+            cfg.data.augment) != ("bfloat16", 256, 16, "pallas"):
+        raise AssertionError(f"{phase}: {preset} is not as published")
+    kind = "dclgan" if m.kind == "dclgan" else "cut"
+    load, batch = cfg.data.load_size, cfg.data.batch_size
+    rng = np.random.default_rng(SEED + 11)
+    a, b = (rng.integers(0, 256, (batch, load, load, 3), dtype=np.uint8)
+            for _ in range(2))
+    tr = build_trainer(cfg, "cuda")
+    state0 = tr.init_state(SEED)
+    want = contrastive_per_step(kind, cfg.loss.nce_include_identity)
+    out = {"phase": phase, "preset": preset, "overrides": overrides,
+           "compute_dtype": m.compute_dtype, "batch": batch,
+           "image": m.image_size, "taps": list(tr.taps),
+           "patches": m.nce_patches,
+           "flip_equivariance": cfg.loss.nce_flip_equivariance,
+           "nce_identity": cfg.loss.nce_include_identity}
+    loss_keys = (("g_loss", "d_loss", "g_adv", "nce_a", "nce_b", "g_idt",
+                  "d_a", "d_b") if kind == "dclgan" else
+                 ("g_loss", "d_loss", "g_adv", "nce", "nce_idt"))
+    torch.use_deterministic_algorithms(True)
+    try:
+        run_a = state0.clone()
+        K.reset_launch_counts()
+        run_a, _ = tr.train_step(run_a, (a, b))
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        if launches != want:
+            raise AssertionError(f"{phase}: launches per step {launches} "
+                                 f"!= {want}")
+        out["launches_per_step"] = launches
+        for _ in range(2):
+            run_a, _ = tr.train_step(run_a, (a, b))
+        run_b = state0.clone()
+        for _ in range(3):
+            run_b, _ = tr.train_step(run_b, (a, b))
+        ta, tb = state_tensors(run_a), state_tensors(run_b)
+        differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+        counts = [state_counts(r) for r in (run_a, run_b)]
+        if differ or counts[0] != counts[1]:
+            raise AssertionError(f"{phase}: two 3-step runs differ in "
+                                 f"{differ[:5]}")
+        out["byte_identical_3_steps"] = True
+        out["state_tensors_compared"] = len(ta)
+        del run_a, run_b, ta, tb
+        torch.cuda.empty_cache()
+
+        compare_kernels_plain(tr, cfg, state0, a, b, loss_keys,
+                              f"{phase}_kernels_vs_plain_batch{batch}")
+        torch.cuda.empty_cache()
+
+        cmp = compare_card_cpu_bf16(type(tr), cfg, a, b, loss_keys,
+                                    f"{phase}_card_vs_cpu_batch1")
+        out["card_vs_cpu_cpu_s"] = cmp["cpu_grads_s"]
+
+        st = state0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, hist = [], []
+        for _ in range(CUT_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            st, mets = tr.train_step(st, (a, b))
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+            hist.append({k: float(v) for k, v in mets.items()})
+        bad = [h for h in hist if not all(np.isfinite(v) for v in h.values())]
+        if bad:
+            raise AssertionError(f"{phase}: non-finite metrics {bad[0]}")
+        timed = times[5:]
+        step_ms = float(np.median(timed))
+        out.update(
+            steps=len(hist), first=hist[0], last=hist[-1],
+            step_ms_median=step_ms, step_ms_timed=len(timed),
+            step_ms_min=float(np.min(timed)),
+            step_ms_max=float(np.max(timed)),
+            img_per_s=1e3 * batch / step_ms,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            nvidia_smi=nvidia_smi())
+        prof = profile_call(lambda: tr.train_step(st, (a, b)),
+                            f"{phase}_profile", calls=True)
+        calls = prof.pop("calls")
+        prof["designs"] = designs_run(calls, phase, per_step=want,
+                                      expect=STEP_DESIGNS["bfloat16"])
+        out["profile"] = prof
+        out["elapsed_s"] = time.perf_counter() - t_phase
+        emit(out)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return launches, tr, st, cfg
+
+
+def _cut_run_commands(tr, state, cfg, work: str) -> dict:
+    """``translate --run-dir`` and ``eval-fid`` on a checkpoint of the CUT
+    run (a run directory written as ``fit`` writes it): the PNGs equal the
+    EMA's translate of the same images, b2a raises JAX's ValueError, and
+    eval-fid (random-conv features, CUT_EVAL_SAMPLES a side) gives the same
+    FID twice."""
+    import torch
+    from PIL import Image
+
+    from uig_torch.checkpoint import CheckpointManager, dump_run_config
+    from uig_torch.cli.eval_fid import run_eval_fid
+    from uig_torch.cli.translate import run_translate
+    from uig_torch.config import apply_overrides, config_to_dict
+    from uig_torch.kernels.augment import (center_crop_normalize,
+                                           denormalize_to_u8)
+
+    run = os.path.join(work, "cut_run")
+    cfg = apply_overrides(cfg, ["eval.fid_features=random"])
+    dump_run_config(config_to_dict(cfg), run)
+    mgr = CheckpointManager(os.path.join(run, "ckpt"))
+    mgr.save(int(state.step), state)
+    mgr.close()
+    load = cfg.data.load_size
+    imgs = np.random.default_rng(SEED + 12).integers(
+        0, 256, (FIT_IMAGES, load, load, 3), dtype=np.uint8)
+    src, dst = os.path.join(work, "cut_in"), os.path.join(work, "cut_out")
+    os.makedirs(src)
+    for i, im in enumerate(imgs):
+        Image.fromarray(im).save(os.path.join(src, f"im{i}.png"))
+    t0 = time.perf_counter()
+    n = run_translate(None, None, src, dst, run_dir=run, batch_size=4)
+    secs = time.perf_counter() - t0
+    got = np.stack([np.asarray(Image.open(os.path.join(dst, f"im{i}.png")))
+                    for i in range(FIT_IMAGES)])
+    with torch.inference_mode():
+        want = denormalize_to_u8(tr.translate(state.ema, center_crop_normalize(
+            torch.from_numpy(imgs).to(tr.device), cfg.model.image_size),
+            "a2b")).cpu().numpy()
+    if n != FIT_IMAGES or not np.array_equal(got, want):
+        raise AssertionError("cut: translate --run-dir differs from the "
+                             "EMA's translate")
+    try:
+        run_translate(None, None, src, dst + "_b2a", run_dir=run,
+                      direction="b2a")
+        raise AssertionError("cut: translate --run-dir b2a did not raise")
+    except ValueError as e:
+        refusal = str(e)
+    t0 = time.perf_counter()
+    fid = run_eval_fid(run, num_samples=CUT_EVAL_SAMPLES, batch_size=16)
+    fid_s = time.perf_counter() - t0
+    again = run_eval_fid(run, num_samples=CUT_EVAL_SAMPLES, batch_size=16)
+    if fid != again or not np.isfinite(fid):
+        raise AssertionError(f"cut: eval-fid {fid} then {again}")
+    return {"translate_run_dir_png_equal": True, "translate_images": n,
+            "translate_s": secs, "b2a_refused": refusal,
+            "eval_fid_random": fid, "eval_fid_repeat_bit_equal": True,
+            "eval_fid_s": fid_s, "eval_fid_samples": CUT_EVAL_SAMPLES}
+
+
+def phase_cut(work: str) -> dict:
+    """Phase cut: ``phase_contrastive`` for each of CUT_CASES, then the
+    CUT run's commands (``_cut_run_commands``). Returns {phase name: one
+    step's launches}."""
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = {}
+    for preset, overrides, name in CUT_CASES:
+        launches[name], tr, st, cfg = phase_contrastive(preset, overrides,
+                                                        name)
+        if preset == "cut256_multihost":
+            emit({"phase": "cut_commands", "preset": preset,
+                  **_cut_run_commands(tr, st, cfg, work)})
+        del tr, st
+        torch.cuda.empty_cache()
+    # the norm forward's counters (an exit count, then a count and a flag
+    # an image) are back at 0 after every plan of the phase: each launch's
+    # last block reset them
+    from uig_torch.kernels import norm
+    torch.cuda.synchronize()
+    left = {str(k): int(v.count_nonzero()) for k, v in norm._SYNC.items()}
+    if not left or any(left.values()):
+        raise AssertionError(f"cut: the norm forward's counters {left}")
+    emit({"phase": "cut", "norm_fwd_counters_nonzero": left,
+          "elapsed_s": time.perf_counter() - t_phase})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2373,7 +2703,13 @@ def phase_slice(weights: str):
           "generator_ms_per_batch": gen_ms,
           "generator_img_per_s": 1e3 * BATCH / gen_ms,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    prof = profile_call(lambda: tr(raw), "profile", calls=True)
+    # every profiled apply's output bit-equal to the first apply's: a
+    # witness that does not depend on the profiler's records
+    outs = []
+    prof = profile_call(lambda: outs.append(tr(raw)), "profile", calls=True)
+    if not all(np.array_equal(o, out1) for o in outs):
+        raise AssertionError("a profiled apply's output differs")
+    prof["profiled_outputs_bit_equal"] = len(outs)
     calls = prof.pop("calls")
     prof["designs"] = designs_run(calls, "slice", PER_APPLY,
                                   expect=SLICE_DESIGNS)
@@ -2390,28 +2726,53 @@ def profile_call(fn, phase: str, calls: bool = False) -> dict:
     profiler on; with ``calls``, also the launches by CUDA function
     name. A capture that recorded no device event at all (one or two
     sessions in a hundred on an H100, short ones) is taken again, up to
-    PROFILE_TRIES calls of ``fn``; the last capture counts."""
+    PROFILE_TRIES calls of ``fn``; the last capture counts. With ``calls``,
+    so is a capture that recorded fewer launches of a kernel's functions
+    than its wrapper counted over the same call (``short_records``); each
+    such capture is listed under ``lost_records``. Each capture opens with
+    a device spin of ~PROFILE_SPIN_MS that is waited for before ``fn``
+    runs: the profiler loses the first records of a capture, more of them
+    the older the process (``tools/cupti_records.py``), and then loses the
+    spin's (``spin_recorded`` false) instead of the call's. The spin is
+    left out of every reading."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from uig_torch import kernels as K
+
+    lost = []
     for attempt in range(1, PROFILE_TRIES + 1):
+        K.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(int(PROFILE_SPIN_MS * 2e6))  # ~2 GHz clock
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             host_ms = 1e3 * (time.perf_counter() - t0)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
+        counted = K.launch_counts()
         by_name: dict = {}
-        launch_api = [0, 0.0]
+        launches = []
+        spin = False
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
+                if "spin_kernel" in e.name:
+                    spin = True
+                    continue
                 n, us = by_name.get(e.name, (0, 0.0))
                 by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
             elif e.name.startswith(("cudaLaunch", "cuLaunch")):
-                launch_api[0] += 1
-                launch_api[1] += e.time_range.elapsed_us()
-        if by_name:
+                launches.append((e.time_range.start,
+                                 e.time_range.elapsed_us()))
+        launches = sorted(launches)[1:]  # the spin's launch first
+        launch_api = [len(launches), sum(us for _, us in launches)]
+        by_fn = launches_by_function({k: n for k, (n, _) in by_name.items()})
+        short = short_records(by_fn, counted) if calls and by_name else {}
+        if short:
+            lost.append({"attempt": attempt, "short": short})
+        if by_name and not short:
             break
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
@@ -2423,12 +2784,26 @@ def profile_call(fn, phase: str, calls: bool = False) -> dict:
            "device_busy_share": (busy_ms / wall_ms if by_name
                                  else "not measured"),
            "device_kernels": sum(n for n, _ in by_name.values()),
-           "capture_attempts": attempt,
+           "capture_attempts": attempt, "spin_recorded": spin,
            "top": [{"kernel": k[:70], "calls": n, "ms": us / 1e3}
                    for k, (n, us) in top]}
     if calls:
-        out["calls"] = launches_by_function(
-            {k: n for k, (n, _) in by_name.items()})
+        out["calls"] = by_fn
+        out["lost_records"] = lost
+    return out
+
+
+def short_records(calls: dict, counted: dict) -> dict:
+    """{kernel: [records, launches]} for each kernel of DESIGNS whose
+    functions a capture recorded fewer times (the most of any one design's
+    functions) than its wrapper counted launches over the same call."""
+    out = {}
+    for name, by_design in DESIGNS.items():
+        n = counted.get(name, 0)
+        seen = max(min(calls.get(fn, 0) for fn in design_functions(name, d))
+                   for d in by_design)
+        if seen < n:
+            out[name] = [seen, n]
     return out
 
 
@@ -2794,6 +3169,9 @@ def main() -> int:
         dev, TRAIN_OVERRIDES_BF16, "train_bf16")
     designs = {"float32": designs, "bfloat16": bf16_designs}
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        cut_launches = phase_cut(work)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         weights = os.path.join(tmp, "g_a2b.npz")
         seeded_flax_weights(weights)
@@ -2857,6 +3235,9 @@ def main() -> int:
                  "launches_per_bf16_translate_apply":
                      bf16_apply_launches[name],
                  "launches_eval": eval_launches[name],
+                 "launches_cut": {p: cut_launches[p][name]
+                                  for p in ("cut_fastcut256", "cut_cut256")},
+                 "launches_dclgan": cut_launches["cut_dclgan256"][name],
                  "max_abs_err": t["max_abs_err"], **t["step"],
                  "bound_by": t["bound_by"], "dtypes": list(dtypes),
                  "per_dtype": per_dtype, "per": per}

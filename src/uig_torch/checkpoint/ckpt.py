@@ -3,9 +3,10 @@ of the JAX package's ``checkpoint/ckpt.py`` (orbax there).
 
 A checkpoint is one directory per step, ``<directory>/<step>/``:
 
-* ``state.pt``: every tensor of the train state (``CycleGANState`` or
-  ``VQGANState``) under its path (``g_params/a2b/layers_0.kernel``,
-  ``g_opt/mu/...``, ``pool_a/buffer``, ...), on the CPU, in its exact dtype
+* ``state.pt``: every tensor of the train state (``CycleGANState``,
+  ``VQGANState``, ``CUTState`` or ``DCLGANState``) under its path
+  (``g_params/a2b/layers_0.kernel``, ``g_opt/mu/...``, ``pool_a/buffer``,
+  ...), on the CPU, in its exact dtype
   (``torch.save`` of a flat dict; read back with ``weights_only=True``);
 * ``meta.json``: the state's integers (``step``, ``seed``, both Adam counts,
   both pool counts), the numpy arrays of ``carried`` (JAX fields the port

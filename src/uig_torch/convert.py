@@ -1,6 +1,7 @@
-"""Carry module weights (generators, LPIPS's VGG), and whole CycleGAN and
-VQGAN train states, between the JAX package's layout and the port; and draw
-weights in that layout from a seed by flax's initializers.
+"""Carry module weights (generators, LPIPS's VGG), and whole CycleGAN,
+VQGAN, CUT and DCLGAN train states, between the JAX package's layout and
+the port; and draw weights in that layout from a seed by flax's
+initializers.
 
 The flat flax layout is the one ``scripts/import_cyclegan_torch.py`` writes
 and reads: ``np.savez`` of keys like ``params/layers_0/kernel`` and
@@ -64,43 +65,30 @@ def load_generator_npz(path: str) -> dict[str, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
-# the whole CycleGAN train state
+# whole train states
 # ---------------------------------------------------------------------------
-# A JAX ``CycleGANState`` crosses as a flat dict of numpy arrays: flax's
-# ``serialization.to_state_dict`` of the state, flattened with "/". Its keys:
-#   g_params/{a2b,b2a}/params/<path>       d_params/{a,b}/params/<path>
-#   ema/{a2b,b2a}/params/<path>
-#   {g,d}_opt/0/0/count, .../0/0/mu/<tree>/params/<path>, .../0/0/nu/...
-#       (optax.chain(optax.adam): ScaleByAdamState), {g,d}_opt/0/1/count
-#       (the learning-rate schedule's count, equal to Adam's)
-#   pool_{a,b}/buffer, pool_{a,b}/count, step, rng, ada_p
-# <path> is flax's module path ("layers_9/PadConv_0/kernel"); the port's
-# parameter name is the same path with dots.
+# A JAX train state crosses as a flat dict of numpy arrays: flax's
+# ``serialization.to_state_dict`` of the state, flattened with "/". A flax
+# module's parameters sit under ``.../params/<path>`` (<path> is flax's
+# module path, "layers_9/PadConv_0/kernel"; the port's parameter name is
+# the same path with dots), the trees above them are dicts:
+#   CycleGAN: g_params/{a2b,b2a}/params/<path>, d_params/{a,b}/params/<path>,
+#             ema/{a2b,b2a}/params/<path>, pool_a/..., pool_b/...
+#   VQGAN:    g_params/params/<path>, d_params/params/<path>,
+#             ema/a2b/params/<path>
+#   CUT:      g_params/gen/params/<path>, g_params/heads/<i>/params/<path>
+#             (JAX's list of heads, keyed "0", "1", ...),
+#             d_params/params/<path>, ema/a2b/params/<path>, pool_b/...
+#   DCLGAN:   g_params/{a2b,b2a}/{gen,heads/<i>}/params/<path>,
+#             d_params/{a,b}/params/<path>, ema/{a2b,b2a}/params/<path>,
+#             pool_a/..., pool_b/...
+# with {g,d}_opt/0/0/{count,mu/<tree>,nu/<tree>} (optax.chain(optax.adam):
+# ScaleByAdamState) and {g,d}_opt/0/1/count (the schedule's count, equal to
+# Adam's), pool_*/{buffer,count}, step, rng and, but for VQGAN, ada_p.
 
-_TREES = {"g_params": ("a2b", "b2a"), "d_params": ("a", "b"),
-          "ema": ("a2b", "b2a")}
+_STATE_TREES = ("g_params", "d_params", "ema")
 _ADAM = "/0/0/"
 _SCHED = "/0/1/count"
-
-
-def _tree_from_flat(flat: dict, prefix: str, names, device) -> dict:
-    out = {n: {} for n in names}
-    for key, value in flat.items():
-        if not key.startswith(prefix):
-            continue
-        name, rest = key[len(prefix):].split("/", 1)
-        if not rest.startswith(_PREFIX):
-            raise KeyError(f"{key!r}: expected {prefix}{name}/{_PREFIX}...")
-        out[name][rest[len(_PREFIX):].replace("/", ".")] = torch.from_numpy(
-            np.array(value, dtype=np.float32)).to(device)
-    return out
-
-
-def _flat_from_tree(tree: dict, prefix: str) -> dict:
-    out = {}
-    for name, sub in tree.items():
-        out.update(_flat_from_params(sub, f"{prefix}{name}/{_PREFIX}"))
-    return out
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -109,71 +97,103 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return np.array(t.detach().to(torch.float32).cpu(), dtype=np.float32)
 
 
-def state_from_jax_flat(flat: dict[str, np.ndarray], seed: int = 0,
-                        device="cpu", pool_dtype=torch.float32):
-    """A flat JAX ``CycleGANState`` -> the port's ``CycleGANState`` on
-    ``device``. ``seed`` seeds the port's own per-step draws (the JAX key
-    cannot be carried over and is kept in ``carried`` unchanged). The
-    replay pools hold the compute dtype, ``pool_dtype``; a bf16 pool crosses
-    as fp32 arrays (exact), which the caller widens from JAX's bf16."""
+def _nested_from_flat(flat: dict, root: str, device) -> dict:
+    out: dict = {}
+    pre = root + "/"
+    for key, value in flat.items():
+        if not key.startswith(pre):
+            continue
+        rest = key[len(pre):]
+        if rest.startswith(_PREFIX):
+            tree, path = [], rest[len(_PREFIX):]
+        elif "/" + _PREFIX in rest:
+            head, path = rest.split("/" + _PREFIX, 1)
+            tree = head.split("/")
+        else:
+            raise KeyError(f"{key!r}: expected {root}/.../{_PREFIX}...")
+        node = out
+        for name in tree:
+            node = node.setdefault(name, {})
+        node[path.replace("/", ".")] = torch.from_numpy(
+            np.array(value, dtype=np.float32)).to(device)
+    return out
+
+
+def _flat_from_nested(tree: dict, root: str) -> dict:
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return {f"{root}/{_PREFIX}" + name.replace(".", "/"): _numpy(t)
+                for name, t in tree.items()}
+    out = {}
+    for name, sub in tree.items():
+        out.update(_flat_from_nested(sub, f"{root}/{name}"))
+    return out
+
+
+def train_state_from_jax_flat(flat: dict[str, np.ndarray], state_cls,
+                              seed: int = 0, device="cpu",
+                              pool_dtype=torch.float32):
+    """A flat JAX train state -> the port's ``state_cls`` (``CycleGANState``,
+    ``VQGANState``, ``CUTState``, ``DCLGANState``) on ``device``. ``seed``
+    seeds the port's own per-step draws (the JAX key, and ``ada_p``, cannot
+    be used and stay in ``carried`` unchanged). The replay pools hold the
+    compute dtype, ``pool_dtype``; a bf16 pool crosses as fp32 arrays
+    (exact), which the caller widens from JAX's bf16."""
+    import dataclasses
+
     from uig_torch.train.pool import PoolState
-    from uig_torch.train.state import AdamState, CycleGANState
+    from uig_torch.train.state import AdamState
 
-    trees = {k: _tree_from_flat(flat, k + "/", names, device)
-             for k, names in _TREES.items()}
-
-    def adam(opt: str, names) -> AdamState:
+    def adam(opt: str) -> AdamState:
         count = int(flat[opt + _ADAM + "count"])
         sched = int(flat[opt + _SCHED])
         if sched != count:
             raise ValueError(f"{opt}: schedule count {sched} != Adam count "
                              f"{count}")
         return AdamState(
-            count, _tree_from_flat(flat, opt + _ADAM + "mu/", names, device),
-            _tree_from_flat(flat, opt + _ADAM + "nu/", names, device))
+            count, _nested_from_flat(flat, opt + _ADAM + "mu", device),
+            _nested_from_flat(flat, opt + _ADAM + "nu", device))
 
-    def pool(name: str) -> PoolState:
-        return PoolState(torch.from_numpy(np.array(
-            flat[name + "/buffer"], dtype=np.float32)).to(device, pool_dtype),
-            int(flat[name + "/count"]))
+    kw = {k: _nested_from_flat(flat, k, device) for k in _STATE_TREES}
+    kw.update(g_opt=adam("g_opt"), d_opt=adam("d_opt"),
+              step=int(flat["step"]), seed=int(seed),
+              carried={k: np.asarray(flat[k]) for k in ("rng", "ada_p")
+                       if k in flat})
+    for f in dataclasses.fields(state_cls):
+        if f.name.startswith("pool_"):
+            kw[f.name] = PoolState(torch.from_numpy(np.array(
+                flat[f.name + "/buffer"], dtype=np.float32)).to(
+                    device, pool_dtype), int(flat[f.name + "/count"]))
+    return state_cls(**kw)
 
-    carried = {k: np.asarray(flat[k]) for k in ("rng", "ada_p") if k in flat}
-    return CycleGANState(
-        g_params=trees["g_params"], d_params=trees["d_params"],
-        g_opt=adam("g_opt", _TREES["g_params"]),
-        d_opt=adam("d_opt", _TREES["d_params"]), ema=trees["ema"],
-        pool_a=pool("pool_a"), pool_b=pool("pool_b"),
-        step=int(flat["step"]), seed=int(seed), carried=carried)
 
+def jax_flat_from_train_state(state) -> dict[str, np.ndarray]:
+    """The inverse of ``train_state_from_jax_flat``, for any of the port's
+    train states: numpy arrays under the JAX state's flat keys (counts and
+    step as int32)."""
+    import dataclasses
 
-def jax_flat_from_state(state) -> dict[str, np.ndarray]:
-    """The inverse of ``state_from_jax_flat``: numpy arrays under the JAX
-    state's flat keys (counts and step as int32)."""
     flat = {}
-    for k in _TREES:
-        flat.update(_flat_from_tree(getattr(state, k), k + "/"))
-    for opt, st in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
-        flat.update(_flat_from_tree(st.mu, opt + _ADAM + "mu/"))
-        flat.update(_flat_from_tree(st.nu, opt + _ADAM + "nu/"))
+    for k in _STATE_TREES:
+        flat.update(_flat_from_nested(getattr(state, k), k))
+    for opt in ("g_opt", "d_opt"):
+        st = getattr(state, opt)
+        flat.update(_flat_from_nested(st.mu, opt + _ADAM + "mu"))
+        flat.update(_flat_from_nested(st.nu, opt + _ADAM + "nu"))
         flat[opt + _ADAM + "count"] = np.int32(st.count)
         flat[opt + _SCHED] = np.int32(st.count)
-    for name in ("pool_a", "pool_b"):
-        p = getattr(state, name)
-        flat[name + "/buffer"] = _numpy(p.buffer)
-        flat[name + "/count"] = np.int32(p.count)
+    for f in dataclasses.fields(state):
+        if f.name.startswith("pool_"):
+            p = getattr(state, f.name)
+            flat[f.name + "/buffer"] = _numpy(p.buffer)
+            flat[f.name + "/count"] = np.int32(p.count)
     flat["step"] = np.int32(state.step)
     flat.update(state.carried)
     return flat
 
 
 # ---------------------------------------------------------------------------
-# VQGAN: seeded weights and the whole train state
+# seeded weights
 # ---------------------------------------------------------------------------
-# A JAX ``VQGANState`` crosses as a flat dict as the CycleGAN state does. One
-# generator and one discriminator, so no network name after the tree:
-#   g_params/params/<path>    d_params/params/<path>    ema/a2b/params/<path>
-#   {g,d}_opt/0/0/count, {g,d}_opt/0/0/{mu,nu}/params/<path>,
-#   {g,d}_opt/0/1/count       rng, step
 
 
 def seeded_flax(model: nn.Module, seed: int) -> dict[str, np.ndarray]:
@@ -201,57 +221,4 @@ def seeded_flax(model: nn.Module, seed: int) -> dict[str, np.ndarray]:
         else:
             v = np.zeros(shape)
         flat[_PREFIX + name.replace(".", "/")] = v.astype(np.float32)
-    return flat
-
-
-def _params_from_flat(flat: dict, prefix: str, device) -> dict:
-    return {k[len(prefix):].replace("/", "."): torch.from_numpy(
-        np.array(v, dtype=np.float32)).to(device)
-        for k, v in flat.items() if k.startswith(prefix)}
-
-
-def _flat_from_params(params: dict, prefix: str) -> dict:
-    return {prefix + name.replace(".", "/"): _numpy(t)
-            for name, t in params.items()}
-
-
-def vqgan_state_from_jax_flat(flat: dict[str, np.ndarray], seed: int = 0,
-                              device="cpu"):
-    """A flat JAX ``VQGANState`` -> the port's ``VQGANState`` on ``device``;
-    ``seed`` seeds the port's own draws (the JAX key stays in
-    ``carried``)."""
-    from uig_torch.train.state import AdamState, VQGANState
-
-    def adam(opt: str) -> AdamState:
-        count = int(flat[opt + _ADAM + "count"])
-        if int(flat[opt + _SCHED]) != count:
-            raise ValueError(f"{opt}: schedule count {int(flat[opt + _SCHED])}"
-                             f" != Adam count {count}")
-        return AdamState(
-            count,
-            _params_from_flat(flat, opt + _ADAM + "mu/" + _PREFIX, device),
-            _params_from_flat(flat, opt + _ADAM + "nu/" + _PREFIX, device))
-
-    carried = {k: np.asarray(flat[k]) for k in ("rng",) if k in flat}
-    return VQGANState(
-        g_params=_params_from_flat(flat, "g_params/" + _PREFIX, device),
-        d_params=_params_from_flat(flat, "d_params/" + _PREFIX, device),
-        g_opt=adam("g_opt"), d_opt=adam("d_opt"),
-        ema={"a2b": _params_from_flat(flat, "ema/a2b/" + _PREFIX, device)},
-        step=int(flat["step"]), seed=int(seed), carried=carried)
-
-
-def jax_flat_from_vqgan_state(state) -> dict[str, np.ndarray]:
-    """The inverse of ``vqgan_state_from_jax_flat``."""
-    flat = {}
-    flat.update(_flat_from_params(state.g_params, "g_params/" + _PREFIX))
-    flat.update(_flat_from_params(state.d_params, "d_params/" + _PREFIX))
-    flat.update(_flat_from_params(state.ema["a2b"], "ema/a2b/" + _PREFIX))
-    for opt, st in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
-        flat.update(_flat_from_params(st.mu, opt + _ADAM + "mu/" + _PREFIX))
-        flat.update(_flat_from_params(st.nu, opt + _ADAM + "nu/" + _PREFIX))
-        flat[opt + _ADAM + "count"] = np.int32(st.count)
-        flat[opt + _SCHED] = np.int32(st.count)
-    flat["step"] = np.int32(state.step)
-    flat.update(state.carried)
     return flat

@@ -8,14 +8,19 @@ from uig_torch.models.resnet_gen import ResNetGenerator
 from uig_torch.models.vqgan import VQGANGenerator
 
 
+# the kinds the port runs in bf16; the ResNet generator serves all but vqgan
+BF16_KINDS = ("cyclegan", "vqgan", "cut", "dclgan")
+RESNET_KINDS = ("cyclegan", "cut", "dclgan")
+
+
 def model_dtype(model_cfg, dtype_field: str) -> torch.dtype:
     """The torch dtype of ``model_cfg.<dtype_field>`` (``eval_dtype`` for
     serving, ``compute_dtype`` for training): float32 always; bfloat16 for
-    CycleGAN and VQGAN, in training and in serving."""
+    the kinds in ``BF16_KINDS``, in training and in serving."""
     name = getattr(model_cfg, dtype_field)
     if name == "float32":
         return torch.float32
-    if name == "bfloat16" and model_cfg.kind in ("cyclegan", "vqgan"):
+    if name == "bfloat16" and model_cfg.kind in BF16_KINDS:
         return torch.bfloat16
     if name == "bfloat16":
         why = (f"kind={model_cfg.kind!r} runs in float32 only (ROADMAP: "
@@ -29,12 +34,13 @@ def model_dtype(model_cfg, dtype_field: str) -> torch.dtype:
 
 def generator_from_config(model_cfg, dtype_field: str = "eval_dtype"):
     """The generator of a ``ModelConfig``, by ``model.kind``: the ResNet
-    generator for ``cyclegan``, ``VQGANGenerator`` for ``vqgan``, in the
+    generator for ``cyclegan``, ``cut`` and ``dclgan``, ``VQGANGenerator``
+    for ``vqgan``, in the
     dtype of ``model.<dtype_field>`` (``model_dtype``): serving reads
     ``model.eval_dtype``, training ``model.compute_dtype``."""
     dtype = model_dtype(model_cfg, dtype_field)
     m = model_cfg
-    if m.kind == "cyclegan":
+    if m.kind in RESNET_KINDS:
         return ResNetGenerator(
             out_channels=m.out_channels, base_features=m.g_base_features,
             n_res_blocks=m.n_res_blocks, norm=m.norm, pad_mode=m.padding,
@@ -52,7 +58,8 @@ def generator_from_config(model_cfg, dtype_field: str = "eval_dtype"):
             attn_resolutions=m.vq_attn_resolutions, resolution=m.image_size,
             in_channels=m.in_channels, dtype=dtype)
     raise NotImplementedError(
-        f"model.kind={m.kind!r}: the port has cyclegan and vqgan only")
+        f"model.kind={m.kind!r}: the port has {', '.join(RESNET_KINDS)} "
+        "and vqgan only")
 
 
 __all__ = [

@@ -229,6 +229,94 @@ class UpsampleConv(nn.Module):
         return _add_bias(_nhwc(y), ct.bias, dt)
 
 
+def _blur_weight(k: int, c: int, gain: float, device,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The depthwise (c, 1, k, k) weight of the normalized binomial filter
+    of k taps (row k - 1 of Pascal's triangle, outer product, over its sum)
+    times ``gain``, computed in fp32 and cast to ``dtype``."""
+    a = torch.ones(1)
+    for _ in range(k - 1):
+        a = torch.cat([a, torch.zeros(1)]) + torch.cat([torch.zeros(1), a])
+    filt = torch.outer(a, a)
+    filt = (filt / filt.sum() * gain).to(device, dtype)
+    return filt.expand(c, 1, k, k).contiguous()
+
+
+def _pad_hw(x: torch.Tensor, lo: int, hi: int, mode: str) -> torch.Tensor:
+    """Pad the two spatial dims of NHWC ``x`` by ``lo`` before and ``hi``
+    after: ``reflect`` (no edge repeat), ``repl`` (the edge repeated) or
+    ``zeros``. Slices and concatenation, so the adjoint sums the ring onto
+    its sources in a fixed order (PyTorch's reflect and replicate pad
+    backwards accumulate with atomics on CUDA)."""
+    if mode == "zeros":
+        return F.pad(x, (0, 0, lo, hi, lo, hi))
+    for dim in (1, 2):
+        n = x.shape[dim]
+        if mode == "reflect":
+            before = x.narrow(dim, 1, lo).flip(dim) if lo else None
+            after = x.narrow(dim, n - 1 - hi, hi).flip(dim) if hi else None
+        elif mode == "repl":
+            edge0, edge1 = x.narrow(dim, 0, 1), x.narrow(dim, n - 1, 1)
+            before = torch.cat([edge0] * lo, dim) if lo else None
+            after = torch.cat([edge1] * hi, dim) if hi else None
+        else:
+            raise ValueError(f"unknown padding mode {mode!r}")
+        x = torch.cat([t for t in (before, x, after) if t is not None], dim)
+    return x
+
+
+class BlurPool(nn.Module):
+    """Antialiased downsampling (Zhang 2019 blur-pool), the official CUT
+    generator's ``Downsample``: the normalized binomial filter of
+    ``filt_size`` taps, depthwise, at ``stride``, after padding
+    (filt - 1) // 2 before and the rest after in ``pad_mode``. No
+    parameters. In the compute ``dtype`` (the filter cast to it), a
+    depthwise ``F.conv2d``, as JAX runs it in XLA."""
+
+    def __init__(self, filt_size: int = 3, stride: int = 2,
+                 pad_mode: str = "reflect",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.filt_size, self.stride = filt_size, stride
+        self.pad_mode, self.dtype = pad_mode, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c, k = x.shape[-1], self.filt_size
+        w = _blur_weight(k, c, 1.0, x.device, self.dtype)
+        lo = (k - 1) // 2
+        xp = _pad_hw(x, lo, k - 1 - lo, self.pad_mode).to(self.dtype)
+        return _nhwc(F.conv2d(_nchw(xp), w, stride=self.stride, groups=c))
+
+
+class BlurUpsample(nn.Module):
+    """Antialiased 2x upsampling, the official CUT generator's
+    ``Upsample``: pad 1 in ``pad_mode`` (``repl`` by default), then the
+    depthwise transposed conv with the binomial filter scaled by stride^2
+    at stride 2 and padding 1 + (filt - 1) // 2, cropped to exactly 2x
+    (torch's ``[1:-1]`` for an even filter, ``[1:]`` for an odd one). No
+    parameters. In the compute ``dtype``, a depthwise
+    ``F.conv_transpose2d``."""
+
+    def __init__(self, filt_size: int = 4, stride: int = 2,
+                 pad_mode: str = "repl", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if stride != 2:
+            raise NotImplementedError("BlurUpsample supports stride 2")
+        if pad_mode not in ("repl", "reflect"):
+            raise ValueError(f"unknown padding mode {pad_mode!r}")
+        self.filt_size, self.stride = filt_size, stride
+        self.pad_mode, self.dtype = pad_mode, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c, k = x.shape[-1], self.filt_size
+        w = _blur_weight(k, c, self.stride ** 2, x.device, self.dtype)
+        xp = _pad_hw(x, 1, 1, self.pad_mode).to(self.dtype)
+        y = F.conv_transpose2d(_nchw(xp), w, stride=self.stride,
+                               padding=1 + (k - 1) // 2, groups=c)
+        y = y[:, :, 1:, 1:] if k % 2 else y[:, :, 1:-1, 1:-1]
+        return _nhwc(y)
+
+
 class ResnetBlock(nn.Module):
     """CycleGAN residual block: [pad1 conv3 IN ReLU pad1 conv3 IN] + skip.
     Each conv+IN(+ReLU) pair is one call of the fused CUDA kernel of

@@ -73,8 +73,8 @@ def exact_for(dtype: torch.dtype):
 
 
 class Translator:
-    """``y_u8 = translator(x_u8)`` for the generator of ``config`` (CycleGAN
-    or VQGAN).
+    """``y_u8 = translator(x_u8)`` for the generator of ``config`` (CycleGAN,
+    CUT, DCLGAN or VQGAN; CUT translates a2b only).
 
     ``config``: preset name or ``config.json``. ``weights``: flat flax
     ``.npz`` of one generator, or its state dict (tensors keyed as the
@@ -92,6 +92,8 @@ class Translator:
             raise ValueError(f"direction must be a2b or b2a, got {direction!r}")
         self.device = resolve_device(device)
         self.cfg = load_serving_config(config, overrides)
+        if self.cfg.model.kind == "cut" and direction != "a2b":
+            raise ValueError("CUT is single-direction (a2b)")
         self.generator = generator_from_config(self.cfg.model)
         if isinstance(weights, dict):
             state = weights
@@ -131,6 +133,9 @@ class Translator:
         the newest) under ``ckpt/``."""
         from uig_torch.checkpoint import CheckpointManager
 
+        if load_config(os.path.join(run_dir, "config.json")).model.kind \
+                == "cut" and direction != "a2b":
+            raise ValueError("CUT is single-direction (a2b)")
         ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
         if step is None:
             step = ckpt.latest_step()

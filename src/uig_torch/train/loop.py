@@ -40,8 +40,6 @@ from uig_torch.runtime import resolve_device
 # model kinds the JAX package trains and the port does not yet, with the
 # ROADMAP §1 item that ports each
 UNPORTED_KINDS = {
-    "cut": "item 9, the other ResNet-generator trainers",
-    "dclgan": "item 9, the other ResNet-generator trainers",
     "gcgan": "item 9, the other ResNet-generator trainers",
     "unit": "item 10, other families",
     "munit": "item 10, other families",
@@ -77,7 +75,8 @@ def fix_cublas_workspace() -> None:
 
 
 def build_trainer(cfg: Config, device="cuda"):
-    """The trainer of ``cfg.model.kind``: ``cyclegan`` or ``vqgan``."""
+    """The trainer of ``cfg.model.kind``: ``cyclegan``, ``vqgan``, ``cut``
+    (CUT and FastCUT) or ``dclgan``."""
     kind = cfg.model.kind
     if kind == "cyclegan":
         from uig_torch.train.cyclegan import CycleGANTrainer
@@ -87,6 +86,14 @@ def build_trainer(cfg: Config, device="cuda"):
         from uig_torch.train.vqgan import VQGANTrainer
 
         return VQGANTrainer(cfg, device)
+    if kind == "cut":
+        from uig_torch.train.cut import CUTTrainer
+
+        return CUTTrainer(cfg, device)
+    if kind == "dclgan":
+        from uig_torch.train.dclgan import DCLGANTrainer
+
+        return DCLGANTrainer(cfg, device)
     if kind in UNPORTED_KINDS:
         raise NotImplementedError(
             f"model.kind={kind!r} is not ported yet (ROADMAP §1 "

@@ -1,7 +1,8 @@
 """GAN, cycle, identity and L1 losses, in PyTorch.
 
 The port of the JAX package's ``train/losses.py`` (``gan_loss_g``,
-``gan_loss_d``, ``cycle_loss``, ``identity_loss``, ``l1_loss``). Every loss is computed
+``gan_loss_d``, ``cycle_loss``, ``identity_loss``, ``l1_loss``,
+``patch_nce_loss``). Every loss is computed
 in fp32 whatever the compute dtype. A logit argument may be one map or a
 tuple/list of maps (multi-scale PatchGAN), whose losses sum over scales.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
@@ -62,3 +64,19 @@ def identity_loss(real: torch.Tensor, same: torch.Tensor) -> torch.Tensor:
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """mean |a - b|: the VQGAN reconstruction loss."""
     return torch.mean(torch.abs(_f32(a) - _f32(b)))
+
+
+def patch_nce_loss(feat_q: torch.Tensor, feat_k: torch.Tensor,
+                   temperature: float = 0.07) -> torch.Tensor:
+    """PatchNCE (CUT): ``feat_q`` (B, N, D) projected features of the
+    translated patches (queries), ``feat_k`` (B, N, D) those of the input
+    patches at the same spatial ids (keys). For each (b, n) the positive is
+    the key at n and the negatives are the other N - 1 keys of the same
+    image. fp32 from the first cast; one (N, N) product per image, which
+    runs without TF32 under the trainers' ``exact_fp32``/``exact_bf16``."""
+    q, k = _f32(feat_q), _f32(feat_k)
+    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-10)
+    k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-10)
+    logits = torch.bmm(q, k.transpose(1, 2)) / temperature
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.diagonal(logp, dim1=1, dim2=2))

@@ -12,6 +12,7 @@ Gradient clipping, weight decay and SGD are not ported yet and raise.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 from dataclasses import dataclass, field
 
@@ -147,8 +148,32 @@ class Adam:
         return state
 
 
+class _TrainState:
+    """``clone`` and ``to``, shared by the train states: dataclasses of
+    parameter trees, Adam states, replay pools and integers."""
+
+    def clone(self):
+        """A deep copy (``train_step`` consumes the state it is given)."""
+        return copy.deepcopy(self)
+
+    def to(self, device):
+        """A deep copy with every tensor on ``device``."""
+        def move(value):
+            if isinstance(value, dict):
+                return tree_map(lambda t: t.to(device, copy=True), value)
+            if isinstance(value, AdamState):
+                return AdamState(value.count, move(value.mu), move(value.nu))
+            if isinstance(value, PoolState):
+                return PoolState(value.buffer.to(device, copy=True),
+                                 value.count)
+            return copy.copy(value)
+
+        return type(self)(**{f.name: move(getattr(self, f.name))
+                             for f in dataclasses.fields(self)})
+
+
 @dataclass
-class CycleGANState:
+class CycleGANState(_TrainState):
     """Two generators, two discriminators, their Adam states, the EMA of the
     generators, two replay pools and the step. Parameter trees are dicts of
     fp32 tensors keyed as the modules' state dicts: ``g_params`` and
@@ -166,38 +191,9 @@ class CycleGANState:
     seed: int
     carried: dict = field(default_factory=dict)
 
-    def clone(self) -> "CycleGANState":
-        """A deep copy (``train_step`` consumes the state it is given)."""
-        return copy.deepcopy(self)
-
-    def to(self, device) -> "CycleGANState":
-        """A deep copy with every tensor on ``device``."""
-        def move(tree):
-            return tree_map(lambda t: t.to(device, copy=True), tree)
-
-        return CycleGANState(
-            g_params=move(self.g_params), d_params=move(self.d_params),
-            g_opt=AdamState(self.g_opt.count, move(self.g_opt.mu),
-                            move(self.g_opt.nu)),
-            d_opt=AdamState(self.d_opt.count, move(self.d_opt.mu),
-                            move(self.d_opt.nu)),
-            ema=move(self.ema),
-            pool_a=PoolState(self.pool_a.buffer.to(device, copy=True),
-                             self.pool_a.count),
-            pool_b=PoolState(self.pool_b.buffer.to(device, copy=True),
-                             self.pool_b.count),
-            step=self.step, seed=self.seed, carried=dict(self.carried))
-
-
-def _adam_to(st: AdamState, device) -> AdamState:
-    def move(tree):
-        return tree_map(lambda t: t.to(device, copy=True), tree)
-
-    return AdamState(st.count, move(st.mu), move(st.nu))
-
 
 @dataclass
-class VQGANState:
+class VQGANState(_TrainState):
     """The VQGAN trainer's state: one generator (the shared autoencoder) and
     one discriminator, their Adam states, the EMA of the generator under
     ``"a2b"`` (translate is reconstruct), and the step. Parameter trees are
@@ -213,17 +209,31 @@ class VQGANState:
     seed: int
     carried: dict = field(default_factory=dict)
 
-    def clone(self) -> "VQGANState":
-        """A deep copy (``train_step`` consumes the state it is given)."""
-        return copy.deepcopy(self)
 
-    def to(self, device) -> "VQGANState":
-        """A deep copy with every tensor on ``device``."""
-        def move(tree):
-            return tree_map(lambda t: t.to(device, copy=True), tree)
+@dataclass
+class CUTState(_TrainState):
+    """The CUT (and FastCUT) trainer's state: ``g_params`` holds the
+    generator under ``"gen"`` and the projection heads under ``"heads"``
+    (one flat dict a tap, keyed ``"0"``, ``"1"``, ... in tap order), one Adam
+    state over both; one discriminator; the EMA of the generator under
+    ``"a2b"``; one replay pool of fake B images; the step. ``carried``
+    keeps JAX state fields the port does not use (the PRNG key,
+    ``ada_p``)."""
+    g_params: dict
+    d_params: dict
+    g_opt: AdamState
+    d_opt: AdamState
+    ema: dict
+    pool_b: PoolState
+    step: int
+    seed: int
+    carried: dict = field(default_factory=dict)
 
-        return VQGANState(
-            g_params=move(self.g_params), d_params=move(self.d_params),
-            g_opt=_adam_to(self.g_opt, device),
-            d_opt=_adam_to(self.d_opt, device), ema=move(self.ema),
-            step=self.step, seed=self.seed, carried=dict(self.carried))
+
+@dataclass
+class DCLGANState(CycleGANState):
+    """The DCLGAN trainer's state, in ``CycleGANState``'s fields:
+    ``g_params`` under ``"a2b"`` and ``"b2a"`` are each ``{"gen":
+    generator, "heads": {"0": head, ...}}`` (each direction owns its
+    generator and the heads over its encoder's taps), one Adam state over
+    both; the rest as CycleGAN's."""

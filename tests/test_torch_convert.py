@@ -19,9 +19,10 @@ from uig_torch.config import config_to_dict, get_preset, load_config
 from uig.models import PatchDiscriminator as JaxDisc
 from uig_torch.convert import (flax_from_generator_state,
                                generator_state_from_flax,
-                               jax_flat_from_state, load_generator_npz,
-                               state_from_jax_flat)
+                               jax_flat_from_train_state, load_generator_npz,
+                               train_state_from_jax_flat)
 from uig_torch.models import PatchDiscriminator, ResNetGenerator
+from uig_torch.train import CycleGANState
 
 
 def _flax_flat(base=8, blocks=2, upsample="conv_transpose", seed=0):
@@ -148,7 +149,7 @@ def _jax_state_flat(seed=0):
 
 def test_train_state_round_trip_and_names():
     flat = _jax_state_flat()
-    state = state_from_jax_flat(flat, seed=3)
+    state = train_state_from_jax_flat(flat, CycleGANState, seed=3)
     assert state.step == 5 and state.seed == 3
     assert state.g_opt.count == state.d_opt.count == 5
     assert state.pool_a.count == 3
@@ -160,7 +161,7 @@ def test_train_state_round_trip_and_names():
                         (state.d_opt.nu, d_names)):
         for sub in tree.values():
             assert set(sub) == names
-    back = jax_flat_from_state(state)
+    back = jax_flat_from_train_state(state)
     assert set(back) == set(flat)
     for k, v in flat.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
@@ -174,7 +175,7 @@ def test_train_state_checks_counts_and_keys():
     flat = _jax_state_flat()
     bad = dict(flat, **{"g_opt/0/1/count": np.int32(4)})
     with pytest.raises(ValueError, match="schedule count"):
-        state_from_jax_flat(bad)
+        train_state_from_jax_flat(bad, CycleGANState)
     bad = dict(flat, **{"g_params/a2b/layers_0/kernel": np.zeros(1)})
     with pytest.raises(KeyError, match="params/"):
-        state_from_jax_flat(bad)
+        train_state_from_jax_flat(bad, CycleGANState)

@@ -194,24 +194,24 @@ def _device_events(fn) -> list:
 
 def _captured(fn) -> list:
     """The device events of one call of ``fn``, in order of start. The
-    capture opens with a marker fill, which is dropped: CUPTI at times
-    loses a session's first device record (on an H100 the first of a
-    K4s forward's two kernels, twice in 231 tests). A capture that
-    recorded nothing of ``fn`` is taken again, up to three calls."""
+    capture opens with a device spin of ~50 ms, waited for and dropped:
+    torch.profiler loses the first device records of a capture, more of
+    them the older the process (``tools/cupti_records.py``), and then
+    loses the spin's. A capture that recorded nothing of ``fn`` is taken
+    again, up to three calls."""
     from torch.profiler import ProfilerActivity, profile
 
-    marker = torch.empty(1, device="cuda")
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            marker.fill_(1.0)
+            torch.cuda._sleep(100_000_000)  # ~50 ms at ~2 GHz
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "spin_kernel" not in e.name),
                         key=lambda e: e.time_range.start)
-        if events and "FillFunctor" in events[0].name:
-            events = events[1:]
         if events:
             break
     return events
@@ -1353,3 +1353,154 @@ def test_eval_fid_repeats_bit_equal(dev, eval_run, capsys):
         outs.append(json.loads(capsys.readouterr().out.splitlines()[-1]))
     assert outs[0] == outs[1] and outs[2] == outs[3]
     assert np.isfinite(outs[0]["fid"]) and outs[0]["fid"] > 0
+
+
+# ------------------------------------------------------- contrastive (CUT) --
+
+@pytest.mark.parametrize("dt,shape", [
+    (torch.float32, (2, 33, 35, 64)), (BF, (2, 33, 35, 64)),
+    (BF, (16, 128, 128, 128))], ids=["fp32", "bf16", "bf16-path"])
+def test_instance_norm_at_a_feature_tap(dev, dt, shape):
+    """A CUT tap on a norm before its ReLU (d128's, layer 4): K2f runs with
+    relu=False and the ReLU after it, and K2b takes the sum of the NCE
+    gradient at the norm's output and the ReLU-masked one; against the
+    plain versions of both on the card. bf16 within 1 bf16 ulp (dx) and
+    dgamma/dbeta (fp32) within 1e-4 relative; fp32 within 1e-4."""
+    c = shape[-1]
+    x = _randn_dev(dev, *shape, scale=2.0, shift=0.5).to(dt)
+    g = _randn_dev(dev, c, scale=0.2, shift=1.0, seed=1)
+    b = _randn_dev(dev, c, scale=0.2, seed=2)
+    ct_tap = _randn_dev(dev, *shape, seed=3).to(dt)
+    ct_relu = _randn_dev(dev, *shape, seed=4).to(dt)
+
+    def tap(fn):
+        ins = [t.detach().clone().requires_grad_(True) for t in (x, g, b)]
+        y = fn(*ins)
+        loss = ((y * ct_tap).float().sum()
+                + (torch.relu(y) * ct_relu).float().sum())
+        return [y] + list(torch.autograd.grad(loss, ins))
+
+    before = (instance_norm.launches, instance_norm_bwd.launches)
+    got = tap(lambda *a: instance_norm_act(*a, relu=False))
+    assert (instance_norm.launches, instance_norm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = tap(lambda *a: instance_norm_reference(*a, relu=False))
+    for i, (u, v) in enumerate(zip(got, want)):
+        if dt == BF and i < 2:
+            _ulps_close(u, v)
+        else:
+            _rel_close(u.float(), v.float())
+    again = tap(lambda *a: instance_norm_act(*a, relu=False))
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+def test_instance_norm_plans_at_the_contrastive_batches(dev):
+    """K2f's cooperative plan at CUT's batch 16 and the fused CUT apply's
+    32, for each of the generator's norm shapes, runs against the plain
+    version (bf16, ReLU off as at a tap and on)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in ((32, 256, 256, 64), (16, 64, 64, 256), (32, 64, 64, 256)):
+        b, h, w, c = shape
+        plan = norm.fwd_plan(b, h * w, c, 2, sms)
+        assert plan.chunks >= 1
+        for relu in (False, True):
+            _in_fwd_case(dev, shape, BF, relu)
+
+
+def _contrastive_counts(kind: str, n_blocks: int, identity: bool) -> dict:
+    """Kernel launches of one step of the contrastive trainers with taps
+    (0, 4, 8, 10) on a generator of ``n_blocks`` (>= 2) blocks, unfused:
+    a full apply launches 5 norms, 2 conv3+IN a block, 2 downsamples and
+    the head; an encoder pass to layer 10 the 3 encoder norms, 4 conv3+IN
+    and both downsamples; a discriminator apply 2 norms (d_layers 2). Each
+    norm, conv3+IN, downsample and head is differentiated, and each
+    conv3+IN backward runs the norm backward once."""
+    if kind == "dclgan":  # 2 translations, 2 identities, 2 query passes
+        full, enc = 4, 2
+    else:  # the translation and its query pass, and the identity's
+        full = enc = 2 if identity else 1
+    d_applies = {"fastcut": 3, "cut": 3, "dclgan": 6}[kind]
+    k2f = 5 * full + 3 * enc + 2 * d_applies
+    k3 = 2 * n_blocks * full + 4 * enc
+    s2 = 2 * (full + enc)
+    return {"augment_batch": 2, "instance_norm": k2f,
+            "instance_norm_bwd": k2f + k3, "conv3_in_act": k3,
+            "conv7": full, "conv7_dgrad": full, "conv7_wgrad": full,
+            "conv3s2": s2, "conv3s2_dgrad": s2, "conv3s2_wgrad": s2}
+
+
+@pytest.mark.parametrize("preset,kind", [
+    ("fastcut256", "fastcut"), ("cut256_multihost", "cut"),
+    ("dclgan256", "dclgan")])
+def test_contrastive_step_launches(dev, preset, kind):
+    """One CUT, FastCUT or DCLGAN step (bf16, 32², two blocks) launches each
+    kernel of the path the counted times, and two runs from one state are
+    byte-identical."""
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.train.loop import build_trainer
+
+    cfg = apply_overrides(get_preset(preset), [
+        "model.image_size=32", "data.load_size=36", "data.batch_size=2",
+        "model.g_base_features=8", "model.n_res_blocks=2",
+        "model.d_base_features=8", "model.d_layers=2",
+        "model.nce_layers=(0,4,8,10)", "model.nce_patches=16",
+        "model.nce_proj_dim=16", "parallel.multihost=false"])
+    tr = build_trainer(cfg, "cuda")
+    rng = np.random.default_rng(0)
+    batch = tuple(rng.integers(0, 256, (2, 36, 36, 3), dtype=np.uint8)
+                  for _ in range(2))
+    s0 = tr.init_state(0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        K.reset_launch_counts()
+        s1, m = tr.train_step(s0.clone(), batch)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in K.launch_counts().items() if v}
+        s2, _ = tr.train_step(s0.clone(), batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert counts == _contrastive_counts(
+        kind, 2, cfg.loss.nce_include_identity), counts
+    assert all(np.isfinite(float(v)) for v in m.values())
+    from uig_torch.convert import jax_flat_from_train_state
+
+    f1, f2 = jax_flat_from_train_state(s1), jax_flat_from_train_state(s2)
+    assert all(np.array_equal(f1[k], f2[k]) for k in f1)
+
+
+def test_antialias_step_is_deterministic_on_the_card(dev):
+    """model.resample=antialias (BlurPool, BlurUpsample: depthwise cuDNN
+    convs and the pads' slices) trains on the card under deterministic
+    algorithms, as ``fit`` runs it: two steps from one state are
+    byte-identical, in bf16 and fp32, and the generator's output is
+    within 1e-4 (fp32) of the CPU's."""
+    from uig_torch.config import apply_overrides, get_preset
+    from uig_torch.convert import jax_flat_from_train_state
+    from uig_torch.train import CycleGANTrainer
+
+    for dtype in ("bfloat16", "float32"):
+        cfg = apply_overrides(get_preset("cyclegan256_dp"), [
+            "model.image_size=32", "data.load_size=36", "data.batch_size=2",
+            "model.g_base_features=8", "model.n_res_blocks=1",
+            "model.d_base_features=8", "model.d_layers=2",
+            "loss.lambda_lpips=0", f"model.compute_dtype={dtype}",
+            "model.resample=antialias"])
+        tr = CycleGANTrainer(cfg, "cuda")
+        rng = np.random.default_rng(1)
+        batch = tuple(rng.integers(0, 256, (2, 36, 36, 3), dtype=np.uint8)
+                      for _ in range(2))
+        s0 = tr.init_state(0)
+        torch.use_deterministic_algorithms(True)
+        try:
+            s1, m = tr.train_step(s0.clone(), batch)
+            s2, _ = tr.train_step(s0.clone(), batch)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert all(np.isfinite(float(v)) for v in m.values())
+        f1, f2 = jax_flat_from_train_state(s1), jax_flat_from_train_state(s2)
+        assert all(np.array_equal(f1[k], f2[k]) for k in f1)
+    x = _randn(dev, 2, 32, 32, 3).clamp(-1, 1)
+    cpu = CycleGANTrainer(cfg, "cpu")
+    want = cpu.translate(s1.to("cpu").ema, x.cpu(), "a2b")
+    got = tr.translate(s1.ema, x, "a2b").cpu()
+    assert (got - want).abs().max().item() <= ATOL

@@ -49,8 +49,9 @@ from uig.config import get_preset as jax_get_preset
 from uig.runtime import make_mesh
 from uig.train.cyclegan import CycleGANTrainer as JaxTrainer
 from uig_torch.config import apply_overrides, get_preset
-from uig_torch.convert import jax_flat_from_state, state_from_jax_flat
-from uig_torch.train import CycleGANTrainer
+from uig_torch.convert import (jax_flat_from_train_state,
+                               train_state_from_jax_flat)
+from uig_torch.train import CycleGANState, CycleGANTrainer
 
 OVERRIDES = [
     "model.image_size=32", "data.load_size=36", "data.batch_size=2",
@@ -106,10 +107,10 @@ def jax_draws(state, step: int, batch: int, load: int, crop: int,
 def jax_state_from_port(jtr, port_state, key):
     """The port's state as JAX's ``CycleGANState`` on ``jtr``'s mesh: the
     structure and dtypes (bf16 pools) from ``jax.eval_shape`` of JAX's init
-    (a trace, no compile), the values from ``jax_flat_from_state``, the key
-    ``key``."""
+    (a trace, no compile), the values from ``jax_flat_from_train_state``,
+    the key ``key``."""
     abstract = jax.eval_shape(jtr._abstract_state, key)
-    flat = jax_flat_from_state(port_state)
+    flat = jax_flat_from_train_state(port_state)
     flat["rng"] = np.asarray(key)
     flat["ada_p"] = np.float32(jtr.cfg.loss.ada_p_init)
     tree = serialization.from_state_dict(abstract, traverse_util.unflatten_dict(
@@ -133,8 +134,9 @@ def runs():
     batches = [tuple(rng.integers(0, 256, (2, 36, 36, 3), dtype=np.uint8)
                      for _ in range(2)) for _ in range(STEPS)]
     flat0 = _flat(jstate)
-    states = {"bf16": state_from_jax_flat(flat0, pool_dtype=torch.bfloat16),
-              "fp32": state_from_jax_flat(flat0)}
+    states = {"bf16": train_state_from_jax_flat(flat0, CycleGANState,
+                                                pool_dtype=torch.bfloat16),
+              "fp32": train_state_from_jax_flat(flat0, CycleGANState)}
     out = {"jax": [], "jax_metrics": [],
            **{k: {"flat": [], "metrics": [], "grads": []} for k in port}}
     threads = torch.get_num_threads()
@@ -150,7 +152,7 @@ def runs():
                 grads, m = tr._grads(states[k], batches[step], draws)
                 tr._update(states[k], grads)
                 out[k]["metrics"].append({n: float(v) for n, v in m.items()})
-                out[k]["flat"].append(jax_flat_from_state(states[k]))
+                out[k]["flat"].append(jax_flat_from_train_state(states[k]))
                 out[k]["grads"].append(grads)
     finally:
         torch.set_num_threads(threads)

@@ -39,6 +39,7 @@ import pytest
 import torch
 from flax import traverse_util
 from PIL import Image
+from threadpoolctl import threadpool_limits
 
 import uig.eval.fid as jfid
 import uig.eval.is_score as jis
@@ -66,9 +67,13 @@ JAX_OPTIONS = {"xla_backend_optimization_level": 0}
 
 @pytest.fixture(autouse=True)
 def one_thread():
+    """One thread for PyTorch and for the BLAS libraries (scipy's sqrtm in
+    the FID): spinning BLAS threads on a loaded host take several times
+    the test's own time."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(n)
 
 
@@ -93,9 +98,10 @@ def runs(tmp_path_factory):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        _train(tmp, "a", 6)
-        _train(tmp, "b", 3)
-        _train(tmp, "b", 6)
+        with threadpool_limits(1):
+            _train(tmp, "a", 6)
+            _train(tmp, "b", 3)
+            _train(tmp, "b", 6)
     finally:
         torch.set_num_threads(n)
     return tmp

@@ -262,7 +262,7 @@ def test_vqgan_resume_is_byte_identical(tmp_path):
     "run.steps_per_dispatch=2", "run.n_critic_fuse=true",
     "parallel.multihost=true", "parallel.num_devices=2", "model.kind=munit",
     "run.tensorboard=true", "data.source=tfrecord", "data.source=webdataset",
-    "model.kind=cut", "model.kind=vaegan", "model.kind=stargan",
+    "model.kind=gcgan", "model.kind=vaegan", "model.kind=stargan",
     "model.kind=vqgan_prior"])
 def test_refused_fields_raise(tmp_path, override):
     cfg = _cfg(str(tmp_path), "r", [override])

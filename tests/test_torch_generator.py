@@ -33,10 +33,16 @@ def _compiled(fn, *args):
 def setup():
     rng = np.random.default_rng(8)
     x = rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
-    params = _compiled(JaxGenerator(n_res_blocks=1).init,
-                       jax.random.PRNGKey(0), jnp.asarray(x))
-    flat = {k: np.asarray(v) for k, v in
-            traverse_util.flatten_dict(params, sep="/").items()}
+    # flax's parameter shapes from jax.eval_shape (a trace, no compile);
+    # values as the generator's initializers draw them (kernels
+    # normal(0.02), unit scales, zero biases), drawn with numpy
+    shapes = jax.eval_shape(JaxGenerator(n_res_blocks=1).init,
+                            jax.random.PRNGKey(0), jnp.asarray(x))
+    flat = {k: (0.02 * rng.standard_normal(v.shape) if k.endswith("kernel")
+                else np.full(v.shape, 1.0 * k.endswith("scale"))
+                ).astype(np.float32)
+            for k, v in sorted(traverse_util.flatten_dict(
+                shapes, sep="/").items())}
     # move IN scale/bias and conv biases off their init values
     for k in flat:
         if k.endswith(("/bias", "/scale")):
@@ -63,6 +69,32 @@ def test_generator_matches_jax(setup, jax_kernels):
     np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
-def test_antialias_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResNetGenerator(resample="antialias")
+@pytest.mark.parametrize("upsample", ["conv_transpose", "resize_conv"])
+def test_antialias_generator_matches_jax(upsample):
+    """resample="antialias" (the official CUT generator's BlurPool and
+    BlurUpsample; ``upsample`` is then ignored, as in JAX): base 8, one
+    residual block, flax's parameter shapes from ``jax.eval_shape`` with
+    values drawn by numpy."""
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    kw = dict(base_features=8, n_res_blocks=1, resample="antialias",
+              upsample=upsample)
+    jg = JaxGenerator(**kw)
+    shapes = jax.eval_shape(jg.init, jax.random.PRNGKey(0), jnp.asarray(x))
+    flat = {k: (rng.standard_normal(v.shape) / np.sqrt(np.prod(v.shape[:-1]))
+                if k.endswith("kernel") else
+                1.0 * k.endswith("scale") + 0.1 * rng.standard_normal(v.shape)
+                ).astype(np.float32)
+            for k, v in sorted(traverse_util.flatten_dict(
+                shapes, sep="/").items())}
+    params = traverse_util.unflatten_dict(
+        {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
+    port = ResNetGenerator(**kw)
+    assert port.num_layers == jg.num_layers == 3 + 8 + 1 + 8 + 2
+    port.load_state_dict(generator_state_from_flax(flat, port), strict=True)
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x)).numpy()
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(jax.jit(jg.apply)(params, jnp.asarray(x)))
+    assert got.shape == ref.shape == (2, 16, 16, 3)
+    np.testing.assert_allclose(got, ref, atol=ATOL)

@@ -227,7 +227,6 @@ _SMALL = ["model.image_size=32", "data.load_size=36", "data.batch_size=2",
     ("opt.grad_accum=2", "grad_accum"),
     ("opt.weight_decay=0.1", "weight_decay"),
     ("opt.grad_clip=1.0", "grad_clip"),
-    ("model.resample=antialias", "antialias"),
 ])
 def test_trainer_refuses_unported(override, match):
     cfg = apply_overrides(get_preset("cyclegan256_dp"), _SMALL + [override])

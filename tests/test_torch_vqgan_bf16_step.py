@@ -80,10 +80,10 @@ from uig.models.vqgan import VectorQuantizer as JaxVQ
 from uig.runtime import make_mesh
 from uig.train.vqgan_trainer import VQGANTrainer as JaxTrainer
 from uig_torch.config import apply_overrides, get_preset
-from uig_torch.convert import (jax_flat_from_vqgan_state,
-                               vqgan_state_from_jax_flat)
+from uig_torch.convert import (jax_flat_from_train_state,
+                               train_state_from_jax_flat)
 from uig_torch.models.vqgan import pin_codes
-from uig_torch.train import VQGANTrainer
+from uig_torch.train import VQGANState, VQGANTrainer
 
 BF16 = [o for o in OVERRIDES if not o.startswith("model.compute_dtype")] \
     + ["model.compute_dtype=bfloat16"]
@@ -137,14 +137,15 @@ def runs():
     port = {"bf16": VQGANTrainer(cfg, device="cpu"),
             "fp32": VQGANTrainer(apply_overrides(
                 cfg, ["model.compute_dtype=float32"]), device="cpu")}
-    init = jax_flat_from_vqgan_state(port["bf16"].init_state(0))
+    init = jax_flat_from_train_state(port["bf16"].init_state(0))
     init["rng"] = np.asarray(jax.random.PRNGKey(0))
     jstate = _jax_state(jtr, init)
     rng = np.random.default_rng(DATA_SEED)
     batches = [tuple(rng.integers(0, 256, (2, 36, 36, 3), dtype=np.uint8)
                      for _ in range(2)) for _ in range(STEPS)]
     flat0 = _flat(jstate)
-    states = {k: vqgan_state_from_jax_flat(flat0, seed=0) for k in port}
+    states = {k: train_state_from_jax_flat(flat0, VQGANState, seed=0)
+              for k in port}
     out = {"jax": [], "jax_metrics": [], "codes": [],
            **{k: {"flat": [], "metrics": [], "grads": []} for k in port},
            "half": {"grads": []}}
@@ -185,7 +186,7 @@ def runs():
                     tr._update(states[k], grads)
                     out[k]["metrics"].append(
                         {n: float(v) for n, v in m.items()})
-                    out[k]["flat"].append(jax_flat_from_vqgan_state(states[k]))
+                    out[k]["flat"].append(jax_flat_from_train_state(states[k]))
                     out[k]["grads"].append(grads)
                 out["codes"].append({"jax_forwards_differ": int(
                     (codes != codes2).sum()), **agree})

@@ -50,9 +50,9 @@ from uig.config import get_preset as jax_get_preset
 from uig.runtime import make_mesh
 from uig.train.vqgan_trainer import VQGANTrainer as JaxTrainer
 from uig_torch.config import apply_overrides, get_preset
-from uig_torch.convert import (jax_flat_from_vqgan_state,
-                               vqgan_state_from_jax_flat)
-from uig_torch.train import VQGANTrainer
+from uig_torch.convert import (jax_flat_from_train_state,
+                               train_state_from_jax_flat)
+from uig_torch.train import VQGANState, VQGANTrainer
 
 OVERRIDES = [
     "model.image_size=32", "data.load_size=36", "data.batch_size=2",
@@ -113,14 +113,14 @@ def run_both(data_seed: int) -> dict:
                                          OVERRIDES), make_mesh(1))
     ptr = VQGANTrainer(apply_overrides(get_preset("vqgan512"), OVERRIDES),
                        device="cpu")
-    init = jax_flat_from_vqgan_state(ptr.init_state(0))
+    init = jax_flat_from_train_state(ptr.init_state(0))
     init["rng"] = np.asarray(jax.random.PRNGKey(0))
     jstate = _jax_state(jtr, init)
     rng = np.random.default_rng(data_seed)
     batches = [tuple(rng.integers(0, 256, (2, 36, 36, 3), dtype=np.uint8)
                      for _ in range(2)) for _ in range(STEPS)]
     flat0 = _flat(jstate)
-    pstate = vqgan_state_from_jax_flat(flat0, seed=0)
+    pstate = train_state_from_jax_flat(flat0, VQGANState, seed=0)
     # the trainer's jitted step, compiled once with XLA's backend
     # optimization off: the same program, a third less compile time
     jax_step = jtr._train_step.lower(jstate, *batches[0]).compile(
@@ -142,15 +142,16 @@ def run_both(data_seed: int) -> dict:
             grads, metrics = ptr._grads(pstate, batches[step], draws)
             ptr._update(pstate, grads)
             pm.append({k: float(v) for k, v in metrics.items()})
-            port_flats.append(jax_flat_from_vqgan_state(pstate))
+            port_flats.append(jax_flat_from_train_state(pstate))
             pgrads.append(grads)
-        whole, _ = ptr.train_step(vqgan_state_from_jax_flat(flat0, seed=0),
+        whole, _ = ptr.train_step(
+            train_state_from_jax_flat(flat0, VQGANState, seed=0),
                                   batches[0], draws=draws0)
     finally:
         torch.set_num_threads(threads)
     return {"flat0": flat0, "jax": jax_flats, "port": port_flats,
             "jax_metrics": jm, "port_metrics": pm, "port_grads": pgrads,
-            "train_step_1": jax_flat_from_vqgan_state(whole)}
+            "train_step_1": jax_flat_from_train_state(whole)}
 
 
 @pytest.fixture(scope="module")
@@ -283,7 +284,8 @@ def test_train_step_is_grads_then_update(runs):
 
 def test_state_round_trip_is_bit_equal(runs):
     flat0 = runs["flat0"]
-    back = jax_flat_from_vqgan_state(vqgan_state_from_jax_flat(flat0))
+    back = jax_flat_from_train_state(
+        train_state_from_jax_flat(flat0, VQGANState))
     assert set(back) == set(flat0)
     for k, v in flat0.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
